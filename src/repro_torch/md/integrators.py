@@ -1,0 +1,114 @@
+"""BAOAB Langevin integrator (Leimkuhler-Matthews) in AKMA-ish units.
+
+positions Angstrom, velocities Angstrom/ps, masses amu, energies kcal/mol.
+acceleration = F / m * AKMA  (AKMA = 418.4 converts kcal/mol/A/amu to A/ps^2).
+
+The replica-major, force-sharing loop of the JAX package's
+``md/integrators.py``: ``max_steps + 1`` iterations, one force evaluation
+each, per-lane trail/lead masks so lanes with fewer steps stay frozen.
+``max_steps`` is a Python int from the caller (reading it off the device
+would synchronise with the host).  Noise is the same threefry stream the
+JAX package draws (``repro_torch.random``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch import random as jr
+
+AKMA = 418.4
+KB = 0.0019872041  # kcal/mol/K
+
+
+def maxwell_boltzmann(keys, masses, temperature: float, shape3):
+    """(..., 2) keys -> (..., N, 3) thermal velocities at one temperature."""
+    var = torch.full_like(masses, AKMA * KB * temperature) / masses
+    return torch.sqrt(var)[..., None] * jr.normal(keys, shape3)
+
+
+def baoab_scales(masses, temperature, dt: float, gamma: float):
+    """The loop-invariant BAOAB coefficients: the O-step decay ``c1 =
+    exp(-gamma dt)`` (a float32 value, as a Python float) and the
+    (R, N, 1) thermal noise scale ``sqrt(1 - c1^2) * sigma(T, m)``."""
+    # host float32 scalars, rounded once from float64 like XLA's constants
+    c1 = torch.tensor(math.exp(float(np.float32(-gamma * dt))),
+                      dtype=torch.float32)
+    sigma = torch.sqrt(AKMA * KB * temperature[:, None]
+                       / masses[None, :])[..., None]              # (R, N, 1)
+    return float(c1), float(torch.sqrt(1 - c1 * c1)) * sigma
+
+
+def baoab_fused_iteration(i: int, pos, vel, f, noise_i, c1, noise_scale,
+                          masses, n_steps, max_steps: int, dt: float):
+    """ONE masked force-sharing BAOAB update given this iteration's
+    force, noise block and scales.  Returns (pos, vel)."""
+    m = masses[None, :, None]
+    kick = 0.5 * dt * AKMA * f / m
+    # trailing half-B of step i-1: existed and was active iff i-1 < n
+    trail = ((n_steps >= i) & (i >= 1))[:, None, None]
+    vel = torch.where(trail, vel + kick, vel)
+    # step i: leading half-B, A, O, A (its trailing B is the NEXT
+    # iteration's force)
+    lead = ((n_steps > i) & (i < max_steps))[:, None, None]
+    nvel = vel + kick                                        # B
+    npos = pos + 0.5 * dt * nvel                             # A
+    nvel = c1 * nvel + noise_scale * noise_i                 # O
+    npos = npos + 0.5 * dt * nvel                            # A
+    return torch.where(lead, npos, pos), torch.where(lead, nvel, vel)
+
+
+def _baoab_apply(i: int, pos, vel, f, noise_i, masses, temperature,
+                 n_steps, max_steps: int, dt: float, gamma: float):
+    """One force-sharing BAOAB update over the whole replica stack.
+
+    The force of a step's trailing half-B equals the force of the next
+    step's leading half-B, so iteration i spends ONE force evaluation
+    twice: the trailing half-B of step i-1 (masked for i == 0) and the
+    leading half-B + A O A of step i (masked for i == max_steps)."""
+    c1, noise_scale = baoab_scales(masses, temperature, dt, gamma)
+    return baoab_fused_iteration(i, pos, vel, f, noise_i, c1, noise_scale,
+                                 masses, n_steps, max_steps, dt)
+
+
+def propagate_replica_major(state, force_fn: Callable, masses, temperature,
+                            n_steps, rngs, max_steps: int,
+                            dt: float = 5e-4, gamma: float = 5.0):
+    """Pre-drawn noise + ``max_steps + 1`` force-sharing BAOAB iterations.
+    ``state``: {"pos", "vel"} with leading replica axis; ``rngs``: (R, 2)
+    per-replica keys; ``n_steps``: (R,) per-replica step counts."""
+    out, _ = propagate_replica_major_aux(
+        state, lambda pos, aux: (force_fn(pos), aux), (), masses,
+        temperature, n_steps, rngs, max_steps, dt, gamma)
+    return out
+
+
+def propagate_replica_major_aux(state, force_aux_fn, aux, masses,
+                                temperature, n_steps, rngs, max_steps: int,
+                                dt: float = 5e-4, gamma: float = 5.0):
+    """:func:`propagate_replica_major` for force fields that carry
+    auxiliary state through the step loop.  Returns ({"pos", "vel"}, aux)."""
+    noise = stacked_step_noise(rngs, max_steps + 1, state["pos"].shape[1:])
+    pos, vel = state["pos"], state["vel"]
+    for i in range(max_steps + 1):
+        f, aux = force_aux_fn(pos, aux)
+        pos, vel = _baoab_apply(i, pos, vel, f, noise[i], masses,
+                                temperature, n_steps, max_steps, dt, gamma)
+    return {"pos": pos, "vel": vel}, aux
+
+
+def stacked_step_noise(rngs, max_steps: int, shape) -> torch.Tensor:
+    """Pre-draw every step's noise: noise[t, r] = normal(fold_in(rngs[r],
+    t), shape), as one wide draw -> (max_steps, R, *shape)."""
+    ts = torch.arange(max_steps, dtype=torch.int64, device=rngs.device)
+    keys = jr.fold_in(rngs[None, :, :], ts[:, None])            # (S, R, 2)
+    return jr.normal(keys, shape)
+
+
+def kinetic_temperature(vel, masses):
+    ke = 0.5 * torch.sum(masses[..., None] * vel * vel, dim=(-2, -1)) / AKMA
+    dof = 3 * masses.shape[-1]
+    return 2.0 * ke / (dof * KB)
