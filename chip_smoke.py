@@ -12,8 +12,10 @@ printed on its own lines:
   3. kernels      each kernel against its plain PyTorch version at
                   N = 2881, R = 4 and R = 64, within a stated tolerance
   4. timing       each kernel and its plain version at the main path's
-                  shape (R = 64, N = 2881), CUDA events, medians; the
-                  bound worked out from the code and this run's shapes
+                  shape (R = 64, N = 2881): the kernel's device time from
+                  CUDA-graph replays, its wrapper's host time beside it,
+                  the plain version's synchronised wall time; the bound
+                  worked out for the function from this run's data
   5. slice        the main path: T-REMD, 64 rungs, 2881 atoms,
                   ``run_fused(chunk_cycles=4)`` for 8 cycles, every chunk
                   under ``set_sync_debug_mode("error")``; each kernel must
@@ -33,6 +35,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -55,7 +58,19 @@ FP32_FLOPS_PER_S = 67e12
 # multiply, divide, square root or transcendental).
 BOND_OPS, ANGLE_OPS, TORSION_OPS = 21, 76, 116
 SLOT_OPS = 6              # one signed 3-vector accumulate per slot
-PAIR_OPS = 52             # per ordered pair, from nonbonded_pair_rows
+# The nonbonded bound counts what the function needs, not what the TPU
+# body does: each unordered pair the exclusion mask keeps, once (forces
+# are antisymmetric), in its cheapest form, with the per-atom constants
+# hoisted (sigma/2, 2 sqrt(eps), sqrt(COULOMB) q) and a fused
+# multiply-add counted as two operations, as the fp32 peak counts it:
+#   displacement 3, r^2 5, mixing 3 (sum, two products), 1/r^2 and
+#   1/r 2, (sigma^2/r^2)^3 4, LJ energy 3 + accumulate 1, LJ force
+#   coefficient 4, Coulomb energy 1 + accumulate 1, its coefficient 1,
+#   two force rows (LJ, elec) x 3 components x both atoms as FMAs 24.
+PAIR_OPS = 52
+# The TPU body (nonbonded_pair_rows) instead spends 52 operations on
+# every ordered pair, the diagonal included; printed for comparison only.
+TPU_BODY_PAIR_OPS = 52
 
 # Tolerances of kernel vs plain version, as max |diff| / max |plain| for
 # forces and relative error for energies.  Both compute the same
@@ -82,7 +97,50 @@ def rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 9) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a
+    CUDA graph, the graph replayed between two events (median of
+    ``reps`` replays, divided by ``calls``).  No Python runs between the
+    kernels of a replay, so the events see device time, not the host
+    cost of the wrapper."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def host_ms(fn, n: int = 50) -> float:
+    """Host time of one call of ``fn``: ``n`` calls issued back to back,
+    timed on the host clock before the device catches up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e3
+
+
 def median_ms(fn, n: int, warmup: int = 3) -> float:
+    """Wall time of one call, host included: CUDA events around each of
+    ``n`` synchronised calls, median."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -120,14 +178,19 @@ def environment() -> str:
 
 
 def build(libs) -> None:
+    """One ``nvcc`` per source, all started together (each ``load``
+    waits on its own compiler in a thread)."""
     phase("2 build")
-    from repro_torch.kernels import build_all
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    build_all(libs)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.load(), libs))
     for lib in libs:
         regs = [ln.strip() for ln in lib.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
-        print(f"{lib.name}: nvcc {lib.build_seconds:.1f} s -> {lib.path.name}")
+        took = ("cached" if lib.build_seconds is None
+                else f"nvcc {lib.build_seconds:.1f} s")
+        print(f"{lib.name}: {took} -> {lib.path.name}")
         for ln in regs:
             print(f"  {ln}")
     print(f"build seconds {time.perf_counter() - t0:.2f}")
@@ -180,7 +243,14 @@ def bounds(engine, n_rep: int):
                      + n * pk.slots.n_slots * SLOT_OPS + n_b + n_a + n_q)
     n_bytes = (n_rep * n * 3 * 4 + 3 * n * 4 + nb.mask_u8.numel()
                + 2 * n_rep * n * 3 * 4 + 2 * n_rep * 4)
-    n_ops = n_rep * n * n * PAIR_OPS
+    # the mask is symmetric with a zero diagonal: kept unordered pairs
+    n_pairs = int(nb.mask_u8.to(torch.int64).sum()) // 2
+    n_ops = n_rep * n_pairs * PAIR_OPS
+    tpu_ops = n_rep * n * n * TPU_BODY_PAIR_OPS
+    print(f"nonbonded: {n_pairs} unordered pairs kept of "
+          f"{n * (n - 1) // 2}; the TPU body's count (every ordered pair) "
+          f"{tpu_ops / 1e9:.3f} GFLOP -> "
+          f"{tpu_ops / FP32_FLOPS_PER_S * 1e3:.4f} ms, not the bound")
     out = {}
     for name, nbytes, ops in (("chain_forces", b_bytes, b_ops),
                               ("nonbonded", n_bytes, n_ops)):
@@ -193,21 +263,29 @@ def bounds(engine, n_rep: int):
 
 
 def timing(engine, pos, smi: str):
+    """Kernel: device time per call from CUDA-graph replays; beside it
+    the wrapper's host time per call.  Plain version: wall time of one
+    synchronised call (its host cost is part of it)."""
     phase(f"4 timing at R={R_MAIN}, N={N_ATOMS}")
     from repro_torch.kernels.chain_forces import ops as chain_ops
     from repro_torch.kernels.lj_forces import ops as nb_ops
     pk, nbp = engine._pack, engine._nb_pack
-    res = {
-        "chain_forces": (
-            median_ms(lambda: chain_ops.chain_forces_batched(pos, pk), 50),
-            median_ms(lambda: chain_ops.ref.bonded_forces_sparse(
-                pos, pk.top, pk.slots), 20)),
-        "nonbonded": (
-            median_ms(lambda: nb_ops.nonbonded_batched(pos, nbp), 30),
-            median_ms(lambda: nb_ops.nonbonded_plain(pos, nbp), 5, 1)),
+    kernels = {
+        "chain_forces": (lambda: chain_ops.chain_forces_batched(pos, pk),
+                         lambda: chain_ops.ref.bonded_forces_sparse(
+                             pos, pk.top, pk.slots), 20),
+        "nonbonded": (lambda: nb_ops.nonbonded_batched(pos, nbp),
+                      lambda: nb_ops.nonbonded_plain(pos, nbp), 5),
     }
-    for name, (k_ms, p_ms) in res.items():
-        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{smi}]")
+    res = {}
+    for name, (kernel, plain, n_plain) in kernels.items():
+        k_ms = graph_ms(kernel)
+        h_ms = host_ms(kernel)
+        p_ms = median_ms(plain, n_plain, 1)
+        res[name] = (k_ms, p_ms)
+        print(f"{name}: kernel {k_ms:.4f} ms device (graph replay), "
+              f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms "
+              f"[{smi}]")
     return res
 
 
@@ -237,7 +315,8 @@ def run_slice(libs, smi: str):
     print(f"ms/cycle {ms_cycle:.2f} (last chunk of 4 cycles; per chunk "
           f"{[round(t, 2) for t in per_chunk]}, the first includes warm-up; "
           f"whole run {wall / cfg.n_cycles * 1e3:.2f}) [{smi}]")
-    print(f"replica-steps/s {R_MAIN * cfg.md_steps_per_cycle / ms_cycle * 1e3:.0f}")
+    steps_per_s = R_MAIN * cfg.md_steps_per_cycle / ms_cycle * 1e3
+    print(f"replica-steps/s {steps_per_s:.0f}")
     print(f"acceptance_ratios {driver.acceptance_ratios()}")
     print(f"control_multiset_ok {ok_perm}, failures {failed}")
     print(f"launches {launches} (want {cfg.n_cycles * 11} each)")
@@ -304,10 +383,19 @@ def breakdown(driver, ens, ms_cycle: float, smi: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         driver.run_fused(ens, n_cycles=2, chunk_cycles=2)
-    busy = sum(e.device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / 2
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / 2
     print(f"profiled chunk: device kernel time {busy:.2f} ms/cycle, busy "
           f"share of the measured ms/cycle {busy / ms_cycle:.3f}")
+    calls = 2 * n_it
+    # kernel names as the trace gives them, mangled or not
+    for name, pattern in (
+            ("chain_forces", r"(?<!non)bonded_(edges|gather|energy)_kernel"),
+            ("nonbonded", r"nonbonded_(tile|energy)_kernel")):
+        dev = sum(e.device_time_total for e in kernels
+                  if re.search(pattern, e.name)) / 1e3
+        print(f"profiled chunk: {name} kernels {dev / calls:.4f} ms device "
+              f"per call ({calls} calls)")
 
 
 def small_against_cpu():

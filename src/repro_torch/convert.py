@@ -3,6 +3,8 @@
 Both functions take plain host arrays (anything ``np.asarray`` accepts,
 JAX arrays included), so the port imports nothing of JAX: the caller
 hands over ``jax.random.key_data(ens.rng)`` for the driver key.  The
+caller names the device: like every entry point of the port, nothing
+here lands on the CPU unless asked.  The
 tests use them to run both packages from identical state.
 """
 from __future__ import annotations
@@ -16,7 +18,7 @@ from repro_torch.core.ensemble import Ensemble
 from repro_torch.md.system import MolecularSystem
 
 
-def system_from_arrays(src, device="cpu") -> MolecularSystem:
+def system_from_arrays(src, device) -> MolecularSystem:
     """The port's ``MolecularSystem`` from any object with the JAX
     package's ``MolecularSystem`` fields (each read with ``np.asarray``)."""
     kwargs = {}
@@ -33,7 +35,7 @@ def system_from_arrays(src, device="cpu") -> MolecularSystem:
     return MolecularSystem(**kwargs)
 
 
-def ensemble_from_arrays(ens, rng_key_data, device="cpu") -> Ensemble:
+def ensemble_from_arrays(ens, rng_key_data, device) -> Ensemble:
     """The port's ``Ensemble`` from a JAX ``Ensemble`` (fields read with
     ``np.asarray``; ``state`` a dict of arrays) and its driver key's raw
     data, ``jax.random.key_data(ens.rng)`` (two uint32 words)."""

@@ -88,7 +88,7 @@ def _pair_table(shape, device) -> PairTable:
                      count=t(valid.sum(-1).astype(np.float32)))
 
 
-def build_grid(cfg: RepExConfig, device="cpu") -> ControlGrid:
+def build_grid(cfg: RepExConfig, device) -> ControlGrid:
     dims: List[ExchangeDim] = []
     n_umbrella = 0
     shape = []

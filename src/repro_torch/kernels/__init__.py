@@ -7,15 +7,16 @@
                  exclusion mask; replaces ``nonbonded_kernel_batched``.
 
 Each subpackage: ``csrc/*.cu`` (CUDA C++ for ``sm_90a`` with a plain C
-entry point), ``ops.py`` (the ctypes wrapper, its launch counter and the
-kernel's plain PyTorch version), ``ref.py`` (the PyTorch oracle, which is
-also the CPU path).  Dispatch is by device: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or raises.
+entry point), ``ops.py`` (the ctypes wrapper with its launch counter,
+one MD-facing entry point, and ``nonbonded_plain``), ``ref.py`` (the
+PyTorch oracle, which is also the CPU path, and ``bonded_forces_sparse``;
+the two named functions are the kernels' plain versions).  The entry point
+dispatches by device: a CUDA tensor goes to the kernel, which launches
+or raises, a CPU tensor to the oracle.
 
-Build: ``KernelLibrary`` compiles one source with ``nvcc`` into a shared
-library under ``build/repro_torch/`` (cached by a hash of the source and
-flags) at first use, and loads it with ``ctypes``.  ``build_all`` starts
-one ``nvcc`` per source at once, so a cold start pays one compile time.
+Build: ``KernelLibrary.load`` compiles one source with ``nvcc`` into a
+shared library under ``build/repro_torch/`` (cached by a hash of the
+source and flags) at first use, and loads it with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -26,13 +27,14 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Optional
 
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+REPLICA_CHUNK = 8   # replicas per chunk of the plain (R, N, N) pair planes
 
 
 def pad_to_block(n: int, block: int) -> int:
@@ -68,8 +70,6 @@ class KernelLibrary:
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._lib: Optional[ctypes.CDLL] = None
-        self._proc: Optional[subprocess.Popen] = None
-        self._t0 = 0.0
 
     @property
     def path(self) -> Path:
@@ -77,35 +77,26 @@ class KernelLibrary:
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"lib{self.name}-{digest[:16]}.so"
 
-    def start_build(self) -> None:
-        """Start ``nvcc`` in the background unless the library is built."""
-        if self.path.is_file() or self._proc is not None:
-            return
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        self._t0 = time.perf_counter()
-        self._proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-    def finish_build(self) -> None:
-        """Wait for a started build; raise with the compiler's output."""
-        if self._proc is None:
-            return
-        proc, self._proc = self._proc, None
-        out, _ = proc.communicate()
-        self.build_log = out
-        self.build_seconds = time.perf_counter() - self._t0
-        tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
-        os.replace(tmp, self.path)
-
     def load(self) -> ctypes.CDLL:
+        """Build the library unless it is cached, then load it; raise
+        with the compiler's output if ``nvcc`` fails."""
         if self._lib is None:
-            self.start_build()
-            self.finish_build()
-            self._lib = ctypes.CDLL(str(self.path))
+            path = self.path
+            if not path.is_file():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                     str(self.source)],
+                    capture_output=True, text=True, check=False)
+                self.build_seconds = time.perf_counter() - t0
+                self.build_log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed for {self.source}:\n{self.build_log}")
+                os.replace(tmp, path)
+            self._lib = ctypes.CDLL(str(path))
         return self._lib
 
     def function(self, name: str, argtypes):
@@ -116,17 +107,6 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
             fn.argtypes = list(argtypes)
         return fn
-
-
-def build_all(libs: Iterable[KernelLibrary]) -> None:
-    """Build every library in parallel (one nvcc each), then load them."""
-    libs = list(libs)
-    for lib in libs:
-        lib.start_build()
-    for lib in libs:
-        lib.finish_build()
-    for lib in libs:
-        lib.load()
 
 
 def check_cuda(tensors, names) -> None:

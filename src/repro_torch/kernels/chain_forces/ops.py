@@ -5,11 +5,12 @@ tables the CUDA kernel reads, once: per-role atom indices, parameter
 rows and the (N, S) slot table.  Unlike the TPU kernel, no one-hot
 gather matrix is built (at N = 2881 it would be 2944 x 26496 f32).
 
-``chain_forces_batched`` is the kernel wrapper: a CUDA stack launches
-``csrc/chain_forces.cu``; a CPU stack runs the kernel's plain PyTorch
-version (``ref.bonded_forces_sparse``, the same two phases).
-``bonded_forces`` is the MD-facing entry point: the dense PyTorch oracle
-on the CPU (the JAX package's CPU path), the kernel on the card.
+``bonded_forces`` is the one MD-facing entry point: a CUDA stack goes
+through the kernel (``chain_forces_batched``, which launches
+``csrc/chain_forces.cu`` and counts the launch), a CPU stack through the
+dense PyTorch oracle (``ref.bonded_forces``, the JAX package's CPU path).
+The kernel's plain version, the same two phases in PyTorch, is
+``ref.bonded_forces_sparse``.
 """
 from __future__ import annotations
 
@@ -66,8 +67,9 @@ def build_pack(system) -> ChainForcePack:
 _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def _launch(pos: torch.Tensor, pack: ChainForcePack):
-    fn = LIBRARY.function("chain_forces_launch", _ARGTYPES)
+def chain_forces_batched(pos: torch.Tensor, pack: ChainForcePack):
+    """The kernel: a CUDA (R, N, 3) stack -> (forces (R, N, 3),
+    e_bonded (R,)) in one launch; anything else raises."""
     r, n, _ = pos.shape
     nb, na, nq = (pack.bonds.shape[0], pack.angles.shape[0],
                   pack.quads.shape[0])
@@ -81,6 +83,7 @@ def _launch(pos: torch.Tensor, pack: ChainForcePack):
     if pos.dtype != torch.float32 or n != pack.n_atoms:
         raise ValueError(f"pos must be float32 (R, {pack.n_atoms}, 3), got "
                          f"{pos.dtype} {tuple(pos.shape)}")
+    fn = LIBRARY.function("chain_forces_launch", _ARGTYPES)
     edges = torch.empty((r, 6 * w, 3), dtype=torch.float32,
                         device=pos.device)
     term_e = torch.empty((r, 3, w), dtype=torch.float32, device=pos.device)
@@ -94,18 +97,10 @@ def _launch(pos: torch.Tensor, pack: ChainForcePack):
     return force, energy
 
 
-def chain_forces_batched(pos: torch.Tensor, pack: ChainForcePack):
-    """(R, N, 3) stack -> (forces (R, N, 3), e_bonded (R,)) through the
-    bonded kernel; on a CPU stack, through its plain PyTorch version."""
-    if default_use_kernel(pos):
-        return _launch(pos.contiguous(), pack)
-    return ref.bonded_forces_sparse(pos, pack.top, pack.slots)
-
-
 def bonded_forces(pos: torch.Tensor, pack: ChainForcePack):
     """(R, N, 3) stack -> (forces (R, N, 3), e_bonded (R,)): analytic
-    bonds + angles + torsions.  The dense PyTorch oracle on the CPU, the
-    CUDA kernel on the card."""
+    bonds + angles + torsions.  The CUDA kernel on the card, the dense
+    PyTorch oracle on the CPU."""
     if default_use_kernel(pos):
-        return chain_forces_batched(pos, pack)
+        return chain_forces_batched(pos.contiguous(), pack)
     return ref.bonded_forces(pos, pack.top)

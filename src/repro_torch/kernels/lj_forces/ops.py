@@ -5,12 +5,13 @@ what the CUDA kernel reads, once: the sqrt(eps) row and a uint8 copy of
 the 0/1 exclusion mask (8.7 MB at N = 2881 instead of the 34.7 MB f32
 mask, so it stays in the 50 MB L2 while every replica re-reads it).
 
-``nonbonded_batched`` is the kernel wrapper: a CUDA stack launches
-``csrc/nonbonded.cu``; a CPU stack runs the kernel's plain PyTorch
-version, ``nonbonded_plain`` (the direct pair sums of the TPU kernel's
-``nonbonded_pair_rows``).  ``nonbonded`` / ``nonbonded_force`` are the
-MD-facing entry points: the PyTorch oracle (``ref``) on the CPU, the
-kernel on the card, with the salt scale applied outside the kernel.
+``nonbonded_force`` is the one MD-facing entry point: a CUDA stack goes
+through the kernel (``nonbonded_batched``, which launches
+``csrc/nonbonded.cu`` and counts the launch), with the salt scale applied
+outside it; a CPU stack through the PyTorch oracle
+(``ref.nonbonded_force``, the JAX package's CPU path).  The kernel's
+plain version, ``nonbonded_plain``, makes the same direct pair sums as
+the TPU kernel's ``nonbonded_pair_rows``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import (KernelLibrary, check_cuda,
+from repro_torch.kernels import (REPLICA_CHUNK, KernelLibrary, check_cuda,
                                  default_use_kernel, pad_to_block,
                                  raise_on_error, stream_ptr)
 from repro_torch.kernels.lj_forces import ref
@@ -29,7 +30,6 @@ LIBRARY = KernelLibrary(
     "nonbonded", Path(__file__).parent / "csrc" / "nonbonded.cu")
 
 TILE = 128          # atoms per tile; must match kTile in nonbonded.cu
-PLAIN_BLOCK = 8     # replicas per chunk of the plain version's (R, N, N) planes
 
 
 class NonbondedPack(NamedTuple):
@@ -81,8 +81,8 @@ def nonbonded_plain(pos: torch.Tensor, pack: NonbondedPack):
     """The kernel's plain PyTorch version: the same direct pair sums
     ``F_i = sum_j c_ij (x_i - x_j)`` (no rowsum identity), chunked over
     replicas so the (R, N, N) planes stay a few GB at N = 2881."""
-    outs = [_plain_block(pos[i:i + PLAIN_BLOCK], pack)
-            for i in range(0, pos.shape[0], PLAIN_BLOCK)]
+    outs = [_plain_block(pos[i:i + REPLICA_CHUNK], pack)
+            for i in range(0, pos.shape[0], REPLICA_CHUNK)]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
@@ -90,8 +90,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
-def _launch(pos: torch.Tensor, pack: NonbondedPack):
-    fn = LIBRARY.function("nonbonded_launch", _ARGTYPES)
+def nonbonded_batched(pos: torch.Tensor, pack: NonbondedPack):
+    """The kernel: a CUDA (R, N, 3) stack -> (f_lj (R, N, 3),
+    f_el (R, N, 3), e_lj (R,), e_el (R,)) in one launch; anything else
+    raises."""
     r, n, _ = pos.shape
     rows = (pack.lj_sigma, pack.sqrt_eps, pack.charges, pack.mask_u8)
     check_cuda((pos,) + rows,
@@ -99,6 +101,7 @@ def _launch(pos: torch.Tensor, pack: NonbondedPack):
     if pos.dtype != torch.float32 or n != pack.lj_sigma.shape[0]:
         raise ValueError(f"pos must be float32 (R, {pack.lj_sigma.shape[0]},"
                          f" 3), got {pos.dtype} {tuple(pos.shape)}")
+    fn = LIBRARY.function("nonbonded_launch", _ARGTYPES)
     ld = pack.mask_u8.shape[1]
     f_lj = torch.empty_like(pos)
     f_el = torch.empty_like(pos)
@@ -114,24 +117,6 @@ def _launch(pos: torch.Tensor, pack: NonbondedPack):
     return f_lj, f_el, e_lj, e_el
 
 
-def nonbonded_batched(pos: torch.Tensor, pack: NonbondedPack):
-    """(R, N, 3) stack through the nonbonded kernel: one call ->
-    (f_lj (R, N, 3), f_el (R, N, 3), e_lj (R,), e_el (R,)); on a CPU
-    stack, through its plain PyTorch version."""
-    if default_use_kernel(pos):
-        return _launch(pos.contiguous(), pack)
-    return nonbonded_plain(pos, pack)
-
-
-def nonbonded(pos: torch.Tensor, pack: NonbondedPack):
-    """LJ + elec forces and energies: the oracle on the CPU, the kernel
-    on the card."""
-    if default_use_kernel(pos):
-        return nonbonded_batched(pos, pack)
-    return ref.nonbonded(pos, pack.lj_sigma, pack.lj_eps, pack.charges,
-                         pack.nb_mask)
-
-
 def nonbonded_force(pos: torch.Tensor, pack: NonbondedPack,
                     salt_scale=None):
     """Combined (salt-scaled) nonbonded force for the propagate loop:
@@ -140,7 +125,7 @@ def nonbonded_force(pos: torch.Tensor, pack: NonbondedPack,
     if not default_use_kernel(pos):
         return ref.nonbonded_force(pos, pack.lj_sigma, pack.lj_eps,
                                    pack.charges, pack.nb_mask, salt_scale)
-    f_lj, f_el, _, _ = nonbonded_batched(pos, pack)
+    f_lj, f_el, _, _ = nonbonded_batched(pos.contiguous(), pack)
     if salt_scale is not None:
         f_el = salt_scale[..., None, None] * f_el
     return f_lj + f_el

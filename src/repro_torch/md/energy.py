@@ -16,10 +16,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import REPLICA_CHUNK
 from repro_torch.kernels.lj_forces.ref import COULOMB
 from repro_torch.md.system import MolecularSystem
 
-PAIR_BLOCK = 8      # replicas per chunk of the (R, N, N) pair planes
 _RAD2DEG = 180.0 / 3.141592653589793
 
 
@@ -100,8 +100,8 @@ def _pair_energies(pos, sys: MolecularSystem):
 def _batched_pair_terms(pos, sys: MolecularSystem
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(LJ, elec) energies, each (R,), chunked over replicas."""
-    parts = [_pair_energies(pos[i:i + PAIR_BLOCK], sys)
-             for i in range(0, pos.shape[0], PAIR_BLOCK)]
+    parts = [_pair_energies(pos[i:i + REPLICA_CHUNK], sys)
+             for i in range(0, pos.shape[0], REPLICA_CHUNK)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
 

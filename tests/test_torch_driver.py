@@ -56,8 +56,12 @@ def jax_runs(jax_system):
     return runs
 
 
+def _cpu_system(jax_system):
+    return convert.system_from_arrays(jax_system, device="cpu")
+
+
 def _port_driver(jax_system):
-    eng = MDEngine(convert.system_from_arrays(jax_system), device="cpu")
+    eng = MDEngine(_cpu_system(jax_system), device="cpu")
     return REMDDriver(eng, RepExConfig(**CFG), device="cpu")
 
 
@@ -118,7 +122,8 @@ def test_run_fused_from_converted_ensemble(chunk, jax_system, jax_runs,
                                            monkeypatch):
     jens0, jdrv, jout = jax_runs[chunk]
     tens0 = convert.ensemble_from_arrays(jens0,
-                                         jax.random.key_data(jens0.rng))
+                                         jax.random.key_data(jens0.rng),
+                                         device="cpu")
     tdrv = _port_driver(jax_system)
     seen = _record_metropolis(monkeypatch)
     tout = tdrv.run_fused(tens0, chunk_cycles=chunk)
@@ -156,14 +161,15 @@ def test_energy_pair_matches_jax(jax_system, jax_runs):
     """The exchange energies (features + ctrl reduction) of one state."""
     jens0, jdrv, _ = jax_runs[1]
     jeng = jdrv.engine
-    teng = MDEngine(convert.system_from_arrays(jax_system), device="cpu")
+    teng = MDEngine(_cpu_system(jax_system), device="cpu")
     tdrv = _port_driver(jax_system)
     ctrl_j = {k: v for k, v in jdrv.grid.values.items()}
     ctrl_t = {k: v for k, v in tdrv.grid.values.items()}
     np.testing.assert_array_equal(ctrl_t["beta"].numpy(),
                                   np.asarray(ctrl_j["beta"]))
     tens0 = convert.ensemble_from_arrays(jens0,
-                                         jax.random.key_data(jens0.rng))
+                                         jax.random.key_data(jens0.rng),
+                                         device="cpu")
     u_t = teng.energy_pair(tens0.state, ctrl_t, ctrl_t)
     u_j = jeng.energy_pair(jens0.state, ctrl_j, ctrl_j)
     for a, b in zip(u_t, u_j):
@@ -180,11 +186,12 @@ def test_energy_pair_matches_jax(jax_system, jax_runs):
 def test_detect_recover_matches_jax(policy, jax_system, jax_runs):
     """A NaN replica is detected and mended (or retired) as in JAX."""
     jens0, _, _ = jax_runs[1]
-    teng = MDEngine(convert.system_from_arrays(jax_system), device="cpu",
+    teng = MDEngine(_cpu_system(jax_system), device="cpu",
                     max_bond_stretch=3.0, max_energy=1e4)
     jeng_s = JEngine(jax_system, max_bond_stretch=3.0, max_energy=1e4)
     assert teng.failure_detectors == jeng_s.failure_detectors
-    tens = convert.ensemble_from_arrays(jens0, jax.random.key_data(jens0.rng))
+    tens = convert.ensemble_from_arrays(
+        jens0, jax.random.key_data(jens0.rng), device="cpu")
     backup_t = {k: v + 1.0 for k, v in tens.state.items()}
     pos = tens.state["pos"].clone()
     pos[1, 3, 0] = float("nan")
@@ -222,8 +229,8 @@ def test_device_defaults_to_cuda_and_never_falls_back(jax_system,
         assert inspect.signature(obj).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        MDEngine(convert.system_from_arrays(jax_system))
-    eng = MDEngine(convert.system_from_arrays(jax_system), device="cpu")
+        MDEngine(_cpu_system(jax_system))
+    eng = MDEngine(_cpu_system(jax_system), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         REMDDriver(eng, RepExConfig(**CFG))
 
@@ -239,7 +246,7 @@ def test_device_defaults_to_cuda_and_never_falls_back(jax_system,
 ])
 def test_unported_options_raise(kwargs, jax_system):
     cfg = RepExConfig(**dict(CFG, **kwargs.pop("cfg", {})))
-    eng = MDEngine(convert.system_from_arrays(jax_system), device="cpu")
+    eng = MDEngine(_cpu_system(jax_system), device="cpu")
     with pytest.raises(NotImplementedError):
         REMDDriver(eng, cfg, device="cpu", **kwargs)
 
@@ -249,5 +256,5 @@ def test_unported_options_raise(kwargs, jax_system):
                                     dict(bonded="sparse")])
 def test_unported_engine_paths_raise(kwargs, jax_system):
     with pytest.raises(NotImplementedError):
-        MDEngine(convert.system_from_arrays(jax_system), device="cpu",
+        MDEngine(_cpu_system(jax_system), device="cpu",
                  **kwargs)

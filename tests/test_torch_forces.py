@@ -33,7 +33,7 @@ ENERGY_RTOL = 1e-5
 
 def _setup(n_atoms, seed=0):
     jsys = j_chain_molecule(n_atoms)
-    tsys = convert.system_from_arrays(jsys)
+    tsys = convert.system_from_arrays(jsys, device="cpu")
     rng = np.random.default_rng(seed)
     # the JAX package's start geometry: the extended chain + 0.1 A jitter
     pos = (base_positions(tsys)[None]
@@ -57,7 +57,8 @@ def _close(got, want, what, energy=False):
 def test_bonded_plain_matches_pallas_and_ref(n_atoms):
     jsys, tsys, pos = _setup(n_atoms)
     pack = chain_ops.build_pack(tsys)
-    f_t, e_t = chain_ops.chain_forces_batched(torch.from_numpy(pos), pack)
+    f_t, e_t = chain_ref.bonded_forces_sparse(torch.from_numpy(pos),
+                                              pack.top, pack.slots)
     jpack = j_chain_ops.build_pack(jsys)
     f_k, e_k = j_chain_ops.bonded_forces(jnp.asarray(pos), jpack,
                                          use_kernel=True, interpret=True)
@@ -97,8 +98,8 @@ def _nb_args(jsys):
 @pytest.mark.parametrize("n_atoms", [10, 22, 40])
 def test_nonbonded_plain_matches_pallas_and_ref(n_atoms):
     jsys, tsys, pos = _setup(n_atoms, seed=2)
-    out_t = nb_ops.nonbonded_batched(torch.from_numpy(pos),
-                                     nb_ops.build_pack(tsys))
+    out_t = nb_ops.nonbonded_plain(torch.from_numpy(pos),
+                                   nb_ops.build_pack(tsys))
     out_k = j_nb_ops.nonbonded_batched(jnp.asarray(pos), *_nb_args(jsys),
                                        interpret=True)
     out_r = j_nb_ref.nonbonded(jnp.asarray(pos), *_nb_args(jsys))
@@ -114,7 +115,9 @@ def test_nonbonded_oracle_and_force_match_ref(salted):
     pack = nb_ops.build_pack(tsys)
     tpos = torch.from_numpy(pos)
     for field, a, b in zip(("f_lj", "f_el", "e_lj", "e_el"),
-                           nb_ops.nonbonded(tpos, pack),
+                           nb_ref.nonbonded(tpos, pack.lj_sigma,
+                                            pack.lj_eps, pack.charges,
+                                            pack.nb_mask),
                            j_nb_ref.nonbonded(jnp.asarray(pos),
                                               *_nb_args(jsys))):
         _close(a, b, field, energy=field.startswith("e"))
@@ -145,7 +148,8 @@ def test_plain_versions_match_oracles():
     _, tsys, pos = _setup(40, seed=4)
     tpos = torch.from_numpy(pos)
     cpack = chain_ops.build_pack(tsys)
-    for a, b in zip(chain_ops.chain_forces_batched(tpos, cpack),
+    for a, b in zip(chain_ref.bonded_forces_sparse(tpos, cpack.top,
+                                                   cpack.slots),
                     chain_ref.bonded_forces(tpos, cpack.top)):
         _close(a, b, "bonded plain vs dense")
     npack = nb_ops.build_pack(tsys)
@@ -153,3 +157,14 @@ def test_plain_versions_match_oracles():
                     nb_ref.nonbonded(tpos, npack.lj_sigma, npack.lj_eps,
                                      npack.charges, npack.nb_mask)):
         _close(a, b, "nonbonded plain vs rowsum oracle")
+
+
+def test_kernels_take_no_cpu_tensor():
+    """The kernel wrappers never fall back: a CPU stack raises there,
+    and only the MD-facing entry points route it to the oracles."""
+    _, tsys, pos = _setup(22, seed=5)
+    tpos = torch.from_numpy(pos)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        chain_ops.chain_forces_batched(tpos, chain_ops.build_pack(tsys))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        nb_ops.nonbonded_batched(tpos, nb_ops.build_pack(tsys))

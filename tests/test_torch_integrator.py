@@ -26,6 +26,10 @@ N_STEPS = np.array([3, 1, 0, 2], np.int32)        # lane 2 stays frozen
 MAX_STEPS = 3
 
 
+def _cpu_system(jsys):
+    return convert.system_from_arrays(jsys, device="cpu")
+
+
 def _inputs(seed=0):
     rng = np.random.default_rng(seed)
     f32 = np.float32
@@ -77,7 +81,7 @@ def test_propagate_replica_major_matches():
     masked lanes, from the same positions, velocities and keys."""
     jsys = j_chain_molecule(N)
     jeng = JEngine(jsys)
-    teng = MDEngine(convert.system_from_arrays(jsys), device="cpu")
+    teng = MDEngine(_cpu_system(jsys), device="cpu")
     d = _inputs(seed=7)
     rng = np.random.default_rng(7)
     pos = (np.asarray(jax.device_get(jeng.init_state(jax.random.key(1), R)
@@ -107,7 +111,7 @@ def test_engine_propagate_matches():
     """``MDEngine.propagate`` end to end (per-replica keys, ctrl rows)."""
     jsys = j_chain_molecule(N)
     jeng = JEngine(jsys)
-    teng = MDEngine(convert.system_from_arrays(jsys), device="cpu")
+    teng = MDEngine(_cpu_system(jsys), device="cpu")
     jstate = jeng.init_state(jax.random.key(2), R)
     tstate = teng.init_state(jr.key(2), R)
     for k in ("pos", "vel"):                 # normals within 1 ulp
