@@ -7,11 +7,12 @@ The quickest proof that the port still starts on the GPU.  Phases, each
 printed on its own lines:
 
   1. environment  card name and power limit, CUDA, nvcc, triton
-  2. build        both kernels from ``src/repro_torch/kernels/*/csrc``,
+  2. build        the four kernels from ``src/repro_torch/kernels/*/csrc``,
                   one ``nvcc`` per source, all started together
-  3. kernels      each kernel against its plain PyTorch version at
-                  N = 2881, R = 4 and R = 64, within a stated tolerance
-  4. timing       each kernel and its plain version at the main path's
+  3. kernels      the bonded and nonbonded kernels against their plain
+                  PyTorch versions at N = 2881, R = 4 and R = 64, within
+                  a stated tolerance
+  4. timing       each of them and its plain version at the main path's
                   shape (R = 64, N = 2881): the kernel's device time from
                   CUDA-graph replays, its wrapper's host time beside it,
                   the plain version's synchronised wall time; the bound
@@ -26,6 +27,26 @@ printed on its own lines:
                   PyTorch oracles) must make the same exchange decisions
   6. invariance   R = 8, N = 2881, 4 cycles at chunk sizes 1 and 4:
                   identical assignment rows, bitwise equal positions
+  7. kernels      the fused BAOAB kernel (bias off, bias on, salt on), the
+                  bonded kernel's bias variant and the exchange-matrix
+                  kernel against their plain versions at N = 2881, R = 4
+                  and R = 384; then each timed at R = 384 as in phase 4
+  8. TSU slice    the paper's grid, temperature x umbrella(phi) x
+                  umbrella(psi) = 6 x 8 x 8 = 384 replicas at 2881 atoms,
+                  ``force_path="fused"``, 10 MD steps per cycle,
+                  ``run_fused(chunk_cycles=3)``: 6 cycles of the DEO
+                  neighbor scheme (two round-robin sweeps of the three
+                  dimensions), then 3 of the matrix (Gibbs) scheme.  The
+                  fused kernel must launch cycles x 11 times, the per-pass
+                  kernels never, the exchange matrix once per matrix cycle;
+                  8b: where a fused TSU cycle's time goes
+  9. TSU per-pass the same grid on ``force_path="pallas"`` for 3 cycles
+                  (the bonded kernel's bias variant and the nonbonded
+                  kernel, 33 launches each)
+ 10. invariance   the fused path at R = 8 (2 x 2 x 2 T x U x U), N = 2881,
+                  3 cycles at chunk sizes 1 and 3: bitwise equal positions;
+                  then a small fused matrix-scheme run on the card and on
+                  the CPU must make the same decisions
 
 Any failed check raises and the script exits non-zero.  The next to last
 line is the kernels' JSON record, the last line the device record.
@@ -82,6 +103,30 @@ TOL_NB_FORCE, TOL_NB_ENERGY = 1e-4, 1e-5
 # The small end-to-end run: CUDA kernels vs the CPU oracles (the dense
 # incidence and rowsum forms) after 4 cycles, Angstrom.
 TOL_SMALL_POS = 1e-3
+
+# The second slice: the paper's T x U x U grid.
+TSU_DIMS = (("temperature", 6), ("umbrella", 8), ("umbrella", 8))
+R_TSU = 384
+# One fused iteration vs its plain version, as max |diff| / max |plain|:
+# the force errors above (summation order, FMA contraction) reach the
+# velocity through dt * AKMA / m, the positions through dt / 2 more.
+TOL_FUSED_POS, TOL_FUSED_VEL = 1e-6, 1e-4
+# The fused pass counts each kept pair once for its two force rows (the
+# energy terms of PAIR_OPS dropped: 3 + 1 and 1 + 1), and per atom the
+# salt-scaled sum (9) and the B-A-O-A-B update (27).
+PAIR_FORCE_OPS = PAIR_OPS - 6
+ATOM_UPDATE_OPS = 9 + 27
+BIAS_OPS = 2 * 8          # two bias torques per replica: wrap + 4 products
+# The exchange matrix per element: salt scale 2, elec term 2, two wraps
+# 5 each, two bias terms 3 each, beta 1.
+XMAT_OPS = 21
+
+
+def reset(libs) -> None:
+    """Every launch count to 0, just before a path is driven."""
+    torch.cuda.synchronize()
+    for lib in libs:
+        lib.reset()
 
 
 def phase(name: str) -> None:
@@ -302,12 +347,12 @@ def run_slice(libs, smi: str):
     driver = REMDDriver(engine, cfg, device="cuda")
     ens = driver.init(SEED)
     torch.cuda.synchronize()
-    for lib in libs:
-        lib.launches = 0
+    reset(libs)
     t0 = time.perf_counter()
     ens = driver.run_fused(ens, chunk_cycles=4)
     wall = time.perf_counter() - t0
     launches = {lib.name: lib.launches for lib in libs}
+    variants = {lib.name: dict(lib.variants) for lib in libs}
     per_chunk = [h["t_step"] * 1e3 for h in driver.history[::4]]
     ms_cycle = per_chunk[-1]                  # steady state: the last chunk
     failed = sum(h["failed"] for h in driver.history)
@@ -319,9 +364,14 @@ def run_slice(libs, smi: str):
     print(f"replica-steps/s {steps_per_s:.0f}")
     print(f"acceptance_ratios {driver.acceptance_ratios()}")
     print(f"control_multiset_ok {ok_perm}, failures {failed}")
-    print(f"launches {launches} (want {cfg.n_cycles * 11} each)")
-    check(all(v == cfg.n_cycles * 11 for v in launches.values()),
-          "each kernel launched 8 cycles x 11 evaluations")
+    print(f"launches {launches}, by variant {variants} (want "
+          f"{cfg.n_cycles * 11} of the bonded bias=False variant and of the "
+          f"nonbonded kernel, 0 of the others)")
+    check(launches == {"chain_forces": cfg.n_cycles * 11,
+                       "nonbonded": cfg.n_cycles * 11,
+                       "fused_baoab": 0, "exchange_matrix": 0}
+          and variants["chain_forces"] == {"plain": cfg.n_cycles * 11},
+          "each per-pass kernel launched 8 cycles x 11 evaluations")
     check(ok_perm, "assignment is a permutation")
     check(failed == 0, "no replica failed")
     pos = ens.state["pos"]
@@ -443,6 +493,376 @@ def invariance():
     check(same_rows and same_pos, "decisions independent of chunk size")
 
 
+def tsu_engine(path: str = "fused", n_atoms: int = N_ATOMS):
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    return MDEngine(chain_molecule(n_atoms), force_path=path, device="cuda")
+
+
+def tsu_grid():
+    from repro_torch.config import RepExConfig
+    from repro_torch.core.controls import build_grid
+    return build_grid(RepExConfig(dimensions=TSU_DIMS), "cuda")
+
+
+def second_slice_inputs(engine, grid, n_rep: int):
+    """Inputs of the second slice's kernels at the TSU grid's first
+    ``n_rep`` controls: a state from ``init_state``, iteration 1's
+    pre-scaled noise and step rows (trail and lead on), bias rows, a salt
+    column, the feature rows and the ctrl rows."""
+    from repro_torch import random as jr
+    from repro_torch.core.controls import ctrl_for_assignment
+    from repro_torch.kernels.chain_forces import ops as chain_ops
+    from repro_torch.kernels.fused_propagate import ops as fused_ops
+    from repro_torch.md import integrators as I
+    from repro_torch.md import noise as NZ
+    key = jr.key(SEED, "cuda")
+    state = engine.init_state(key, n_rep)
+    idx = torch.arange(n_rep, device="cuda")
+    ctrl = ctrl_for_assignment(grid, idx)
+    c1, noise_scale = I.baoab_scales(engine.system.masses,
+                                     ctrl["temperature"], engine.dt,
+                                     engine.gamma)
+    nz = noise_scale * NZ.step_noise_unrolled(jr.split(key, n_rep), 1,
+                                              (N_ATOMS, 3))
+    n_steps = torch.full((n_rep,), 10, dtype=torch.int64, device="cuda")
+    bias = chain_ops.pack_bias(ctrl["umbrella_center"], ctrl["umbrella_k"],
+                               n_rep, "cuda")
+    ones = torch.ones(n_rep, device="cuda")
+    salt = torch.linspace(0.5, 1.0, n_rep, device="cuda")
+    tail = (engine._pack, engine._nb_pack, engine.system.masses, c1,
+            engine.dt)
+    fused = {name: (state["pos"], state["vel"], nz,
+                    fused_ops.step_par(1, n_steps, 10, col), b) + tail
+             for name, col, b in (("bias off", ones, None),
+                                  ("bias on", ones, bias),
+                                  ("salt on", salt, None))}
+    cvals = {k: v[:n_rep] for k, v in grid.values.items()}
+    feats = engine.replica_features(state)
+    return dict(state=state, ctrl=ctrl, bias=bias, fused=fused,
+                feats=feats, cvals=cvals)
+
+
+def compare_second(engine, grid, n_rep: int, tag: str):
+    """The fused iteration (three variants), the bonded bias variant and
+    the exchange matrix vs their plain versions; returns the max absolute
+    errors and the inputs."""
+    from repro_torch.kernels.chain_forces import ops as chain_ops
+    from repro_torch.kernels.exchange_matrix import ops as x_ops
+    from repro_torch.kernels.fused_propagate import ops as fused_ops
+    d = second_slice_inputs(engine, grid, n_rep)
+    errs = {}
+    abs_fused = 0.0
+    for name, args in d["fused"].items():
+        got = fused_ops.fused_baoab_batched(*args)
+        want = fused_ops.fused_iteration_plain(*args)
+        ep, ev = rel(got[0], want[0]), rel(got[1], want[1])
+        abs_fused = max(abs_fused, float((got[0] - want[0]).abs().max()),
+                        float((got[1] - want[1]).abs().max()))
+        print(f"{tag} fused iteration, {name}: pos {ep:.2e} (tol "
+              f"{TOL_FUSED_POS}), vel {ev:.2e} (tol {TOL_FUSED_VEL})")
+        check(ep <= TOL_FUSED_POS and ev <= TOL_FUSED_VEL
+              and bool(torch.isfinite(got[1]).all()),
+              f"fused kernel vs plain ({name}) at R={n_rep}")
+    errs["fused_baoab"] = abs_fused
+    pos = d["state"]["pos"]
+    pk = engine._pack
+    ctrl = d["ctrl"]
+    f_k, e_k = chain_ops.chain_forces_batched(pos, pk, d["bias"])
+    f_p, e_p = chain_ops.ref.bonded_forces_sparse(
+        pos, pk.top, pk.slots, ctrl["umbrella_center"], ctrl["umbrella_k"])
+    f_0, _ = chain_ops.ref.bonded_forces_sparse(pos, pk.top, pk.slots)
+    ef, ee = rel(f_k, f_p), rel(e_k, e_p)
+    print(f"{tag} bonded bias variant: force {ef:.2e} (tol "
+          f"{TOL_BONDED_FORCE}), energy {ee:.2e} (tol {TOL_BONDED_ENERGY}); "
+          f"the torque moves forces by {float((f_p - f_0).abs().max()):.3e}")
+    check(ef <= TOL_BONDED_FORCE and ee <= TOL_BONDED_ENERGY,
+          f"bonded bias kernel vs plain at R={n_rep}")
+    errs["chain_forces_bias"] = float((f_k - f_p).abs().max())
+    u_k = x_ops.exchange_matrix_batched(x_ops.pack_features(d["feats"]),
+                                        x_ops.pack_ctrl(d["cvals"]))
+    u_p = x_ops.ref.exchange_matrix(d["feats"], d["cvals"])
+    errs["exchange_matrix"] = float((u_k - u_p).abs().max())
+    print(f"{tag} exchange matrix {tuple(u_k.shape)}: bitwise equal "
+          f"{torch.equal(u_k, u_p)} (tol: bitwise, built with -fmad=false)")
+    check(torch.equal(u_k, u_p), f"exchange matrix kernel vs plain at "
+                                 f"R={n_rep}")
+    return errs, d
+
+
+def timing_second(engine, d, smi: str):
+    """Phase 4's timing for the second slice's kernels at R = 384."""
+    from repro_torch.kernels.chain_forces import ops as chain_ops
+    from repro_torch.kernels.exchange_matrix import ops as x_ops
+    from repro_torch.kernels.fused_propagate import ops as fused_ops
+    phase(f"7 timing at R={R_TSU}, N={N_ATOMS}")
+    args = d["fused"]["bias on"]
+    pos, pk, ctrl = d["state"]["pos"], engine._pack, d["ctrl"]
+    featp, ctrlp = (x_ops.pack_features(d["feats"]),
+                    x_ops.pack_ctrl(d["cvals"]))
+    kernels = {
+        "fused_baoab": (lambda: fused_ops.fused_baoab_batched(*args),
+                        lambda: fused_ops.fused_iteration_plain(*args), 3),
+        "chain_forces_bias": (
+            lambda: chain_ops.chain_forces_batched(pos, pk, d["bias"]),
+            lambda: chain_ops.ref.bonded_forces_sparse(
+                pos, pk.top, pk.slots, ctrl["umbrella_center"],
+                ctrl["umbrella_k"]), 10),
+        "exchange_matrix": (
+            lambda: x_ops.exchange_matrix_batched(featp, ctrlp),
+            lambda: x_ops.ref.exchange_matrix(d["feats"], d["cvals"]), 20),
+    }
+    res = {}
+    for name, (kernel, plain, n_plain) in kernels.items():
+        k_ms = graph_ms(kernel, calls=5 if name == "fused_baoab" else 20)
+        h_ms = host_ms(kernel, n=10 if name == "fused_baoab" else 50)
+        p_ms = median_ms(plain, n_plain, 1)
+        res[name] = (k_ms, p_ms)
+        print(f"{name}: kernel {k_ms:.4f} ms device (graph replay), "
+              f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms "
+              f"[{smi}]")
+    return res
+
+
+def bounds_second(engine, n_rep: int):
+    """(bound_ms, bound_by) of the second slice's kernels at R = C =
+    ``n_rep``, from this run's data, as in ``bounds``."""
+    pk, nb = engine._pack, engine._nb_pack
+    n = engine.system.n_atoms
+    n_b, n_a, n_q = (pk.bonds.shape[0], pk.angles.shape[0],
+                     pk.quads.shape[0])
+    tables = sum(t.numel() * t.element_size()
+                 for t in (pk.bonds, pk.angles, pk.quads, pk.bond_par,
+                           pk.ang_par, pk.quad_par, pk.slot_idx,
+                           pk.slot_sign))
+    bonded_ops = (n_b * BOND_OPS + n_a * ANGLE_OPS + n_q * TORSION_OPS
+                  + n * pk.slots.n_slots * SLOT_OPS)
+    stack = n_rep * n * 3 * 4
+    rows = n_rep * 8 * 4
+    n_pairs = int(nb.mask_u8.to(torch.int64).sum()) // 2
+    work = {
+        # pos, vel, noise in; step and bias rows; tables, atom rows, mask,
+        # masses; new pos and vel out
+        "fused_baoab": (3 * stack + 2 * rows + tables + 4 * n * 4
+                        + nb.mask_u8.numel() + 2 * stack,
+                        n_rep * (n_pairs * PAIR_FORCE_OPS + bonded_ops
+                                 + BIAS_OPS + n * ATOM_UPDATE_OPS)),
+        "chain_forces_bias": (2 * stack + rows + tables + n_rep * 4,
+                              n_rep * (bonded_ops + n_b + n_a + n_q
+                                       + BIAS_OPS)),
+        "exchange_matrix": ((4 * n_rep + 6 * n_rep + n_rep * n_rep) * 4,
+                            n_rep * n_rep * XMAT_OPS),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+        print(f"{name} bound: {nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP "
+              f"-> {out[name][0]:.5f} ms ({out[name][1]})")
+    return out
+
+
+def run_tsu(libs, smi: str):
+    """The second slice: the 384-replica T x U x U grid on the fused path,
+    6 neighbor cycles, then 3 matrix cycles, each run from ``init``."""
+    phase(f"8 TSU slice: {TSU_DIMS} = {R_TSU} replicas x {N_ATOMS} atoms, "
+          f"force_path='fused', run_fused(chunk_cycles=3)")
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.core.ensemble import control_multiset_ok
+    engine = tsu_engine("fused")
+    out = {}
+    for scheme, n_cycles in (("neighbor", 6), ("matrix", 3)):
+        cfg = RepExConfig(dimensions=TSU_DIMS, md_steps_per_cycle=10,
+                          n_cycles=n_cycles, exchange_scheme=scheme)
+        driver = REMDDriver(engine, cfg, device="cuda")
+        ens = driver.init(SEED)
+        reset(libs)
+        t0 = time.perf_counter()
+        ens = driver.run_fused(ens, chunk_cycles=3)
+        wall = time.perf_counter() - t0
+        launches = {lib.name: lib.launches for lib in libs}
+        want = {"chain_forces": 0, "nonbonded": 0,
+                "fused_baoab": n_cycles * 11,
+                "exchange_matrix": n_cycles if scheme == "matrix" else 0}
+        per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
+        ms_cycle = per_chunk[-1]
+        failed = sum(h["failed"] for h in driver.history)
+        acc = driver.acceptance_ratios()
+        print(f"{scheme}: ms/cycle {ms_cycle:.2f} (last chunk of 3 cycles; "
+              f"per chunk {[round(t, 2) for t in per_chunk]}; whole run "
+              f"{wall / n_cycles * 1e3:.2f}) [{smi}]")
+        print(f"{scheme}: replica-steps/s "
+              f"{R_TSU * 10 / ms_cycle * 1e3:.0f}")
+        print(f"{scheme}: acceptance by dimension {acc}")
+        print(f"{scheme}: launches {launches} (want {want})")
+        check(launches == want, f"{scheme}: fused kernel cycles x 11, no "
+              f"per-pass kernel, exchange matrix once per matrix cycle")
+        check(control_multiset_ok(ens), f"{scheme}: assignment is a "
+                                        f"permutation")
+        check(failed == 0, f"{scheme}: no replica failed")
+        check(bool(torch.isfinite(ens.state["pos"]).all()
+                   and torch.isfinite(ens.state["vel"]).all())
+              and tuple(ens.state["pos"].shape) == (R_TSU, N_ATOMS, 3),
+              f"{scheme}: finite state of the expected shape")
+        check(sum(a for a, _ in driver.acceptance.values()) > 0,
+              f"{scheme}: some exchanges accepted")
+        out[scheme] = dict(ms=ms_cycle, launches=launches, driver=driver,
+                           ens=ens)
+    return out
+
+
+def breakdown_tsu(runs, smi: str) -> None:
+    """Where a fused TSU cycle's time goes: each part timed alone at
+    R = 384 (CUDA-event medians) times its calls per cycle, then the busy
+    share and the two kernels' device time from a profiled matrix cycle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random as jr
+    from repro_torch.core import exchange as X
+    from repro_torch.core import failures as F
+    from repro_torch.core.controls import ctrl_for_assignment
+    from repro_torch.kernels.chain_forces import ops as chain_ops
+    from repro_torch.kernels.fused_propagate import ops as fused_ops
+    from repro_torch.md import integrators as I
+    from repro_torch.md import noise as NZ
+    phase("8b where a fused TSU cycle's time goes")
+    driver, ens = runs["matrix"]["driver"], runs["matrix"]["ens"]
+    eng, grid = driver.engine, driver.grid
+    state = ens.state
+    ctrl = ctrl_for_assignment(grid, ens.assignment)
+    keys = jr.split(ens.rng, R_TSU)
+    n_steps = torch.full((R_TSU,), 10, dtype=torch.int64, device="cuda")
+    c1, noise_scale = I.baoab_scales(eng.system.masses, ctrl["temperature"],
+                                     eng.dt, eng.gamma)
+    bias = chain_ops.pack_bias(ctrl["umbrella_center"], ctrl["umbrella_k"],
+                               R_TSU, "cuda")
+    ones = torch.ones(R_TSU, device="cuda")
+    nz = noise_scale * NZ.step_noise_unrolled(keys, 1, (N_ATOMS, 3))
+    st = fused_ops.step_par(1, n_steps, 10, ones)
+    zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    parts = {
+        "fused iteration (kernel)": (lambda: fused_ops.fused_baoab_batched(
+            state["pos"], state["vel"], nz, st, bias, eng._pack,
+            eng._nb_pack, eng.system.masses, c1, eng.dt), 11),
+        "noise draw (step_noise_unrolled, scaled)": (
+            lambda: noise_scale * NZ.step_noise_unrolled(keys, 1,
+                                                         (N_ATOMS, 3)), 11),
+        "step rows": (lambda: fused_ops.step_par(1, n_steps, 10, ones), 11),
+        "feature pass (replica_features)": (
+            lambda: eng.replica_features(state), 1),
+        "neighbor exchange (features + DEO sweep)": (
+            lambda: X.neighbor_exchange(eng, state, grid, ens.assignment,
+                                        zero, zero, keys[0], ens.alive), 1),
+        "matrix exchange (features + matrix + Gibbs sweep)": (
+            lambda: X.matrix_exchange(eng, state, grid, ens.assignment,
+                                      keys[0]), 1),
+        "detect + recover": (lambda: F.detect_recover(
+            eng, ens, "relaunch", state), 1),
+    }
+    times = {}
+    for name, (fn, calls) in parts.items():
+        ms = median_ms(fn, 5, 1)
+        times[name] = ms * calls
+        print(f"{name}: {ms:.3f} ms x {calls} = {ms * calls:.3f} ms/cycle")
+    md = sum(times[k] for k in list(times)[:3])
+    for scheme, ex in (("neighbor", "neighbor exchange (features + DEO "
+                                    "sweep)"),
+                       ("matrix", "matrix exchange (features + matrix + "
+                                  "Gibbs sweep)")):
+        total = md + times[ex] + times["detect + recover"]
+        print(f"{scheme}: sum of parts {total:.2f} ms/cycle vs measured "
+              f"{runs[scheme]['ms']:.2f} [{smi}]")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        driver.run_fused(ens, n_cycles=1, chunk_cycles=1)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    ms = runs["matrix"]["ms"]
+    print(f"profiled matrix cycle: device kernel time {busy:.2f} ms, busy "
+          f"share of the measured ms/cycle {busy / ms:.3f}")
+    for name, pattern, calls in (
+            ("fused_baoab", r"fused_baoab_kernel", 11),
+            ("exchange_matrix", r"exchange_matrix_kernel", 1)):
+        dev = sum(e.device_time_total for e in kernels
+                  if re.search(pattern, e.name)) / 1e3
+        print(f"profiled matrix cycle: {name} {dev / calls:.4f} ms device "
+              f"per call ({calls} calls)")
+
+
+def run_tsu_pallas(libs, smi: str) -> float:
+    """The TSU grid on the per-pass path: the bonded kernel's bias variant
+    and the nonbonded kernel, 11 launches each per cycle."""
+    phase(f"9 TSU on force_path='pallas': {R_TSU} replicas, 3 cycles")
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.core.ensemble import control_multiset_ok
+    cfg = RepExConfig(dimensions=TSU_DIMS, md_steps_per_cycle=10,
+                      n_cycles=3)
+    driver = REMDDriver(tsu_engine("pallas"), cfg, device="cuda")
+    ens = driver.init(SEED)
+    reset(libs)
+    ens = driver.run_fused(ens, chunk_cycles=3)
+    launches = {lib.name: lib.launches for lib in libs}
+    variants = dict(libs[0].variants)
+    ms_cycle = driver.history[-1]["t_step"] * 1e3
+    print(f"pallas: ms/cycle {ms_cycle:.2f} (one chunk of 3 cycles) "
+          f"[{smi}]")
+    print(f"pallas: acceptance by dimension {driver.acceptance_ratios()}")
+    print(f"pallas: launches {launches}, bonded variants {variants}")
+    check(launches == {"chain_forces": 33, "nonbonded": 33,
+                       "fused_baoab": 0, "exchange_matrix": 0}
+          and variants == {"bias": 33},
+          "per-pass TSU: bias variant and nonbonded 3 x 11, nothing else")
+    check(control_multiset_ok(ens)
+          and sum(h["failed"] for h in driver.history) == 0
+          and bool(torch.isfinite(ens.state["pos"]).all()),
+          "per-pass TSU: permutation, no failure, finite state")
+    return ms_cycle, launches["chain_forces"]
+
+
+def invariance_fused():
+    phase(f"10 fused path: chunk-size invariance (R=8, N={N_ATOMS}) and "
+          f"card vs CPU")
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    dims = (("temperature", 2), ("umbrella", 2), ("umbrella", 2))
+    cfg = RepExConfig(dimensions=dims, md_steps_per_cycle=10, n_cycles=3)
+    engine = tsu_engine("fused")
+    out = {}
+    for k in (1, 3):
+        driver = REMDDriver(engine, cfg, device="cuda")
+        ens = driver.run_fused(driver.init(SEED), chunk_cycles=k)
+        out[k] = ([h["assignment"].tolist() for h in driver.history],
+                  ens.state["pos"])
+    same_rows = out[1][0] == out[3][0]
+    same_pos = bool(torch.equal(out[1][1], out[3][1]))
+    print(f"assignment rows identical {same_rows}, positions bitwise equal "
+          f"{same_pos}")
+    check(same_rows and same_pos, "fused decisions independent of chunk "
+                                  "size")
+    cfg = RepExConfig(dimensions=dims, md_steps_per_cycle=10, n_cycles=4,
+                      exchange_scheme="matrix")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        driver = REMDDriver(MDEngine(chain_molecule(64), force_path="fused",
+                                     device=dev), cfg, device=dev)
+        ens = driver.run_fused(driver.init(SEED), chunk_cycles=2)
+        runs[dev] = ([h["assignment"].tolist() for h in driver.history],
+                     driver.acceptance_ratios(), ens.state["pos"].cpu())
+    same = runs["cuda"][:2] == runs["cpu"][:2]
+    dpos = float((runs["cuda"][2] - runs["cpu"][2]).abs().max())
+    print(f"small fused matrix run (R=8, N=64, 4 cycles) cuda vs cpu: "
+          f"decisions identical {same}, max |dpos| {dpos:.2e} A (tol "
+          f"{TOL_SMALL_POS})")
+    check(same and dpos <= TOL_SMALL_POS, "fused cuda run agrees with the "
+                                          "CPU run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -454,6 +874,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
     from repro_torch.kernels.chain_forces import ops as chain_ops
+    from repro_torch.kernels.exchange_matrix import ops as x_ops
+    from repro_torch.kernels.fused_propagate import ops as fused_ops
     from repro_torch.kernels.lj_forces import ops as nb_ops
     from repro_torch.md import MDEngine
     from repro_torch.md.system import chain_molecule
@@ -462,7 +884,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = environment()
-    libs = [chain_ops.LIBRARY, nb_ops.LIBRARY]
+    libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
+            x_ops.LIBRARY]
     build(libs)
 
     phase(f"3 kernels vs plain versions at N={N_ATOMS}, R=4 and R={R_MAIN}")
@@ -476,21 +899,58 @@ def main() -> int:
     breakdown(driver, ens, ms_cycle, smi)
     small_against_cpu()
     invariance()
+    del driver, ens, pos
 
-    src_of = {"chain_forces": "src/repro_torch/kernels/chain_forces/csrc/"
-                              "chain_forces.cu",
-              "nonbonded": "src/repro_torch/kernels/lj_forces/csrc/"
-                           "nonbonded.cu"}
-    replaces = {"chain_forces": "src/repro/kernels/chain_forces/kernel.py:190",
-                "nonbonded": "src/repro/kernels/lj_forces/kernel.py:284"}
-    errs = {"chain_forces": abs_b, "nonbonded": abs_nb}
+    phase(f"7 second-slice kernels vs plain versions at N={N_ATOMS}, R=4 "
+          f"and R={R_TSU}")
+    tsu = tsu_engine("fused")
+    grid = tsu_grid()
+    compare_second(tsu, grid, 4, "R=4")
+    errs2, inputs = compare_second(tsu, grid, R_TSU, f"R={R_TSU}")
+    times.update(timing_second(tsu, inputs, smi))
+    bound.update(bounds_second(tsu, R_TSU))
+    del inputs
+
+    runs = run_tsu(libs, smi)
+    breakdown_tsu(runs, smi)
+    ms_pallas, bias_launches = run_tsu_pallas(libs, smi)
+    print(f"TSU ms/cycle: fused neighbor {runs['neighbor']['ms']:.2f}, fused "
+          f"matrix {runs['matrix']['ms']:.2f}, per-pass (pallas) neighbor "
+          f"{ms_pallas:.2f} [{smi}]")
+    invariance_fused()
+
+    names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
+             "exchange_matrix")
+    src_of = {
+        "chain_forces": "src/repro_torch/kernels/chain_forces/csrc/"
+                        "chain_forces.cu",
+        "chain_forces_bias": "src/repro_torch/kernels/chain_forces/csrc/"
+                             "chain_forces.cu",
+        "nonbonded": "src/repro_torch/kernels/lj_forces/csrc/nonbonded.cu",
+        "fused_baoab": "src/repro_torch/kernels/fused_propagate/csrc/"
+                       "fused_baoab.cu",
+        "exchange_matrix": "src/repro_torch/kernels/exchange_matrix/csrc/"
+                           "exchange_matrix.cu"}
+    replaces = {
+        "chain_forces": "src/repro/kernels/chain_forces/kernel.py:190",
+        "chain_forces_bias": "src/repro/kernels/chain_forces/kernel.py:190",
+        "nonbonded": "src/repro/kernels/lj_forces/kernel.py:284",
+        "fused_baoab": "src/repro/kernels/fused_propagate/kernel.py:80",
+        "exchange_matrix": "src/repro/kernels/exchange_matrix/kernel.py:42"}
+    counts = {"chain_forces": launches["chain_forces"],
+              "nonbonded": launches["nonbonded"],
+              "chain_forces_bias": bias_launches,
+              "fused_baoab": sum(r["launches"]["fused_baoab"]
+                                 for r in runs.values()),
+              "exchange_matrix": runs["matrix"]["launches"]["exchange_matrix"]}
+    errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src_of[name],
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": replaces[name], "launches": counts[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bound[name][0],
          "bound_by": bound[name][1], "library_ms": None}
-        for name in ("chain_forces", "nonbonded")]}
+        for name in names]}
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(smi)
     print(json.dumps(record))

@@ -1,4 +1,5 @@
-"""Exchange phase: Metropolis acceptance over DEO neighbor pairs.
+"""Exchange phase: Metropolis acceptance over DEO neighbor pairs, or
+over random pairings of the whole cross-energy matrix (Gibbs scheme).
 
 We swap *control parameters*, never configurations: the ensemble keeps
 ``assignment[r] = ctrl index held by replica r`` and an accepted exchange
@@ -122,3 +123,40 @@ def neighbor_exchange(engine, state, grid: ControlGrid,
     fail = engine.is_failed(state)
     return _decide_sweep(assignment, u_self, u_swap, left, right, valid,
                          ri, rj, n_valid, rng, ready, fail)
+
+
+def matrix_exchange(engine, state, grid: ControlGrid,
+                    assignment: torch.Tensor, rng: torch.Tensor,
+                    n_sweeps: int = 1
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Gibbs-style exchange from the full (R, C) cross-energy matrix.
+
+    ``u[i, c]`` is replica i's reduced energy under ctrl c
+    (``engine.cross_energy``: one feature pass, then the exchange-matrix
+    kernel).  Each of ``n_sweeps`` sweeps pairs the ctrls by a random
+    permutation and makes one independent Metropolis decision per pair,
+    as the JAX package's ``matrix_exchange`` does, key for key."""
+    n = assignment.shape[0]
+    u = engine.cross_energy(state, dict(grid.values))
+    fail = engine.is_failed(state)
+    accepted = []
+    for key in jr.split(rng, n_sweeps):
+        perm = jr.permutation(key, n)
+        a, b = perm[: n // 2 * 2: 2], perm[1: n // 2 * 2: 2]
+        inv = inverse_permutation(assignment)
+        ri, rj = inv[a], inv[b]
+        delta = (u[ri, b] + u[rj, a]) - (u[ri, a] + u[rj, b])
+        accept = metropolis(delta, jr.fold_in(key, 7))
+        accept = accept & ~fail[ri] & ~fail[rj]
+        new_a = torch.where(accept, b, a)
+        new_b = torch.where(accept, a, b)
+        assignment = (assignment.scatter(0, ri, new_a)
+                      .scatter(0, rj, new_b))
+        accepted.append(torch.sum(accept.to(torch.float32)))
+    stats = {
+        "attempted": torch.full((), float(n_sweeps * (n // 2)),
+                                dtype=torch.float32, device=u.device),
+        "accepted": torch.sum(torch.stack(accepted)),
+        "mean_delta": torch.zeros((), dtype=torch.float32, device=u.device),
+    }
+    return assignment, stats

@@ -4,7 +4,9 @@ Synchronous (paper Fig 1a): every replica propagates exactly
 ``md_steps`` and then one exchange sweep runs — the exchange IS the
 barrier.  ``fused_cycle`` derives the sweep's (dim, parity) from
 ``ens.cycle`` on the device, so a chunk of cycles runs with no host
-read.  The asynchronous pattern and the matrix scheme are not ported.
+read.  The exchange is the DEO neighbor sweep of that (dim, parity), or
+with ``scheme="matrix"`` the Gibbs exchange over the whole grid.  The
+asynchronous pattern is not ported.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from repro_torch import random as jr
 from repro_torch.core import modes as M
 from repro_torch.core.controls import ControlGrid, ctrl_for_assignment
 from repro_torch.core.ensemble import Ensemble
-from repro_torch.core.exchange import neighbor_exchange
+from repro_torch.core.exchange import matrix_exchange, neighbor_exchange
 
 
 def _propagate(engine, ens: Ensemble, grid: ControlGrid, n_steps, rng,
@@ -31,9 +33,8 @@ def _propagate(engine, ens: Ensemble, grid: ControlGrid, n_steps, rng,
 
 def _exchange(engine, state, grid, assignment, dim_index, parity, rng,
               scheme: str, ready=None):
-    if scheme != "neighbor":
-        raise NotImplementedError(f"exchange scheme {scheme!r} is not "
-                                  f"ported yet")
+    if scheme == "matrix":
+        return matrix_exchange(engine, state, grid, assignment, rng)
     return neighbor_exchange(engine, state, grid, assignment, dim_index,
                              parity, rng, ready=ready)
 

@@ -54,10 +54,7 @@ class REMDDriver:
                     "failure_rate": failure_rate > 0,
                     "telemetry": telemetry is not None,
                     "cfg.pattern": cfg.pattern != "synchronous",
-                    "cfg.exchange_scheme": cfg.exchange_scheme != "neighbor",
-                    "cfg.relaunch_budget": cfg.relaunch_budget != 0,
-                    "umbrella dimensions": any(
-                        k == "umbrella" for k, _ in cfg.dimensions)}
+                    "cfg.relaunch_budget": cfg.relaunch_budget != 0}
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(f"not ported yet: {asked}")

@@ -1,10 +1,16 @@
-"""Hand-written CUDA kernels for the port's force hot spots.
+"""Hand-written CUDA kernels for the port's hot spots.
 
-  chain_forces — analytic bonded forces (bonds, angles, torsions) and the
-                 bonded energy; replaces the JAX package's
-                 ``chain_forces_kernel_batched`` Pallas kernel.
-  lj_forces    — all-pairs LJ + Coulomb forces and energies with an
-                 exclusion mask; replaces ``nonbonded_kernel_batched``.
+  chain_forces    — analytic bonded forces (bonds, angles, torsions,
+                    optional umbrella torque) and the bonded energy;
+                    replaces the JAX package's
+                    ``chain_forces_kernel_batched`` Pallas kernel.
+  lj_forces       — all-pairs LJ + Coulomb forces and energies with an
+                    exclusion mask; replaces ``nonbonded_kernel_batched``.
+  fused_propagate — one masked BAOAB iteration (bonded + nonbonded force
+                    and the update) per launch; replaces
+                    ``fused_baoab_kernel_batched``.
+  exchange_matrix — the (R, C) replica x ctrl reduced-energy matrix of the
+                    Gibbs exchange; replaces ``exchange_matrix_kernel``.
 
 Each subpackage: ``csrc/*.cu`` (CUDA C++ for ``sm_90a`` with a plain C
 entry point), ``ops.py`` (the ctypes wrapper with its launch counter,
@@ -16,7 +22,9 @@ or raises, a CPU tensor to the oracle.
 
 Build: ``KernelLibrary.load`` compiles one source with ``nvcc`` into a
 shared library under ``build/repro_torch/`` (cached by a hash of the
-source and flags) at first use, and loads it with ``ctypes``.
+source, the shared headers of ``csrc/`` and the flags) at first use, and
+loads it with ``ctypes``.  Device code that two kernels share (the bonded
+terms, the nonbonded sweep) lives once in ``csrc/md_terms.cuh``.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Optional
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 REPLICA_CHUNK = 8   # replicas per chunk of the plain (R, N, N) pair planes
@@ -40,6 +49,16 @@ REPLICA_CHUNK = 8   # replicas per chunk of the plain (R, N, N) pair planes
 def pad_to_block(n: int, block: int) -> int:
     """Padding of an atom axis up to a whole number of blocks."""
     return max(block, ((n + block - 1) // block) * block)
+
+
+def wrap_deg(delta):
+    """Wrap angle differences (degrees) to [-180, 180) with
+    ``jnp.mod``'s sign convention (result takes the divisor's sign): the
+    one definition the bias energies and the bias torque share."""
+    x = delta + 180.0
+    rem = torch.fmod(x, 360.0)
+    rem = torch.where((rem != 0) & (rem < 0), rem + 360.0, rem)
+    return rem - 180.0
 
 
 def default_use_kernel(t: torch.Tensor) -> bool:
@@ -59,22 +78,27 @@ def nvcc_path() -> str:
 class KernelLibrary:
     """One CUDA source built into a ctypes-loaded shared library.
 
-    ``launches`` counts the kernel launches the owning wrapper made; the
-    wrapper adds one per launch and nothing else touches it but callers
-    that reset it to measure a run."""
+    ``launches`` counts the kernel launches the owning wrapper made, and
+    ``variants`` the same launches by variant name where the wrapper has
+    variants; the wrapper counts each launch (``count``) and nothing else
+    touches them but callers that ``reset`` them to measure a run."""
 
-    def __init__(self, name: str, source: Path):
+    def __init__(self, name: str, source: Path, flags=()):
         self.name = name
         self.source = Path(source)
+        self.flags = NVCC_FLAGS + tuple(flags)
         self.launches = 0
+        self.variants = {}
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._lib: Optional[ctypes.CDLL] = None
 
     @property
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        text = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(SHARED_CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(self.flags).encode()
+                                ).hexdigest()
         return BUILD_DIR / f"lib{self.name}-{digest[:16]}.so"
 
     def load(self) -> ctypes.CDLL:
@@ -87,7 +111,8 @@ class KernelLibrary:
                 tmp = path.with_suffix(f".{os.getpid()}.tmp")
                 t0 = time.perf_counter()
                 proc = subprocess.run(
-                    [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                    [nvcc_path(), *self.flags, "-I", str(SHARED_CSRC),
+                     "-o", str(tmp),
                      str(self.source)],
                     capture_output=True, text=True, check=False)
                 self.build_seconds = time.perf_counter() - t0
@@ -98,6 +123,16 @@ class KernelLibrary:
                 os.replace(tmp, path)
             self._lib = ctypes.CDLL(str(path))
         return self._lib
+
+    def count(self, variant: Optional[str] = None) -> None:
+        """One launch (of ``variant``)."""
+        self.launches += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.variants = {}
 
     def function(self, name: str, argtypes):
         """The C entry point ``name``, returning a ``cudaError_t`` as int,

@@ -10,13 +10,15 @@ through the kernel (``chain_forces_batched``, which launches
 ``csrc/chain_forces.cu`` and counts the launch), a CPU stack through the
 dense PyTorch oracle (``ref.bonded_forces``, the JAX package's CPU path).
 The kernel's plain version, the same two phases in PyTorch, is
-``ref.bonded_forces_sparse``.
+``ref.bonded_forces_sparse``.  Umbrella centers and constants reach the
+kernel as one (R, 8) row per replica (``pack_bias``); without them the
+kernel's ``bias=False`` variant runs.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -64,12 +66,26 @@ def build_pack(system) -> ChainForcePack:
     )
 
 
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def pack_bias(umbrella_center, umbrella_k, n_replicas: int, device):
+    """The (R, 8) bias rows of the kernel: columns 0..U-1 the centers,
+    2..2+U-1 the force constants (U in {1, 2}), zeros elsewhere."""
+    b = torch.zeros((n_replicas, 8), dtype=torch.float32, device=device)
+    if umbrella_center is not None:
+        n_u = umbrella_center.shape[-1]
+        b[:, 0:n_u] = umbrella_center
+        b[:, 2:2 + n_u] = umbrella_k
+    return b
 
 
-def chain_forces_batched(pos: torch.Tensor, pack: ChainForcePack):
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def chain_forces_batched(pos: torch.Tensor, pack: ChainForcePack,
+                         bias: Optional[torch.Tensor] = None):
     """The kernel: a CUDA (R, N, 3) stack -> (forces (R, N, 3),
-    e_bonded (R,)) in one launch; anything else raises."""
+    e_bonded (R,)) in one launch; anything else raises.  ``bias``: the
+    (R, 8) rows of :func:`pack_bias` (the ``bias=True`` variant), or
+    None (the ``bias=False`` variant)."""
     r, n, _ = pos.shape
     nb, na, nq = (pack.bonds.shape[0], pack.angles.shape[0],
                   pack.quads.shape[0])
@@ -83,24 +99,36 @@ def chain_forces_batched(pos: torch.Tensor, pack: ChainForcePack):
     if pos.dtype != torch.float32 or n != pack.n_atoms:
         raise ValueError(f"pos must be float32 (R, {pack.n_atoms}, 3), got "
                          f"{pos.dtype} {tuple(pos.shape)}")
+    if bias is not None:
+        check_cuda((bias,), ("bias",))
+        if bias.dtype != torch.float32 or tuple(bias.shape) != (r, 8):
+            raise ValueError(f"bias must be float32 ({r}, 8), got "
+                             f"{bias.dtype} {tuple(bias.shape)}")
     fn = LIBRARY.function("chain_forces_launch", _ARGTYPES)
     edges = torch.empty((r, 6 * w, 3), dtype=torch.float32,
                         device=pos.device)
     term_e = torch.empty((r, 3, w), dtype=torch.float32, device=pos.device)
     force = torch.empty_like(pos)
     energy = torch.empty(r, dtype=torch.float32, device=pos.device)
-    ptrs = [t.data_ptr() for t in (pos,) + tables
-            + (edges, term_e, force, energy)]
+    ptrs = [t.data_ptr() for t in (pos,) + tables]
+    ptrs += [None if bias is None else bias.data_ptr()]
+    ptrs += [t.data_ptr() for t in (edges, term_e, force, energy)]
     code = fn(*ptrs, r, n, nb, na, nq, w, s, stream_ptr())
     raise_on_error(code, "chain_forces")
-    LIBRARY.launches += 1
+    LIBRARY.count("bias" if bias is not None else "plain")
     return force, energy
 
 
-def bonded_forces(pos: torch.Tensor, pack: ChainForcePack):
+def bonded_forces(pos: torch.Tensor, pack: ChainForcePack,
+                  umbrella_center: Optional[torch.Tensor] = None,
+                  umbrella_k: Optional[torch.Tensor] = None):
     """(R, N, 3) stack -> (forces (R, N, 3), e_bonded (R,)): analytic
-    bonds + angles + torsions.  The CUDA kernel on the card, the dense
-    PyTorch oracle on the CPU."""
+    bonds + angles + torsions (+ the umbrella torque when centers are
+    given, (R, U) each).  The CUDA kernel on the card, the dense PyTorch
+    oracle on the CPU."""
     if default_use_kernel(pos):
-        return chain_forces_batched(pos.contiguous(), pack)
-    return ref.bonded_forces(pos, pack.top)
+        bias = (None if umbrella_center is None else
+                pack_bias(umbrella_center, umbrella_k, pos.shape[0],
+                          pos.device))
+        return chain_forces_batched(pos.contiguous(), pack, bias)
+    return ref.bonded_forces(pos, pack.top, umbrella_center, umbrella_k)

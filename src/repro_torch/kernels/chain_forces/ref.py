@@ -1,5 +1,5 @@
-"""PyTorch analytic bonded forces: bonds + angles + torsions with
-hand-derived gradients — no autodiff graph.
+"""PyTorch analytic bonded forces: bonds + angles + torsions + umbrella
+bias, with hand-derived gradients — no autodiff graph.
 
 The same formulas as the JAX package's ``chain_forces/ref.py`` (same
 guard epsilons, same clip bounds), term for term:
@@ -8,12 +8,13 @@ guard epsilons, same clip bounds), term for term:
   angles     c = v1.v2 / (|v1||v2| + 1e-9), theta = arccos(clip(c))
              (gradient gated to the interior of the clip interval)
   torsions   phi = atan2(m1.n2, n1.n2) with n1 = b0 x b1, n2 = b1 x b2
+  bias       E = sum_u k_u wrap(deg(phi_u) - c_u)^2 on the appended
+             phi/psi quads: torque 2 k_u wrap(...) * 180/pi
 
 Both contractions of the per-edge gradients live here:
 ``bonded_forces`` is the dense signed-incidence form (the oracle and the
 CPU path of ``MDEngine``), ``bonded_forces_sparse`` the per-atom slot
-sum that the CUDA kernel computes (its plain version).  The umbrella
-bias torque is not ported yet (it comes with the umbrella ladders).
+sum that the CUDA kernel computes (its plain version).
 
 All functions take a replica stack ``pos`` (..., N, 3) and return forces
 of the same shape plus (...,)-shaped energies.
@@ -22,8 +23,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
+
+from repro_torch.kernels import wrap_deg
+
+DEG = 180.0 / math.pi
 
 
 class ChainTopology(NamedTuple):
@@ -104,11 +112,15 @@ def _dot(a, b):
     return torch.sum(a * b, -2)
 
 
-def _edge_grads(pos, top: ChainTopology):
+def _edge_grads(pos, top: ChainTopology,
+                umbrella_center: Optional[torch.Tensor] = None,
+                umbrella_k: Optional[torch.Tensor] = None):
     """Per-edge gradient tensors + bonded energy — the O(W) half both
     contractions share.  Returns (edges (..., 6, 3, W), e_bonded (...,)),
     one lane-padded gradient row per role; geometry runs on (..., 3, W)
-    component tensors as in the JAX package."""
+    component tensors as in the JAX package.  ``umbrella_center`` /
+    ``umbrella_k`` (..., U), U in {1, 2}, add the bias torque on the
+    appended phi (and psi) quads; the energy stays ctrl-independent."""
     nb, na, nq = (top.bonds.shape[0], top.angles.shape[0],
                   top.quads.shape[0])
     g = torch.index_select(pos, -2, top.gather_idx).transpose(-1, -2)
@@ -161,6 +173,13 @@ def _edge_grads(pos, top: ChainTopology):
                       dim=-1)
     torque = -top.quad_k * top.quad_n * torch.sin(top.quad_n * phi
                                                   - top.quad_phase)
+    if umbrella_center is not None:
+        n_u = umbrella_center.shape[-1]
+        lo = nq - 2
+        dev = wrap_deg(phi[..., lo:lo + n_u] * DEG - umbrella_center)
+        tq = 2.0 * umbrella_k * dev * DEG
+        torque = torch.cat([torque[..., :lo], torque[..., lo:lo + n_u] + tq,
+                            torque[..., lo + n_u:]], dim=-1)
     inv1 = 1.0 / (_dot(n1v, n1v) + 1e-12)
     inv2 = 1.0 / (_dot(n2v, n2v) + 1e-12)
     invb = 1.0 / (nb1 + 1e-12)
@@ -182,14 +201,17 @@ def _edge_grads(pos, top: ChainTopology):
     return edges, e_bond + e_angle + e_dih
 
 
-def bonded_forces(pos, top: ChainTopology):
-    """Analytic bonded forces for a replica stack — the DENSE incidence
-    contraction (the oracle, and ``MDEngine``'s CPU path).
+def bonded_forces(pos, top: ChainTopology,
+                  umbrella_center: Optional[torch.Tensor] = None,
+                  umbrella_k: Optional[torch.Tensor] = None):
+    """Analytic bonded (+ bias) forces for a replica stack — the DENSE
+    incidence contraction (the oracle, and ``MDEngine``'s CPU path).
 
-    pos: (..., N, 3).  Returns (force (..., N, 3), e_bonded (...,)).
-    One role-batched contraction against ``top.inc_stack``, then a sum
-    over the six roles, as in the JAX package."""
-    edges, e = _edge_grads(pos, top)
+    pos: (..., N, 3); umbrella rows (..., U) or None.  Returns (force
+    (..., N, 3), e_bonded (...,)), the energy without the bias.  One
+    role-batched contraction against ``top.inc_stack``, then a sum over
+    the six roles, as in the JAX package."""
+    edges, e = _edge_grads(pos, top, umbrella_center, umbrella_k)
     out = torch.einsum("...rcw,rwn->r...cn", edges, top.inc_stack)
     force = -torch.sum(out, dim=0).transpose(-1, -2)         # (..., N, 3)
     return force, e
@@ -227,12 +249,14 @@ def bonded_slots(top: ChainTopology) -> BondedSlots:
                        sign=torch.as_tensor(sgn, device=dev), n_slots=s)
 
 
-def bonded_forces_sparse(pos, top: ChainTopology, slots: BondedSlots):
-    """Analytic bonded forces via the per-atom SLOT contraction — the
-    same per-edge gradients as :func:`bonded_forces`, summed onto atoms
-    through the (N, S) slot tables: O(N * S).  This is the plain PyTorch
-    version of the CUDA bonded kernel (same two phases)."""
-    edges, e = _edge_grads(pos, top)
+def bonded_forces_sparse(pos, top: ChainTopology, slots: BondedSlots,
+                         umbrella_center: Optional[torch.Tensor] = None,
+                         umbrella_k: Optional[torch.Tensor] = None):
+    """Analytic bonded (+ bias) forces via the per-atom SLOT contraction
+    — the same per-edge gradients as :func:`bonded_forces`, summed onto
+    atoms through the (N, S) slot tables: O(N * S).  This is the plain
+    PyTorch version of the CUDA bonded kernel (same two phases)."""
+    edges, e = _edge_grads(pos, top, umbrella_center, umbrella_k)
     flat = edges.transpose(-3, -2).reshape(
         edges.shape[:-3] + (3, 6 * top.edge_width))        # (..., 3, 6W)
     gathered = flat[..., slots.idx]                        # (..., 3, N, S)

@@ -24,13 +24,17 @@
 // sums in a fixed tree order into an (R, n_tiles, 2) scratch, and a second
 // kernel sums the tiles in order.  No atomics: bitwise reproducible.
 // Speed work (reciprocals instead of divisions, wider j reuse, symmetry)
-// is for later; this version keeps the TPU kernel's arithmetic.
+// is for later; this version keeps the TPU kernel's arithmetic.  The sweep
+// itself (md::nb_sweep) lives in ../../csrc/md_terms.cuh, shared with
+// fused_baoab.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "md_terms.cuh"
+
 namespace {
 
-constexpr int kTile = 128;   // must match TILE in ops.py
+using md::kTile;
 
 __device__ __forceinline__ float block_sum(float v, float* sh) {
   const int tid = threadIdx.x;
@@ -51,84 +55,36 @@ __global__ void __launch_bounds__(kTile) nonbonded_tile_kernel(
     const uint8_t* __restrict__ mask, float* __restrict__ f_lj,
     float* __restrict__ f_el, float* __restrict__ e_part, int N, int ld,
     float coulomb) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile];
-  __shared__ float ss[kTile], se[kTile], sq[kTile];
+  __shared__ md::NbTile tile;
   __shared__ float red[kTile];
   const int r = blockIdx.y, tid = threadIdx.x;
   const int i = blockIdx.x * kTile + tid;
   const bool live = i < N;
   const float* P = pos + (size_t)r * N * 3;
-  float xi = 0.f, yi = 0.f, zi = 0.f, si = 0.f, ei = 0.f, qi = 0.f;
+  md::V3 pi = {0.f, 0.f, 0.f};
+  float si = 0.f, ei = 0.f, qi = 0.f;
   if (live) {
-    xi = P[3 * i];
-    yi = P[3 * i + 1];
-    zi = P[3 * i + 2];
+    pi = md::load3(P, i);
     si = sigma[i];
     ei = sqrt_eps[i];
     qi = charge[i];
   }
-  const uint8_t* mrow = mask + (size_t)(live ? i : 0) * ld;
-  float flx = 0.f, fly = 0.f, flz = 0.f, fex = 0.f, fey = 0.f, fez = 0.f;
-  float acc_lj = 0.f, acc_el = 0.f;
-
-  for (int j0 = 0; j0 < N; j0 += kTile) {
-    const int j = j0 + tid;
-    __syncthreads();
-    if (j < N) {
-      sx[tid] = P[3 * j];
-      sy[tid] = P[3 * j + 1];
-      sz[tid] = P[3 * j + 2];
-      ss[tid] = sigma[j];
-      se[tid] = sqrt_eps[j];
-      sq[tid] = charge[j];
-    } else {     // padding atoms: zero rows, and their mask bytes are 0
-      sx[tid] = sy[tid] = sz[tid] = 0.f;
-      ss[tid] = se[tid] = sq[tid] = 0.f;
-    }
-    __syncthreads();
-    if (!live) continue;
-    const uint4* mv = reinterpret_cast<const uint4*>(mrow + j0);
-#pragma unroll 1
-    for (int v = 0; v < kTile / 16; ++v) {
-      const uint4 pk = mv[v];
-      const uint32_t words[4] = {pk.x, pk.y, pk.z, pk.w};
-#pragma unroll
-      for (int b = 0; b < 16; ++b) {
-        const int jj = v * 16 + b;
-        const float m = (float)((words[b >> 2] >> (8 * (b & 3))) & 0xFFu);
-        const float dx = xi - sx[jj], dy = yi - sy[jj], dz = zi - sz[jj];
-        const float r2 = dx * dx + dy * dy + dz * dz + (1.0f - m);
-        const float sig = 0.5f * (si + ss[jj]);
-        const float eps = ei * se[jj];
-        const float qq = qi * sq[jj];
-        const float t = sig * sig / r2;
-        const float s6 = t * (t * t);
-        const float rr = sqrtf(r2);
-        acc_lj += 4.0f * eps * (s6 * s6 - s6) * m;
-        acc_el += coulomb * qq / rr * m;
-        const float c_lj = 24.0f * eps * (2.0f * s6 * s6 - s6) / r2 * m;
-        const float c_el = coulomb * qq / (r2 * rr) * m;
-        flx += c_lj * dx;
-        fly += c_lj * dy;
-        flz += c_lj * dz;
-        fex += c_el * dx;
-        fey += c_el * dy;
-        fez += c_el * dz;
-      }
-    }
-  }
+  md::PairAcc acc;
+  md::nb_sweep<true>(P, sigma, sqrt_eps, charge,
+                     mask + (size_t)(live ? i : 0) * ld, N, live, pi, si, ei,
+                     qi, coulomb, tile, acc);
   if (live) {
     float* FL = f_lj + ((size_t)r * N + i) * 3;
     float* FE = f_el + ((size_t)r * N + i) * 3;
-    FL[0] = flx;
-    FL[1] = fly;
-    FL[2] = flz;
-    FE[0] = fex;
-    FE[1] = fey;
-    FE[2] = fez;
+    FL[0] = acc.flx;
+    FL[1] = acc.fly;
+    FL[2] = acc.flz;
+    FE[0] = acc.fex;
+    FE[1] = acc.fey;
+    FE[2] = acc.fez;
   }
-  const float blj = block_sum(acc_lj, red);
-  const float bel = block_sum(acc_el, red);
+  const float blj = block_sum(acc.e_lj, red);
+  const float bel = block_sum(acc.e_el, red);
   if (tid == 0) {
     float* ep = e_part + ((size_t)r * gridDim.x + blockIdx.x) * 2;
     ep[0] = blj;

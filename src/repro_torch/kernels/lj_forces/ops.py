@@ -113,7 +113,7 @@ def nonbonded_batched(pos: torch.Tensor, pack: NonbondedPack):
             + (f_lj, f_el, e_part, e_lj, e_el)]
     code = fn(*ptrs, r, n, ld, ref.COULOMB, stream_ptr())
     raise_on_error(code, "nonbonded")
-    LIBRARY.launches += 1
+    LIBRARY.count()
     return f_lj, f_el, e_lj, e_el
 
 

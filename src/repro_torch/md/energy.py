@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import REPLICA_CHUNK
+from repro_torch.kernels import REPLICA_CHUNK, wrap_deg
 from repro_torch.kernels.lj_forces.ref import COULOMB
 from repro_torch.md.system import MolecularSystem
 
@@ -115,15 +115,6 @@ def batched_features(pos, sys: MolecularSystem,
     e_lj, e_elec = _batched_pair_terms(pos, sys)
     return {"u_base": e_bonded + e_lj, "u_elec": e_elec,
             "phi": phi, "psi": psi}
-
-
-def wrap_deg(delta):
-    """Wrap angle differences (degrees) to [-180, 180) with
-    ``jnp.mod``'s sign convention (result takes the divisor's sign)."""
-    x = delta + 180.0
-    rem = torch.fmod(x, 360.0)
-    rem = torch.where((rem != 0) & (rem < 0), rem + 360.0, rem)
-    return rem - 180.0
 
 
 def batched_bias_energy(phi, psi, ctrl_center, ctrl_k) -> torch.Tensor:

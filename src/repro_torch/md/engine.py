@@ -1,12 +1,22 @@
 """The MD engine of the port: the 'Amber' stand-in on the chain molecule.
 
 ``MDEngine`` implements the SimulationEngine protocol of the JAX
-package's ``md/engine.py`` on its main path, ``force_path="pallas"``
-with dense bonded and dense nonbonded passes: analytic forces from the
-bonded kernel (``kernels.chain_forces``) and the nonbonded kernel
-(``kernels.lj_forces``) on the card, from their PyTorch oracles on the
-CPU.  The other force paths, the sparse passes and the umbrella bias are
-not ported yet; asking for them raises.
+package's ``md/engine.py`` for dense bonded and dense nonbonded passes
+on two force paths, with umbrella and salt controls on both:
+
+  ``"pallas"``  per-pass analytic forces: the bonded kernel
+                (``kernels.chain_forces``, its bias variant when the grid
+                has umbrella dimensions) and the nonbonded kernel
+                (``kernels.lj_forces``) on the card, their PyTorch oracles
+                on the CPU, around the pre-drawn-noise BAOAB loop;
+  ``"fused"``   one launch per BAOAB iteration on the card
+                (``kernels.fused_propagate``); on the CPU the fused loop of
+                ``integrators.propagate_replica_major_fused`` with the
+                oracles, as the JAX package runs it there.
+
+``cross_energy`` builds the (R, C) matrix of the Gibbs exchange (the
+``kernels.exchange_matrix`` kernel on the card).  The other force paths
+and the sparse passes are not ported yet; asking for them raises.
 
 State is ``{"pos": (R, N, 3), "vel": (R, N, 3)}`` on ``engine.device``.
 """
@@ -19,14 +29,17 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.device import resolve_device
+from repro_torch.kernels import default_use_kernel
 from repro_torch.kernels.chain_forces import ops as chain_ops
+from repro_torch.kernels.exchange_matrix import ops as xops
+from repro_torch.kernels.fused_propagate import ops as fused_ops
 from repro_torch.kernels.lj_forces import ops as nb_ops
 from repro_torch.md import energy as E
 from repro_torch.md import integrators as I
 from repro_torch.md.system import (MolecularSystem, chain_molecule,
                                    initial_positions)
 
-FORCE_PATHS = ("pallas",)
+FORCE_PATHS = ("pallas", "fused")
 NONBONDED_PATHS = ("dense",)
 BONDED_PATHS = ("dense",)
 
@@ -110,22 +123,37 @@ class MDEngine:
     def propagate(self, state, ctrl, n_steps, rngs, max_steps: int):
         """``rngs``: per-replica keys (R, 2); ``max_steps``: the Python
         int bound on ``n_steps`` (the loop length)."""
-        if "umbrella_center" in ctrl:
-            raise NotImplementedError(
-                "the umbrella bias force is not ported yet")
+        if self.force_path == "fused":
+            return self._propagate_fused(state, ctrl, n_steps, rngs,
+                                         max_steps)
         return I.propagate_replica_major(
             state, self._analytic_force_fn(ctrl), self.system.masses,
             ctrl["temperature"], n_steps, rngs, max_steps, self.dt,
             self.gamma)
 
+    def _propagate_fused(self, state, ctrl, n_steps, rngs, max_steps: int):
+        """``force_path="fused"``: on the card one fused-kernel launch per
+        BAOAB iteration; on the CPU the fused loop around the oracles."""
+        sys = self.system
+        if default_use_kernel(state["pos"]):
+            return fused_ops.fused_propagate(
+                state, self._pack, self._nb_pack, sys.masses, ctrl, n_steps,
+                rngs, max_steps, self.dt, self.gamma)
+        return I.propagate_replica_major_fused(
+            state, self._analytic_force_fn(ctrl), sys.masses,
+            ctrl["temperature"], n_steps, rngs, max_steps, self.dt,
+            self.gamma)
+
     def _analytic_force_fn(self, ctrl):
         """One bonded pass + one nonbonded pass, hand-derived gradients.
-        The salt term applies only when the grid carries it."""
+        The umbrella and salt terms apply only when the grid carries
+        them."""
+        u_c, u_k = ctrl.get("umbrella_center"), ctrl.get("umbrella_k")
         salt = ctrl.get("salt")
         salt_scale = None if salt is None else 1.0 - 0.5 * salt
 
         def force_fn(pos):
-            f, _ = chain_ops.bonded_forces(pos, self._pack)
+            f, _ = chain_ops.bonded_forces(pos, self._pack, u_c, u_k)
             return f + nb_ops.nonbonded_force(pos, self._nb_pack, salt_scale)
 
         return force_fn
@@ -146,6 +174,16 @@ class MDEngine:
     def energy_pair_from_features(self, feats, ctrl_a, ctrl_b):
         return (E.batched_reduced_energy_from_features(feats, ctrl_a),
                 E.batched_reduced_energy_from_features(feats, ctrl_b))
+
+    def cross_energy(self, state, ctrl_grid):
+        """(R, C) matrix u_c(x_i): one feature pass, then the matrix."""
+        return self.cross_energy_from_features(self.replica_features(state),
+                                               ctrl_grid)
+
+    def cross_energy_from_features(self, feats, ctrl_grid):
+        """Feature rows -> (R, C): the exchange-matrix kernel on the card,
+        its oracle on the CPU."""
+        return xops.exchange_matrix(feats, ctrl_grid)
 
     def is_failed(self, state):
         bad = _any_nonfinite(state)

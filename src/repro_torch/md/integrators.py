@@ -8,7 +8,8 @@ The replica-major, force-sharing loop of the JAX package's
 each, per-lane trail/lead masks so lanes with fewer steps stay frozen.
 ``max_steps`` is a Python int from the caller (reading it off the device
 would synchronise with the host).  Noise is the same threefry stream the
-JAX package draws (``repro_torch.random``).
+JAX package draws: ``repro_torch.random`` for the pre-drawn stack of the
+per-pass loop, ``md/noise.py`` for the fused loop.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch.md import noise as NZ
 
 AKMA = 418.4
 KB = 0.0019872041  # kcal/mol/K
@@ -46,17 +48,27 @@ def baoab_fused_iteration(i: int, pos, vel, f, noise_i, c1, noise_scale,
                           masses, n_steps, max_steps: int, dt: float):
     """ONE masked force-sharing BAOAB update given this iteration's
     force, noise block and scales.  Returns (pos, vel)."""
-    m = masses[None, :, None]
-    kick = 0.5 * dt * AKMA * f / m
     # trailing half-B of step i-1: existed and was active iff i-1 < n
     trail = ((n_steps >= i) & (i >= 1))[:, None, None]
-    vel = torch.where(trail, vel + kick, vel)
     # step i: leading half-B, A, O, A (its trailing B is the NEXT
     # iteration's force)
     lead = ((n_steps > i) & (i < max_steps))[:, None, None]
+    return baoab_masked_update(pos, vel, f, noise_scale * noise_i, c1,
+                               masses, trail, lead, dt)
+
+
+def baoab_masked_update(pos, vel, f, noise, c1, masses, trail, lead,
+                        dt: float):
+    """The B-A-O-A-B arithmetic of one iteration with pre-scaled noise:
+    ``trail`` (R, 1, 1) applies the previous step's trailing half-B,
+    ``lead`` the leading half-B + A O A of this step.  The fused kernel's
+    plain version shares it."""
+    m = masses[None, :, None]
+    kick = 0.5 * dt * AKMA * f / m
+    vel = torch.where(trail, vel + kick, vel)
     nvel = vel + kick                                        # B
     npos = pos + 0.5 * dt * nvel                             # A
-    nvel = c1 * nvel + noise_scale * noise_i                 # O
+    nvel = c1 * nvel + noise                                 # O
     npos = npos + 0.5 * dt * nvel                            # A
     return torch.where(lead, npos, pos), torch.where(lead, nvel, vel)
 
@@ -98,6 +110,28 @@ def propagate_replica_major_aux(state, force_aux_fn, aux, masses,
         pos, vel = _baoab_apply(i, pos, vel, f, noise[i], masses,
                                 temperature, n_steps, max_steps, dt, gamma)
     return {"pos": pos, "vel": vel}, aux
+
+
+def propagate_replica_major_fused(state, force_fn: Callable, masses,
+                                  temperature, n_steps, rngs,
+                                  max_steps: int, dt: float = 5e-4,
+                                  gamma: float = 5.0):
+    """The fused-path propagate loop on plain tensors: the same
+    ``max_steps + 1`` iterations and trail/lead masks as
+    :func:`propagate_replica_major`, with the O-step scales hoisted
+    (:func:`baoab_scales`) and each iteration drawing its own noise block
+    (``noise.step_noise_unrolled``, the legacy-layout stream the JAX
+    fused path draws).  Returns {"pos", "vel"}."""
+    c1, noise_scale = baoab_scales(masses, temperature, dt, gamma)
+    shape = state["pos"].shape[1:]
+    pos, vel = state["pos"], state["vel"]
+    for i in range(max_steps + 1):
+        f = force_fn(pos)
+        noise_i = NZ.step_noise_unrolled(rngs, i, shape)
+        pos, vel = baoab_fused_iteration(i, pos, vel, f, noise_i, c1,
+                                         noise_scale, masses, n_steps,
+                                         max_steps, dt)
+    return {"pos": pos, "vel": vel}
 
 
 def stacked_step_noise(rngs, max_steps: int, shape) -> torch.Tensor:

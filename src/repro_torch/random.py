@@ -16,6 +16,8 @@ module re-implements the pieces that path uses, following the installed
                      bits2`` of the hashed flat-index counters
   uniform / normal   the mantissa trick of ``_uniform``, then XLA's
                      float32 ``erf_inv`` polynomial (M. Giles), ``* sqrt 2``
+  permutation        ``_shuffle``: stable sorts of ``arange(n)`` by
+                     32-bit random keys
 
 For ``normal`` to match bit for bit, the pieces XLA's CPU backend
 computes differently from PyTorch are mirrored too: its ``log1p`` and
@@ -113,7 +115,12 @@ def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
 def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32 on [minval, maxval)."""
-    bits = random_bits(keys, shape)
+    return bits_to_uniform(random_bits(keys, shape), minval, maxval)
+
+
+def bits_to_uniform(bits: torch.Tensor, minval: float = 0.0,
+                    maxval: float = 1.0) -> torch.Tensor:
+    """32-bit words -> float32 on [minval, maxval), ``_uniform``'s map."""
     one = (bits >> 9) | 0x3F800000                 # mantissa bits, exponent 0
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     lo = float(np.float32(minval))
@@ -224,5 +231,23 @@ _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 def normal(keys: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal`` in float32: (..., 2) keys -> (..., *shape)."""
-    u = uniform(keys, shape, _NORMAL_LO, 1.0)
-    return _SQRT2 * erf_inv(u)
+    return bits_to_normal(random_bits(keys, shape))
+
+
+def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit words -> standard normals: ``sqrt(2) erf_inv(u)`` with u
+    on (-1, 1), the float32 pipeline of ``jax.random.normal``."""
+    return _SQRT2 * erf_inv(bits_to_uniform(bits, _NORMAL_LO, 1.0))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``_shuffle`` of ``arange(n)``,
+    ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each a split of the key and a
+    stable sort by 32 fresh random bits (``lax.sort_key_val``)."""
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_M32)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        bits = random_bits(sub, (n,))
+        x = x[torch.sort(bits, stable=True).indices]
+    return x

@@ -9,7 +9,10 @@ This file imports nothing of JAX, so it runs where the port runs:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerance: forces within 1e-5 x max(max |F|, 1), energies 1e-5 relative
-(the same formulas summed in another order).
+(the same formulas summed in another order); one fused iteration within
+1e-5 A and 1e-4 A/ps (its force, with those errors, enters the velocity
+through dt * AKMA / m); the exchange matrix bitwise (built without FMA
+contraction).
 """
 import numpy as np
 import pytest
@@ -18,6 +21,9 @@ import torch
 from repro_torch.config import RepExConfig
 from repro_torch.core import REMDDriver
 from repro_torch.kernels.chain_forces import ops as chain_ops
+from repro_torch.kernels.exchange_matrix import ops as x_ops
+from repro_torch.kernels.exchange_matrix import ref as x_ref
+from repro_torch.kernels.fused_propagate import ops as fused_ops
 from repro_torch.kernels.lj_forces import ops as nb_ops
 from repro_torch.md import MDEngine
 from repro_torch.md.system import base_positions, chain_molecule
@@ -129,3 +135,123 @@ def test_chunk_size_invariance_on_the_card():
     for h1, h4 in zip(runs[1][0].history, runs[4][0].history):
         np.testing.assert_array_equal(h1["assignment"], h4["assignment"])
     assert torch.equal(runs[1][1].state["pos"], runs[4][1].state["pos"])
+
+
+def _bias(n_rep, n_u, seed=1):
+    rng = np.random.default_rng(seed)
+    c = torch.from_numpy(rng.uniform(0, 360, (n_rep, n_u)).astype(
+        np.float32)).cuda()
+    k = torch.full((n_rep, n_u), 0.02, device="cuda")
+    return c, k
+
+
+@pytest.mark.parametrize("n_u", [1, 2])
+def test_bonded_bias_variant_matches_plain_version(n_u):
+    sysm, pos = _state(257, 3)
+    cpack = chain_ops.build_pack(sysm)
+    c, k = _bias(3, n_u)
+    got = chain_ops.chain_forces_batched(
+        pos, cpack, chain_ops.pack_bias(c, k, 3, "cuda"))
+    want = chain_ops.ref.bonded_forces_sparse(pos, cpack.top, cpack.slots,
+                                              c, k)
+    for a, b in zip(got, want):
+        _close(a, b, energy=a.ndim == 1)
+    plain = chain_ops.chain_forces_batched(pos, cpack)
+    assert float((plain[0] - got[0]).abs().max()) > 1e-4
+
+
+def _fused_args(n_atoms, n_rep, bias, salt, seed=0):
+    sysm, pos = _state(n_atoms, n_rep, seed)
+    rng = np.random.default_rng(seed + 7)
+    vel = torch.from_numpy(rng.standard_normal(
+        (n_rep, n_atoms, 3)).astype(np.float32)).cuda()
+    noise = 0.01 * torch.from_numpy(rng.standard_normal(
+        (n_rep, n_atoms, 3)).astype(np.float32)).cuda()
+    n_steps = torch.tensor([2, 1, 0][:n_rep] + [2] * max(n_rep - 3, 0),
+                           device="cuda")
+    salt_col = (torch.from_numpy(rng.uniform(0.5, 1, n_rep).astype(
+        np.float32)).cuda() if salt else torch.ones(n_rep, device="cuda"))
+    b = (chain_ops.pack_bias(*_bias(n_rep, 2), n_rep, "cuda") if bias
+         else None)
+    return (pos, vel, noise, b, chain_ops.build_pack(sysm),
+            nb_ops.build_pack(sysm), sysm.masses, n_steps, salt_col)
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+@pytest.mark.parametrize("bias,salt", [(False, False), (True, False),
+                                       (False, True), (True, True)])
+@pytest.mark.parametrize("n_atoms", [130, 257])
+def test_fused_kernel_matches_plain_version(n_atoms, bias, salt, i):
+    pos, vel, noise, b, cp, npk, m, n_steps, salt_col = _fused_args(
+        n_atoms, 3, bias, salt)
+    st = fused_ops.step_par(i, n_steps, 2, salt_col)
+    args = (pos, vel, noise, st, b, cp, npk, m, 0.9975, 5e-4)
+    got = fused_ops.fused_baoab_batched(*args)
+    want = fused_ops.fused_iteration_plain(*args)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    # lane 2 takes no step (n_steps = 0): left exactly as it was
+    assert torch.equal(got[0][2], pos[2]) and torch.equal(got[1][2], vel[2])
+
+
+@pytest.mark.parametrize("n_u,salt", [(0, False), (1, True), (2, True)])
+def test_exchange_matrix_kernel_matches_plain_version_bitwise(n_u, salt):
+    rng = np.random.default_rng(n_u)
+    r, c = 200, 130
+    feats = {k: torch.from_numpy(v.astype(np.float32)).cuda() for k, v in (
+        ("u_base", rng.normal(-50, 30, r)), ("u_elec", rng.normal(-200, 40, r)),
+        ("phi", rng.uniform(-np.pi, np.pi, r)),
+        ("psi", rng.uniform(-np.pi, np.pi, r)))}
+    ctrl = {"beta": torch.from_numpy(rng.uniform(1.3, 1.9, c).astype(
+        np.float32)).cuda()}
+    if salt:
+        ctrl["salt"] = torch.rand(c, device="cuda")
+    if n_u:
+        ctrl["umbrella_center"] = 360 * torch.rand(c, n_u, device="cuda")
+        ctrl["umbrella_k"] = torch.full((c, n_u), 0.02, device="cuda")
+    n0 = x_ops.LIBRARY.launches
+    got = x_ops.exchange_matrix(feats, ctrl)
+    assert x_ops.LIBRARY.launches == n0 + 1
+    assert torch.equal(got, x_ref.exchange_matrix(feats, ctrl))
+
+
+def _tsu_run(device, scheme, n_cycles=3, chunk=3, n_atoms=64,
+             path="fused"):
+    cfg = RepExConfig(dimensions=(("temperature", 2), ("umbrella", 2),
+                                  ("umbrella", 2)),
+                      md_steps_per_cycle=4, n_cycles=n_cycles,
+                      exchange_scheme=scheme)
+    drv = REMDDriver(MDEngine(chain_molecule(n_atoms), force_path=path,
+                              device=device), cfg, device=device)
+    ens = drv.run_fused(drv.init(0), chunk_cycles=chunk)
+    return drv, ens
+
+
+def test_fused_path_launches_only_the_fused_and_matrix_kernels():
+    libs = (chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
+            x_ops.LIBRARY)
+    n0 = [lib.launches for lib in libs]
+    drv, _ = _tsu_run("cuda", "matrix")
+    moved = [lib.launches - n for lib, n in zip(libs, n0)]
+    assert moved == [0, 0, 3 * 5, 3]
+
+
+@pytest.mark.parametrize("scheme", ["neighbor", "matrix"])
+def test_fused_path_card_and_cpu_make_the_same_decisions(scheme):
+    gpu, gpu_ens = _tsu_run("cuda", scheme, n_cycles=4, chunk=2)
+    cpu, cpu_ens = _tsu_run("cpu", scheme, n_cycles=4, chunk=2)
+    for hg, hc in zip(gpu.history, cpu.history):
+        np.testing.assert_array_equal(hg["assignment"], hc["assignment"])
+    assert gpu.acceptance_ratios() == cpu.acceptance_ratios()
+    np.testing.assert_allclose(gpu_ens.state["pos"].cpu().numpy(),
+                               cpu_ens.state["pos"].numpy(), atol=1e-4)
+
+
+def test_fused_path_chunk_size_invariance_on_the_card():
+    runs = {k: _tsu_run("cuda", "matrix", n_cycles=3, chunk=k)
+            for k in (1, 3)}
+    for h1, h3 in zip(runs[1][0].history, runs[3][0].history):
+        np.testing.assert_array_equal(h1["assignment"], h3["assignment"])
+    assert torch.equal(runs[1][1].state["pos"], runs[3][1].state["pos"])

@@ -239,10 +239,11 @@ def test_device_defaults_to_cuda_and_never_falls_back(jax_system,
     dict(telemetry=object()), dict(failure_rate=0.1),
     dict(ckpt_dir="ckpt"), dict(mesh=object()),
     dict(cfg=dict(pattern="asynchronous")),
-    dict(cfg=dict(exchange_scheme="matrix")),
+    dict(slots=2),
     dict(cfg=dict(relaunch_budget=2)),
     dict(cfg=dict(execution_mode="mode2")),
-    dict(cfg=dict(dimensions=(("temperature", 2), ("umbrella", 2)))),
+    dict(cfg=dict(dimensions=(("temperature", 2), ("umbrella", 2)),
+                  pattern="asynchronous")),
 ])
 def test_unported_options_raise(kwargs, jax_system):
     cfg = RepExConfig(**dict(CFG, **kwargs.pop("cfg", {})))
@@ -251,7 +252,7 @@ def test_unported_options_raise(kwargs, jax_system):
         REMDDriver(eng, cfg, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [dict(force_path="fused"),
+@pytest.mark.parametrize("kwargs", [dict(force_path="vmap"),
                                     dict(nonbonded="sparse"),
                                     dict(bonded="sparse")])
 def test_unported_engine_paths_raise(kwargs, jax_system):
