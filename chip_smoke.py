@@ -47,6 +47,27 @@ printed on its own lines:
                   3 cycles at chunk sizes 1 and 3: bitwise equal positions;
                   then a small fused matrix-scheme run on the card and on
                   the CPU must make the same decisions
+ 11. kernels      the third slice, the sparse neighbor-list path: on a real
+                  list (``init_state`` and 10 MD steps) at R = 4 and 384,
+                  N = 2881, the sparse nonbonded kernel (with and without
+                  salt) against its plain version within a stated
+                  tolerance, and the device-gated list build against the
+                  plain build bitwise, with its flag 0, 1 and a per-replica
+                  row, and with a k_max that drops pairs
+ 12. timing       both at R = 384 as in phase 4, the build in both flag
+                  states, with the bounds of this run's list
+ 13. TSU sparse   the grid with ``nonbonded="sparse", bonded="sparse"``:
+                  on ``force_path="fused"`` 6 neighbor and 3 matrix cycles,
+                  on ``"pallas"`` 3 cycles.  Per cycle the bonded bias
+                  variant and the build launch 11 times, the sparse kernel
+                  11 + 1 (the feature pass), the dense and fused kernels
+                  never; the build must have rebuilt the list inside a
+                  chunk and dropped no pair; 13b: where a sparse fused
+                  cycle's time goes
+ 14. invariance   the sparse fused path at R = 8, N = 2881, across a
+                  rebuild: bitwise equal state for chunk sizes 1 and 3;
+                  then a small sparse run on the card and on the CPU must
+                  make the same decisions (margins printed if not)
 
 Any failed check raises and the script exits non-zero.  The next to last
 line is the kernels' JSON record, the last line the device record.
@@ -121,6 +142,16 @@ BIAS_OPS = 2 * 8          # two bias torques per replica: wrap + 4 products
 # 5 each, two bias terms 3 each, beta 1.
 XMAT_OPS = 21
 
+# The third slice: the sparse neighbor-list path (nonbonded="sparse",
+# bonded="sparse") on the same grid.  The sparse kernel vs its plain version
+# as the nonbonded kernel (the same slot formulas; summation order and FMA
+# contraction differ); the neighbor-list build bitwise (r2 unfused on both
+# sides, integer compaction).
+TOL_SPARSE_FORCE, TOL_SPARSE_ENERGY = 1e-4, 1e-5
+# The distance test of one pair: displacement 3, r^2 5, compare 1.
+DIST_TEST_OPS = 9
+K_LOW = 6                 # a k_max below the true counts: dropped > 0
+
 
 def reset(libs) -> None:
     """Every launch count to 0, just before a path is driven."""
@@ -129,8 +160,11 @@ def reset(libs) -> None:
         lib.reset()
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name}  [{time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -369,7 +403,8 @@ def run_slice(libs, smi: str):
           f"nonbonded kernel, 0 of the others)")
     check(launches == {"chain_forces": cfg.n_cycles * 11,
                        "nonbonded": cfg.n_cycles * 11,
-                       "fused_baoab": 0, "exchange_matrix": 0}
+                       "fused_baoab": 0, "exchange_matrix": 0,
+                       "nonbonded_sparse": 0, "nlist_build": 0}
           and variants["chain_forces"] == {"plain": cfg.n_cycles * 11},
           "each per-pass kernel launched 8 cycles x 11 evaluations")
     check(ok_perm, "assignment is a permutation")
@@ -441,7 +476,7 @@ def breakdown(driver, ens, ms_cycle: float, smi: str) -> None:
     # kernel names as the trace gives them, mangled or not
     for name, pattern in (
             ("chain_forces", r"(?<!non)bonded_(edges|gather|energy)_kernel"),
-            ("nonbonded", r"nonbonded_(tile|energy)_kernel")):
+            ("nonbonded", r"nonbonded_tile_kernel|tile_energy_kernel")):
         dev = sum(e.device_time_total for e in kernels
                   if re.search(pattern, e.name)) / 1e3
         print(f"profiled chunk: {name} kernels {dev / calls:.4f} ms device "
@@ -685,7 +720,8 @@ def run_tsu(libs, smi: str):
         launches = {lib.name: lib.launches for lib in libs}
         want = {"chain_forces": 0, "nonbonded": 0,
                 "fused_baoab": n_cycles * 11,
-                "exchange_matrix": n_cycles if scheme == "matrix" else 0}
+                "exchange_matrix": n_cycles if scheme == "matrix" else 0,
+                "nonbonded_sparse": 0, "nlist_build": 0}
         per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
         ms_cycle = per_chunk[-1]
         failed = sum(h["failed"] for h in driver.history)
@@ -813,7 +849,8 @@ def run_tsu_pallas(libs, smi: str) -> float:
     print(f"pallas: acceptance by dimension {driver.acceptance_ratios()}")
     print(f"pallas: launches {launches}, bonded variants {variants}")
     check(launches == {"chain_forces": 33, "nonbonded": 33,
-                       "fused_baoab": 0, "exchange_matrix": 0}
+                       "fused_baoab": 0, "exchange_matrix": 0,
+                       "nonbonded_sparse": 0, "nlist_build": 0}
           and variants == {"bias": 33},
           "per-pass TSU: bias variant and nonbonded 3 x 11, nothing else")
     check(control_multiset_ok(ens)
@@ -863,6 +900,423 @@ def invariance_fused():
                                           "CPU run")
 
 
+def sparse_engine(path: str = "fused", n_atoms: int = N_ATOMS, **kw):
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    return MDEngine(chain_molecule(n_atoms), force_path=path,
+                    nonbonded="sparse", bonded="sparse", device="cuda", **kw)
+
+
+def sparse_state(engine, grid, n_rep: int):
+    """A real list at the TSU grid's first ``n_rep`` controls:
+    ``init_state``, then one propagate of 10 MD steps through the sparse
+    path (which keeps the list fresh), so the list holds slots past the
+    cutoff and padded slots."""
+    from repro_torch import random as jr
+    from repro_torch.core.controls import ctrl_for_assignment
+    key = jr.key(SEED, "cuda")
+    state = engine.init_state(key, n_rep)
+    ctrl = ctrl_for_assignment(grid, torch.arange(n_rep, device="cuda"))
+    n_steps = torch.full((n_rep,), 10, dtype=torch.int64, device="cuda")
+    return engine.propagate(state, ctrl, n_steps, jr.split(key, n_rep),
+                            max_steps=10)
+
+
+def sparse_plain(pos, pk, idx, valid, cutoff: float):
+    """The sparse kernel's plain version: the oracle's slot sums on the
+    same list (eps as sqrt(eps_i eps_j), a rounding from the kernel's
+    sqrt(eps_i) sqrt(eps_j))."""
+    from repro_torch.kernels.lj_forces import ref
+    return ref.nonbonded_sparse(pos, pk.lj_sigma, pk.lj_eps, pk.charges, idx,
+                                valid, cutoff)
+
+
+def slot_census(engine, state) -> dict:
+    """Slots of the list: valid ones, those within the cutoff, padding."""
+    pos, nl = state["pos"], state["nlist"]
+    r, n, k = nl["idx"].shape
+    j = nl["idx"].clamp(max=n - 1).to(torch.int64).reshape(r, -1)
+    pj = torch.stack([torch.gather(pos[..., c], 1, j).reshape(r, n, k)
+                      for c in range(3)], dim=-1)
+    r2 = ((pos[:, :, None, :] - pj) ** 2).sum(-1)
+    valid = nl["valid"] > 0
+    within = valid & (r2 <= engine.cutoff ** 2)
+    return {"slots": valid.numel(), "valid": int(valid.sum()),
+            "within": int(within.sum()),
+            "padding": int(valid.numel() - valid.sum())}
+
+
+def compare_third(engine, grid, n_rep: int, tag: str):
+    """The sparse kernel (with and without salt) and the neighbor-list
+    build (both flag states, a per-replica flag row, and a k_max low
+    enough to drop pairs) against their plain versions on a real list;
+    returns the max absolute errors, the state and its slot census."""
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    from repro_torch.kernels.nlist_build import ops as nl_ops
+    state = sparse_state(engine, grid, n_rep)
+    census = slot_census(engine, state)
+    print(f"{tag} list (K={engine.k_max}): {census}; rebuilds in the 10 "
+          f"steps {int(state['nlist']['rebuilds'].max())}")
+    check(census["valid"] > census["within"] > 0 and census["padding"] > 0,
+          "the list holds slots past the cutoff and padded slots")
+    pos, nl, pk = state["pos"], state["nlist"], engine._nb_pack
+    args = (pos, pk, nl["idx"], nl["valid"], engine.cutoff)
+    got = nb_ops.nonbonded_sparse_batched(*args)
+    want = sparse_plain(*args)
+    errs = {name: rel(a, b) for name, a, b in
+            zip(("f_lj", "f_el", "e_lj", "e_el"), got, want)}
+    salt = torch.linspace(0.5, 1.0, n_rep, device="cuda")
+    errs["f salt"] = rel(nb_ops.nonbonded_force_sparse(*args, salt),
+                         want[0] + salt[:, None, None] * want[1])
+    print(f"{tag} sparse kernel: " + ", ".join(f"{k} {v:.2e}"
+                                               for k, v in errs.items())
+          + f" (tol forces {TOL_SPARSE_FORCE}, energies "
+            f"{TOL_SPARSE_ENERGY})")
+    check(max(errs["f_lj"], errs["f_el"], errs["f salt"]) <= TOL_SPARSE_FORCE
+          and max(errs["e_lj"], errs["e_el"]) <= TOL_SPARSE_ENERGY
+          and all(bool(torch.isfinite(t).all()) for t in got),
+          f"sparse kernel vs plain at R={n_rep}")
+    out = {"nonbonded_sparse": max(float((a - b).abs().max())
+                                   for a, b in zip(got[:2], want[:2]))}
+    old = (nl["idx"], nl["valid"])
+    flags = {"flag 0": torch.zeros(1, dtype=torch.int32, device="cuda"),
+             "flag 1": torch.ones(1, dtype=torch.int32, device="cuda"),
+             "flag row": (torch.arange(n_rep, device="cuda") % 2).to(
+                 torch.int32)}
+    build_err = 0
+    for name, flag in flags.items():
+        got_b = nl_ops.nlist_build_batched(pos, flag, old, pk.mask_u8,
+                                           engine.r_list, engine.k_max)
+        want_b = nl_ops.build_gated_plain(pos, flag, old, pk.nb_mask,
+                                          engine.r_list, engine.k_max)
+        same = all(torch.equal(a, b) for a, b in zip(got_b, want_b))
+        build_err = max([build_err] + [int((a - b).abs().max())
+                                       for a, b in zip(got_b, want_b)])
+        print(f"{tag} build, {name}: bitwise equal {same}, dropped "
+              f"{int(got_b[2].sum())}")
+        check(same, f"build kernel vs plain ({name}) at R={n_rep}")
+        if name == "flag 0":
+            check(torch.equal(got_b[0], old[0])
+                  and torch.equal(got_b[1], old[1])
+                  and int(got_b[2].abs().sum()) == 0,
+                  "flag 0 leaves the list unchanged")
+    got_b = nl_ops.nlist_build_batched(pos, None, None, pk.mask_u8,
+                                       engine.r_list, K_LOW)
+    want_b = nl_ops.build_gated_plain(pos, None, None, pk.nb_mask,
+                                      engine.r_list, K_LOW)
+    same = all(torch.equal(a, b) for a, b in zip(got_b, want_b))
+    print(f"{tag} build with k_max={K_LOW}: bitwise equal {same}, dropped "
+          f"{int(got_b[2].sum())} pairs")
+    check(same and int(got_b[2].min()) > 0,
+          f"build kernel vs plain with dropped pairs at R={n_rep}")
+    out["nlist_build"] = float(build_err)
+    return out, state, census
+
+
+def timing_third(engine, state, smi: str):
+    """Phase 4's timing for the sparse kernel and the build kernel (both
+    flag states) at R = 384."""
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    from repro_torch.kernels.nlist_build import ops as nl_ops
+    phase(f"12 timing at R={R_TSU}, N={N_ATOMS}")
+    pos, nl, pk = state["pos"], state["nlist"], engine._nb_pack
+    args = (pos, pk, nl["idx"], nl["valid"], engine.cutoff)
+    old = (nl["idx"], nl["valid"])
+    on = torch.ones(1, dtype=torch.int32, device="cuda")
+    off = torch.zeros(1, dtype=torch.int32, device="cuda")
+    b = (engine.r_list, engine.k_max)
+    kernels = {
+        "nonbonded_sparse": (
+            lambda: nb_ops.nonbonded_sparse_batched(*args),
+            lambda: sparse_plain(*args), 10),
+        "nlist_build": (
+            lambda: nl_ops.nlist_build_batched(pos, on, old, pk.mask_u8, *b),
+            lambda: nl_ops.build_gated_plain(pos, on, old, pk.nb_mask, *b),
+            3),
+        "nlist_build (flag 0)": (
+            lambda: nl_ops.nlist_build_batched(pos, off, old, pk.mask_u8,
+                                               *b),
+            lambda: nl_ops.build_gated_plain(pos, off, old, pk.nb_mask, *b),
+            3),
+    }
+    res = {}
+    for name, (kernel, plain, n_plain) in kernels.items():
+        k_ms = graph_ms(kernel)
+        h_ms = host_ms(kernel)
+        p_ms = median_ms(plain, n_plain, 1)
+        res[name] = (k_ms, p_ms)
+        print(f"{name}: kernel {k_ms:.4f} ms device (graph replay), "
+              f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms "
+              f"[{smi}]")
+    return res
+
+
+def bounds_third(engine, n_rep: int, census: dict):
+    """(bound_ms, bound_by) of the sparse kernel and the build kernel at
+    this run's list: the sparse pass needs each unordered pair within the
+    cutoff once (PAIR_OPS) and a distance test of each listed pair past
+    it; the build a distance test of each unexcluded unordered pair; the
+    build with flag 0 only reads and writes the list."""
+    nb = engine._nb_pack
+    n, k = engine.system.n_atoms, engine.k_max
+    table = n_rep * n * k * (4 + 4)                 # idx int32 + valid f32
+    stack = n_rep * n * 3 * 4
+    n_pairs = int(nb.mask_u8.to(torch.int64).sum()) // 2
+    work = {
+        # pos, atom rows and list in; both force rows and energies out
+        "nonbonded_sparse": (
+            stack + 3 * n * 4 + table + 2 * stack + 2 * n_rep * 4,
+            census["within"] // 2 * PAIR_OPS
+            + (census["valid"] - census["within"]) // 2 * DIST_TEST_OPS),
+        # pos, mask and flag in; the list and dropped out
+        "nlist_build": (stack + nb.mask_u8.numel() + 4 + table + n_rep * 4,
+                        n_rep * n_pairs * DIST_TEST_OPS),
+        "nlist_build (flag 0)": (4 + 2 * table + n_rep * 4, 0),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+        print(f"{name} bound: {nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP "
+              f"-> {out[name][0]:.5f} ms ({out[name][1]})")
+    return out
+
+
+SPARSE_RUNS = (("fused", "neighbor", 6), ("fused", "matrix", 3),
+               ("pallas", "neighbor", 3))
+
+
+def run_tsu_sparse(libs, smi: str):
+    """The third slice: the TSU grid on the sparse path, both force paths,
+    each run from ``init`` with every launch count set to 0 just before."""
+    phase(f"13 TSU sparse slice: {TSU_DIMS} = {R_TSU} replicas x {N_ATOMS} "
+          f"atoms, nonbonded='sparse', bonded='sparse', "
+          f"run_fused(chunk_cycles=3)")
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.core.ensemble import control_multiset_ok
+    engines = {path: sparse_engine(path) for path in ("fused", "pallas")}
+    eng = engines["fused"]
+    print(f"cutoff {eng.cutoff}, skin {eng.skin}, r_list {eng.r_list}, "
+          f"k_max {eng.k_max}, build {eng.nlist_build}, pair planes "
+          f"{eng._pair_params is not None}")
+    out = {}
+    for path, scheme, n_cycles in SPARSE_RUNS:
+        tag = f"{path}/{scheme}"
+        cfg = RepExConfig(dimensions=TSU_DIMS, md_steps_per_cycle=10,
+                          n_cycles=n_cycles, exchange_scheme=scheme)
+        driver = REMDDriver(engines[path], cfg, device="cuda")
+        ens = driver.init(SEED)
+        reset(libs)
+        t0 = time.perf_counter()
+        ens = driver.run_fused(ens, chunk_cycles=3)
+        wall = time.perf_counter() - t0
+        launches = {lib.name: lib.launches for lib in libs}
+        variants = dict(libs[0].variants)
+        evals = n_cycles * 11
+        want = {"chain_forces": evals, "nonbonded": 0, "fused_baoab": 0,
+                "exchange_matrix": n_cycles if scheme == "matrix" else 0,
+                "nonbonded_sparse": evals + n_cycles, "nlist_build": evals}
+        per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
+        ms_cycle = per_chunk[-1]
+        last = driver.history[-1]
+        failed = sum(h["failed"] for h in driver.history)
+        print(f"{tag}: ms/cycle {ms_cycle:.2f} (last chunk of 3 cycles; per "
+              f"chunk {[round(t, 2) for t in per_chunk]}; whole run "
+              f"{wall / n_cycles * 1e3:.2f}) [{smi}]")
+        print(f"{tag}: replica-steps/s {R_TSU * 10 / ms_cycle * 1e3:.0f}")
+        print(f"{tag}: acceptance by dimension {driver.acceptance_ratios()}")
+        print(f"{tag}: nb_rebuilds by cycle "
+              f"{[h['nb_rebuilds'] for h in driver.history]}, nb_overflow "
+              f"{last['nb_overflow']}")
+        print(f"{tag}: launches {launches}, bonded variants {variants} "
+              f"(want {want})")
+        check(launches == want and variants == {"bias": evals},
+              f"{tag}: bonded bias variant, build and sparse force cycles x "
+              f"11, sparse feature pass once per cycle, nothing dense")
+        check(last["nb_overflow"] == 0, f"{tag}: no pair dropped")
+        check(control_multiset_ok(ens), f"{tag}: assignment is a permutation")
+        check(all(sorted(h["assignment"].tolist()) == list(range(R_TSU))
+                  for h in driver.history),
+              f"{tag}: every assignment row a permutation")
+        check(failed == 0, f"{tag}: no replica failed")
+        check(bool(torch.isfinite(ens.state["pos"]).all()
+                   and torch.isfinite(ens.state["vel"]).all())
+              and tuple(ens.state["pos"].shape) == (R_TSU, N_ATOMS, 3),
+              f"{tag}: finite state of the expected shape")
+        check(sum(a for a, _ in driver.acceptance.values()) > 0,
+              f"{tag}: some exchanges accepted")
+        out[tag] = dict(ms=ms_cycle, launches=launches, driver=driver,
+                        ens=ens, rebuilds=last["nb_rebuilds"])
+    check(out["fused/neighbor"]["rebuilds"] > 0,
+          "the gated build fired inside a chunk on the card")
+    return out
+
+
+def breakdown_sparse(runs, smi: str) -> None:
+    """Where a sparse fused TSU cycle's time goes: each part timed alone
+    at R = 384 times its calls per cycle, then the busy share and the two
+    new kernels' device time from a profiled matrix cycle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random as jr
+    from repro_torch.core import exchange as X
+    from repro_torch.core import failures as F
+    from repro_torch.core.controls import ctrl_for_assignment
+    from repro_torch.kernels.chain_forces import ops as chain_ops
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    from repro_torch.md import integrators as I
+    from repro_torch.md import noise as NZ
+    phase("13b where a sparse fused TSU cycle's time goes")
+    driver, ens = runs["fused/matrix"]["driver"], runs["fused/matrix"]["ens"]
+    eng, grid = driver.engine, driver.grid
+    state, nl = ens.state, ens.state["nlist"]
+    pos = state["pos"]
+    ctrl = ctrl_for_assignment(grid, ens.assignment)
+    keys = jr.split(ens.rng, R_TSU)
+    n_steps = torch.full((R_TSU,), 10, dtype=torch.int64, device="cuda")
+    c1, noise_scale = I.baoab_scales(eng.system.masses, ctrl["temperature"],
+                                     eng.dt, eng.gamma)
+    nz = noise_scale * NZ.step_noise_unrolled(keys, 1, (N_ATOMS, 3))
+    f = eng._sparse_force_aux(ctrl)(pos, nl)[0]
+    zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    parts = {
+        "list refresh (skin check + gated build)": (
+            lambda: eng._refresh_nlist(pos, nl), 11),
+        "bonded kernel (bias variant)": (
+            lambda: chain_ops.bonded_forces(pos, eng._pack,
+                                            ctrl["umbrella_center"],
+                                            ctrl["umbrella_k"]), 11),
+        "sparse force (kernel + salt sum)": (
+            lambda: nb_ops.nonbonded_force_sparse(
+                pos, eng._nb_pack, nl["idx"], nl["valid"], eng.cutoff), 11),
+        "noise draw (step_noise_unrolled)": (
+            lambda: NZ.step_noise_unrolled(keys, 1, (N_ATOMS, 3)), 11),
+        "BAOAB update": (lambda: I.baoab_fused_iteration(
+            1, pos, state["vel"], f, nz, c1, noise_scale, eng.system.masses,
+            n_steps, 10, eng.dt), 11),
+        "feature pass (replica_features, sparse)": (
+            lambda: eng.replica_features(state), 1),
+        "neighbor exchange (features + DEO sweep)": (
+            lambda: X.neighbor_exchange(eng, state, grid, ens.assignment,
+                                        zero, zero, keys[0], ens.alive), 1),
+        "matrix exchange (features + matrix + Gibbs sweep)": (
+            lambda: X.matrix_exchange(eng, state, grid, ens.assignment,
+                                      keys[0]), 1),
+        "detect + recover": (lambda: F.detect_recover(
+            eng, ens, "relaunch", state), 1),
+    }
+    times = {}
+    for name, (fn, calls) in parts.items():
+        ms = median_ms(fn, 5, 1)
+        times[name] = ms * calls
+        print(f"{name}: {ms:.3f} ms x {calls} = {ms * calls:.3f} ms/cycle")
+    md = sum(times[k] for k in list(times)[:5])
+    for tag, ex in (("fused/neighbor", "neighbor exchange (features + DEO "
+                                        "sweep)"),
+                    ("fused/matrix", "matrix exchange (features + matrix + "
+                                     "Gibbs sweep)")):
+        total = md + times[ex] + times["detect + recover"]
+        print(f"{tag}: sum of parts {total:.2f} ms/cycle vs measured "
+              f"{runs[tag]['ms']:.2f} [{smi}]")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        driver.run_fused(ens, n_cycles=1, chunk_cycles=1)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    ms = runs["fused/matrix"]["ms"]
+    print(f"profiled sparse matrix cycle: device kernel time {busy:.2f} ms, "
+          f"busy share of the measured ms/cycle {busy / ms:.3f}")
+    for name, pattern, calls in (
+            ("nonbonded_sparse", r"nonbonded_sparse_kernel", 12),
+            ("nlist_build", r"nlist_build_kernel", 11),
+            ("chain_forces (bias)", r"bonded_(edges|gather|energy)_kernel",
+             11)):
+        dev = sum(e.device_time_total for e in kernels
+                  if re.search(pattern, e.name)) / 1e3
+        print(f"profiled sparse matrix cycle: {name} {dev / calls:.4f} ms "
+              f"device per call ({calls} calls)")
+
+
+def invariance_sparse():
+    phase(f"14 sparse path: chunk-size invariance across a rebuild (R=8, "
+          f"N={N_ATOMS}) and card vs CPU")
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.core import exchange as X
+    dims = (("temperature", 2), ("umbrella", 2), ("umbrella", 2))
+    # a skin of 0.5 A trips within the 3 cycles, so a rebuild falls inside
+    # the chunk of 3
+    engine = sparse_engine("fused", skin=0.5)
+    cfg = RepExConfig(dimensions=dims, md_steps_per_cycle=10, n_cycles=3)
+    out = {}
+    for k in (1, 3):
+        driver = REMDDriver(engine, cfg, device="cuda")
+        ens = driver.run_fused(driver.init(SEED), chunk_cycles=k)
+        out[k] = ([h["assignment"].tolist() for h in driver.history],
+                  [h["nb_rebuilds"] for h in driver.history], ens.state)
+    same_rows = out[1][0] == out[3][0] and out[1][1] == out[3][1]
+    s1, s3 = out[1][2], out[3][2]
+    same_state = (torch.equal(s1["pos"], s3["pos"])
+                  and torch.equal(s1["vel"], s3["vel"])
+                  and all(torch.equal(v, s3["nlist"][key])
+                          for key, v in s1["nlist"].items()))
+    print(f"rebuilds by cycle {out[3][1]}; assignment rows identical "
+          f"{same_rows}, positions, velocities and lists bitwise equal "
+          f"{same_state}")
+    check(out[3][1][-1] > 0, "a rebuild inside the run")
+    check(same_rows and same_state, "sparse decisions independent of chunk "
+                                    "size")
+
+    runs = {}
+    orig = X.metropolis
+    for dev in ("cuda", "cpu"):
+        seen = []
+
+        def spy(delta, rng):
+            seen.append((delta.clone(), X.jr.uniform(rng, tuple(delta.shape))))
+            return orig(delta, rng)
+
+        X.metropolis = spy
+        try:
+            from repro_torch.md import MDEngine
+            from repro_torch.md.system import chain_molecule
+            eng = MDEngine(chain_molecule(64), force_path="fused",
+                           nonbonded="sparse", bonded="sparse", skin=0.3,
+                           device=dev)
+            cfg = RepExConfig(dimensions=dims, md_steps_per_cycle=10,
+                              n_cycles=4, exchange_scheme="matrix")
+            driver = REMDDriver(eng, cfg, device=dev)
+            ens = driver.run_fused(driver.init(SEED), chunk_cycles=2)
+        finally:
+            X.metropolis = orig
+        runs[dev] = ([h["assignment"].tolist() for h in driver.history],
+                     driver.acceptance_ratios(),
+                     [h["nb_rebuilds"] for h in driver.history],
+                     ens.state["pos"].cpu(), seen)
+    same = runs["cuda"][:3] == runs["cpu"][:3]
+    dpos = float((runs["cuda"][3] - runs["cpu"][3]).abs().max())
+    print(f"small sparse matrix run (R=8, N=64, 4 cycles, skin 0.3) cuda vs "
+          f"cpu: decisions and rebuilds identical {same} (rebuilds "
+          f"{runs['cuda'][2]}), max |dpos| {dpos:.2e} A (tol "
+          f"{TOL_SMALL_POS})")
+    if not same:
+        for c, (a, b) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+            if a != b:
+                for dev in ("cuda", "cpu"):
+                    delta, u = runs[dev][4][c]
+                    margin = (u - torch.exp(torch.clamp_max(-delta, 0.0))
+                              ).abs().cpu()
+                    print(f"cycle {c} {dev}: Metropolis margins "
+                          f"{margin.tolist()}")
+                break
+    check(same and dpos <= TOL_SMALL_POS, "sparse cuda run makes the CPU "
+                                          "run's decisions")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -877,6 +1331,7 @@ def main() -> int:
     from repro_torch.kernels.exchange_matrix import ops as x_ops
     from repro_torch.kernels.fused_propagate import ops as fused_ops
     from repro_torch.kernels.lj_forces import ops as nb_ops
+    from repro_torch.kernels.nlist_build import ops as nl_ops
     from repro_torch.md import MDEngine
     from repro_torch.md.system import chain_molecule
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -885,7 +1340,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = environment()
     libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
-            x_ops.LIBRARY]
+            x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY]
     build(libs)
 
     phase(f"3 kernels vs plain versions at N={N_ATOMS}, R=4 and R={R_MAIN}")
@@ -919,8 +1374,25 @@ def main() -> int:
           f"{ms_pallas:.2f} [{smi}]")
     invariance_fused()
 
+    phase(f"11 third-slice kernels vs plain versions at N={N_ATOMS}, R=4 "
+          f"and R={R_TSU}")
+    sp = sparse_engine("fused")
+    compare_third(sp, grid, 4, "R=4")
+    errs3, sp_state, census = compare_third(sp, grid, R_TSU, f"R={R_TSU}")
+    times3 = timing_third(sp, sp_state, smi)
+    bound3 = bounds_third(sp, R_TSU, census)
+    times.update(times3)
+    bound.update(bound3)
+    del sp_state
+    sparse_runs = run_tsu_sparse(libs, smi)
+    breakdown_sparse(sparse_runs, smi)
+    print("TSU sparse ms/cycle: " + ", ".join(
+        f"{tag} {r['ms']:.2f}" for tag, r in sparse_runs.items())
+        + f" [{smi}]")
+    invariance_sparse()
+
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
-             "exchange_matrix")
+             "exchange_matrix", "nonbonded_sparse", "nlist_build")
     src_of = {
         "chain_forces": "src/repro_torch/kernels/chain_forces/csrc/"
                         "chain_forces.cu",
@@ -930,20 +1402,32 @@ def main() -> int:
         "fused_baoab": "src/repro_torch/kernels/fused_propagate/csrc/"
                        "fused_baoab.cu",
         "exchange_matrix": "src/repro_torch/kernels/exchange_matrix/csrc/"
-                           "exchange_matrix.cu"}
+                           "exchange_matrix.cu",
+        "nonbonded_sparse": "src/repro_torch/kernels/lj_forces/csrc/"
+                            "nonbonded_sparse.cu",
+        "nlist_build": "src/repro_torch/kernels/nlist_build/csrc/"
+                       "nlist_build.cu"}
     replaces = {
         "chain_forces": "src/repro/kernels/chain_forces/kernel.py:190",
         "chain_forces_bias": "src/repro/kernels/chain_forces/kernel.py:190",
         "nonbonded": "src/repro/kernels/lj_forces/kernel.py:284",
         "fused_baoab": "src/repro/kernels/fused_propagate/kernel.py:80",
-        "exchange_matrix": "src/repro/kernels/exchange_matrix/kernel.py:42"}
+        "exchange_matrix": "src/repro/kernels/exchange_matrix/kernel.py:42",
+        "nonbonded_sparse": "src/repro/kernels/lj_forces/kernel.py:257",
+        # not a TPU kernel: the port's form of the lax.cond around the jnp
+        # build (maybe_rebuild)
+        "nlist_build": "src/repro/md/neighbors.py:346"}
     counts = {"chain_forces": launches["chain_forces"],
               "nonbonded": launches["nonbonded"],
               "chain_forces_bias": bias_launches,
               "fused_baoab": sum(r["launches"]["fused_baoab"]
                                  for r in runs.values()),
-              "exchange_matrix": runs["matrix"]["launches"]["exchange_matrix"]}
-    errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb)
+              "exchange_matrix": runs["matrix"]["launches"]["exchange_matrix"],
+              "nonbonded_sparse": sum(r["launches"]["nonbonded_sparse"]
+                                      for r in sparse_runs.values()),
+              "nlist_build": sum(r["launches"]["nlist_build"]
+                                 for r in sparse_runs.values())}
+    errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src_of[name],
          "replaces": replaces[name], "launches": counts[name],

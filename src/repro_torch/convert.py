@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.ensemble import Ensemble
 from repro_torch.md.system import MolecularSystem
+from repro_torch.tree import tree_map
 
 
 def system_from_arrays(src, device) -> MolecularSystem:
@@ -35,15 +36,25 @@ def system_from_arrays(src, device) -> MolecularSystem:
     return MolecularSystem(**kwargs)
 
 
+def _state_leaf(x, device) -> torch.Tensor:
+    """One state leaf: integer and bool leaves keep their dtype (the
+    neighbor list's int32 indices and counters), the rest is float32."""
+    a = np.array(x)
+    if a.dtype.kind in "iub":
+        return torch.as_tensor(a, device=device)
+    return torch.as_tensor(a, device=device).to(torch.float32)
+
+
 def ensemble_from_arrays(ens, rng_key_data, device) -> Ensemble:
     """The port's ``Ensemble`` from a JAX ``Ensemble`` (fields read with
-    ``np.asarray``; ``state`` a dict of arrays) and its driver key's raw
-    data, ``jax.random.key_data(ens.rng)`` (two uint32 words)."""
+    ``np.asarray``; ``state`` a dict of arrays, nested for the sparse
+    path's ``nlist``) and its driver key's raw data,
+    ``jax.random.key_data(ens.rng)`` (two uint32 words)."""
     def t(x, dtype):
         return torch.as_tensor(np.array(x), device=device).to(dtype)
 
     return Ensemble(
-        state={k: t(v, torch.float32) for k, v in ens.state.items()},
+        state=tree_map(lambda x: _state_leaf(x, device), dict(ens.state)),
         assignment=t(ens.assignment, torch.int64),
         rng=t(np.asarray(rng_key_data).astype(np.int64), torch.int64),
         cycle=t(ens.cycle, torch.int64),

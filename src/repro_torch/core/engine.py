@@ -13,6 +13,19 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import torch
+
+# The neighbor-list health extension (``nb_stats``) reports these keys,
+# always and with one shape; the dense engines' zeros, the cycle stats and
+# the driver's stats row all derive from this one definition.
+NB_STAT_KEYS = ("nb_overflow", "nb_rebuilds")
+
+
+def nb_zero_stats(device) -> Dict[str, torch.Tensor]:
+    """The all-zero ``nb_stats`` (float32 scalars on ``device``)."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {k: z for k in NB_STAT_KEYS}
+
 
 def engine_capabilities(engine) -> Dict[str, Any]:
     """Feature-detect the optional engine extensions (duck-typed, as the

@@ -18,6 +18,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.core.ensemble import Ensemble
+from repro_torch.tree import tree_map
 
 # the per-cycle escalation counters every detect/recover path emits
 ESC_STAT_KEYS = ("failed", "esc_relaunch", "esc_reinit", "esc_dead")
@@ -28,11 +29,13 @@ def detect(engine, ens: Ensemble) -> torch.Tensor:
 
 
 def _mend(state, donor_state, mask_rows: torch.Tensor):
-    """Replace ``state`` rows flagged in ``mask_rows`` with the donor's."""
+    """Replace ``state`` rows flagged in ``mask_rows`` with the donor's,
+    leaf by leaf through the nested state (the sparse path's neighbor
+    list included)."""
     def one(cur, don):
         shape = (mask_rows.shape[0],) + (1,) * (cur.ndim - 1)
         return torch.where(mask_rows.reshape(shape), don, cur)
-    return {k: one(v, donor_state[k]) for k, v in state.items()}
+    return tree_map(one, state, donor_state)
 
 
 def _escalate_masks(failed: torch.Tensor, streak: torch.Tensor, budget: int):
@@ -97,6 +100,6 @@ def detect_recover(engine, ens: Ensemble, policy: str, backup_state: Any,
                                relaunches=streak)
         stats = _esc_stats(failed, relaunch, reinit, dead)
 
-    new_backup = {k: torch.where(any_failed, b, new_ens.state[k])
-                  for k, b in backup_state.items()}
+    new_backup = tree_map(lambda b, s: torch.where(any_failed, b, s),
+                          backup_state, new_ens.state)
     return new_ens, new_backup, stats

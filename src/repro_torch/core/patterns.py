@@ -17,6 +17,7 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core import modes as M
 from repro_torch.core.controls import ControlGrid, ctrl_for_assignment
+from repro_torch.core.engine import nb_zero_stats
 from repro_torch.core.ensemble import Ensemble
 from repro_torch.core.exchange import matrix_exchange, neighbor_exchange
 
@@ -65,8 +66,9 @@ def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
     """One cycle with dim/parity derived ON DEVICE from ``ens.cycle``.
 
     Returns (new_ens, stats): fixed-shape device tensors ``dim``,
-    ``accepted``, ``attempted``, ``ready_frac`` and the post-cycle
-    ``assignment`` row, for the driver to stack per chunk."""
+    ``accepted``, ``attempted``, ``ready_frac``, the neighbor-list health
+    scalars (:func:`nb_health`) and the post-cycle ``assignment`` row,
+    for the driver to stack per chunk."""
     execution = execution or {"mode": "mode1", "n_waves": 1}
     n_dims = len(grid.dims)
     dim_index = torch.remainder(ens.cycle, n_dims)
@@ -82,4 +84,16 @@ def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
         "attempted": stats["attempted"],
         "ready_frac": torch.mean(ready.to(torch.float32)),
         "assignment": new_ens.assignment,
+        **nb_health(engine, new_ens.state, new_ens.assignment.device),
     }
+
+
+def nb_health(engine, state, device) -> Dict[str, torch.Tensor]:
+    """Neighbor-list health scalars for the cycle stats: an engine with
+    ``nb_stats`` (the sparse nonbonded path) reports its cumulative
+    overflow / rebuild counters, anything else zeros, so the stats keep
+    one shape across engines."""
+    fn = getattr(engine, "nb_stats", None)
+    if callable(fn):
+        return fn(state)
+    return nb_zero_stats(device)

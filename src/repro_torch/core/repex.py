@@ -33,7 +33,7 @@ from repro_torch.config import RepExConfig
 from repro_torch.core import failures as F
 from repro_torch.core import patterns
 from repro_torch.core.controls import ControlGrid, build_grid
-from repro_torch.core.engine import engine_capabilities
+from repro_torch.core.engine import NB_STAT_KEYS, engine_capabilities
 from repro_torch.core.ensemble import Ensemble, make_ensemble
 from repro_torch.core.modes import auto_mode
 from repro_torch.device import resolve_device
@@ -41,7 +41,7 @@ from repro_torch.device import resolve_device
 # the scalar fields of one cycle's stats row, in packing order; the
 # post-cycle assignment row follows them
 _FIELDS = ("cycle", "dim", "accepted", "attempted",
-           "ready_frac") + F.ESC_STAT_KEYS
+           "ready_frac") + F.ESC_STAT_KEYS + NB_STAT_KEYS
 _INT_FIELDS = ("cycle", "dim") + F.ESC_STAT_KEYS
 
 
@@ -181,7 +181,8 @@ class REMDDriver:
                     "esc_dead": cols["esc_dead"][i],
                     "ready_frac": cols["ready_frac"][i],
                     "assignment": assignment[i],
-                    "nb_overflow": 0.0, "nb_rebuilds": 0.0,
+                    "nb_overflow": cols["nb_overflow"][i],
+                    "nb_rebuilds": cols["nb_rebuilds"][i],
                 })
             done += k
             if verbose:

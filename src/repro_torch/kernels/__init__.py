@@ -4,19 +4,26 @@
                     optional umbrella torque) and the bonded energy;
                     replaces the JAX package's
                     ``chain_forces_kernel_batched`` Pallas kernel.
-  lj_forces       — all-pairs LJ + Coulomb forces and energies with an
-                    exclusion mask; replaces ``nonbonded_kernel_batched``.
+  lj_forces       — LJ + Coulomb forces and energies, over all pairs with
+                    an exclusion mask (replaces ``nonbonded_kernel_batched``)
+                    and over a neighbor list (replaces
+                    ``nonbonded_sparse_kernel_batched``).
   fused_propagate — one masked BAOAB iteration (bonded + nonbonded force
                     and the update) per launch; replaces
                     ``fused_baoab_kernel_batched``.
   exchange_matrix — the (R, C) replica x ctrl reduced-energy matrix of the
                     Gibbs exchange; replaces ``exchange_matrix_kernel``.
+  nlist_build     — the neighbor-list build, gated on a device flag; no
+                    TPU counterpart (the JAX package builds the list with
+                    jnp under ``lax.cond``), it is the port's form of that
+                    cond.
 
 Each subpackage: ``csrc/*.cu`` (CUDA C++ for ``sm_90a`` with a plain C
-entry point), ``ops.py`` (the ctypes wrapper with its launch counter,
-one MD-facing entry point, and ``nonbonded_plain``), ``ref.py`` (the
-PyTorch oracle, which is also the CPU path, and ``bonded_forces_sparse``;
-the two named functions are the kernels' plain versions).  The entry point
+entry point), ``ops.py`` (the ctypes wrappers with their launch counters,
+the MD-facing entry points, and the kernels' plain versions where they
+are not oracles of ``ref.py``: ``nonbonded_plain``,
+``build_gated_plain``), ``ref.py`` (the PyTorch oracles, which are also
+the CPU path and the other kernels' plain versions).  An entry point
 dispatches by device: a CUDA tensor goes to the kernel, which launches
 or raises, a CPU tensor to the oracle.
 
@@ -37,6 +44,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -49,6 +57,13 @@ REPLICA_CHUNK = 8   # replicas per chunk of the plain (R, N, N) pair planes
 def pad_to_block(n: int, block: int) -> int:
     """Padding of an atom axis up to a whole number of blocks."""
     return max(block, ((n + block - 1) // block) * block)
+
+
+def f32_square(r: float) -> float:
+    """``r * r`` rounded once to float32: the threshold JAX compares a
+    float32 array with when given a Python float, and the one the kernels
+    get, so a distance test agrees on both sides of the boundary."""
+    return float(np.float32(r * r))
 
 
 def wrap_deg(delta):

@@ -8,7 +8,8 @@ gather matrix is built (at N = 2881 it would be 2944 x 26496 f32).
 ``bonded_forces`` is the one MD-facing entry point: a CUDA stack goes
 through the kernel (``chain_forces_batched``, which launches
 ``csrc/chain_forces.cu`` and counts the launch), a CPU stack through the
-dense PyTorch oracle (``ref.bonded_forces``, the JAX package's CPU path).
+dense PyTorch oracle (``ref.bonded_forces``, the JAX package's CPU path)
+or, for ``bonded="sparse"``, the slot-table one.
 The kernel's plain version, the same two phases in PyTorch, is
 ``ref.bonded_forces_sparse``.  Umbrella centers and constants reach the
 kernel as one (R, 8) row per replica (``pack_bias``); without them the
@@ -121,14 +122,20 @@ def chain_forces_batched(pos: torch.Tensor, pack: ChainForcePack,
 
 def bonded_forces(pos: torch.Tensor, pack: ChainForcePack,
                   umbrella_center: Optional[torch.Tensor] = None,
-                  umbrella_k: Optional[torch.Tensor] = None):
+                  umbrella_k: Optional[torch.Tensor] = None,
+                  sparse: bool = False):
     """(R, N, 3) stack -> (forces (R, N, 3), e_bonded (R,)): analytic
     bonds + angles + torsions (+ the umbrella torque when centers are
-    given, (R, U) each).  The CUDA kernel on the card, the dense PyTorch
-    oracle on the CPU."""
+    given, (R, U) each).  The CUDA kernel on the card either way; on the
+    CPU the dense PyTorch oracle, or with ``sparse`` the slot-table
+    contraction (``ref.bonded_forces_sparse``), as the JAX package's
+    ``bonded="sparse"`` selects on its jnp path."""
     if default_use_kernel(pos):
         bias = (None if umbrella_center is None else
                 pack_bias(umbrella_center, umbrella_k, pos.shape[0],
                           pos.device))
         return chain_forces_batched(pos.contiguous(), pack, bias)
+    if sparse:
+        return ref.bonded_forces_sparse(pos, pack.top, pack.slots,
+                                        umbrella_center, umbrella_k)
     return ref.bonded_forces(pos, pack.top, umbrella_center, umbrella_k)

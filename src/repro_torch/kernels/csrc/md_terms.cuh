@@ -1,6 +1,8 @@
 // Device code shared by the port's force kernels, written once: the bonded
-// term gradients (chain_forces.cu, fused_baoab.cu) and the all-pairs
-// nonbonded sweep (nonbonded.cu, fused_baoab.cu).  The TPU kernels share
+// term gradients (chain_forces.cu, fused_baoab.cu), the nonbonded pair term
+// (nonbonded.cu, fused_baoab.cu, nonbonded_sparse.cu), the all-pairs sweep
+// around it (nonbonded.cu, fused_baoab.cu) and the fixed-order energy sums
+// (nonbonded.cu, nonbonded_sparse.cu).  The TPU kernels share
 // the same math the same way: fused_propagate/kernel.py calls
 // chain_forces/kernel.py:bonded_scatter_rows and
 // lj_forces/kernel.py:nonbonded_pair_rows.
@@ -173,6 +175,67 @@ struct PairAcc {
   float e_lj = 0.f, e_el = 0.f;
 };
 
+// One pair's terms added to atom i's sums: LJ from the mixed sigma and
+// eps = sqrt(eps_i) sqrt(eps_j), bare Coulomb from qq = q_i q_j, all times
+// the 0/1 pair mask m.  r2 arrives already guarded (r2 += 1 - m), so a
+// masked pair stays finite and adds exactly zero.  The body of
+// lj_forces/kernel.py nonbonded_pair_rows and of the sparse kernel's slot.
+template <bool kEnergy>
+__device__ __forceinline__ void pair_accumulate(float dx, float dy, float dz,
+                                                float r2, float m, float sig,
+                                                float eps, float qq,
+                                                float coulomb, PairAcc& acc) {
+  const float tt = sig * sig / r2;
+  const float s6 = tt * (tt * tt);
+  const float rr = sqrtf(r2);
+  if (kEnergy) {
+    acc.e_lj += 4.0f * eps * (s6 * s6 - s6) * m;
+    acc.e_el += coulomb * qq / rr * m;
+  }
+  const float c_lj = 24.0f * eps * (2.0f * s6 * s6 - s6) / r2 * m;
+  const float c_el = coulomb * qq / (r2 * rr) * m;
+  acc.flx += c_lj * dx;
+  acc.fly += c_lj * dy;
+  acc.flz += c_lj * dz;
+  acc.fex += c_el * dx;
+  acc.fey += c_el * dy;
+  acc.fez += c_el * dz;
+}
+
+// Sum of v over a block of kTile threads in a fixed tree order (every
+// thread gets the sum; sh holds kTile floats).  No atomics, so the energy
+// sums of the nonbonded kernels are bitwise reproducible.
+__device__ __forceinline__ float block_sum(float v, float* sh) {
+  const int tid = threadIdx.x;
+  sh[tid] = v;
+  __syncthreads();
+  for (int s = kTile / 2; s > 0; s >>= 1) {
+    if (tid < s) sh[tid] += sh[tid + s];
+    __syncthreads();
+  }
+  const float out = sh[0];
+  __syncthreads();
+  return out;
+}
+
+// e[r] = 0.5 * the sum over tiles, in order, of an (R, n_tiles, 2) scratch
+// of per-block (LJ, elec) sums (one thread per replica).
+__global__ void tile_energy_kernel(const float* __restrict__ e_part,
+                                   float* __restrict__ e_lj,
+                                   float* __restrict__ e_el, int R,
+                                   int n_tiles) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float* ep = e_part + (size_t)r * n_tiles * 2;
+  float lj = 0.f, el = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    lj += ep[2 * t];
+    el += ep[2 * t + 1];
+  }
+  e_lj[r] = 0.5f * lj;
+  e_el[r] = 0.5f * el;
+}
+
 // Shared-memory staging of one j-tile's atom rows.
 struct NbTile {
   float x[kTile], y[kTile], z[kTile], s[kTile], e[kTile], q[kTile];
@@ -218,25 +281,10 @@ __device__ __forceinline__ void nb_sweep(
         const float m = (float)((words[b >> 2] >> (8 * (b & 3))) & 0xFFu);
         const float dx = pi.x - sh.x[jj], dy = pi.y - sh.y[jj],
                     dz = pi.z - sh.z[jj];
-        const float r2 = dx * dx + dy * dy + dz * dz + (1.0f - m);
-        const float sig = 0.5f * (si + sh.s[jj]);
-        const float eps = ei * sh.e[jj];
-        const float qq = qi * sh.q[jj];
-        const float tt = sig * sig / r2;
-        const float s6 = tt * (tt * tt);
-        const float rr = sqrtf(r2);
-        if (kEnergy) {
-          acc.e_lj += 4.0f * eps * (s6 * s6 - s6) * m;
-          acc.e_el += coulomb * qq / rr * m;
-        }
-        const float c_lj = 24.0f * eps * (2.0f * s6 * s6 - s6) / r2 * m;
-        const float c_el = coulomb * qq / (r2 * rr) * m;
-        acc.flx += c_lj * dx;
-        acc.fly += c_lj * dy;
-        acc.flz += c_lj * dz;
-        acc.fex += c_el * dx;
-        acc.fey += c_el * dy;
-        acc.fez += c_el * dz;
+        pair_accumulate<kEnergy>(dx, dy, dz,
+                                 dx * dx + dy * dy + dz * dz + (1.0f - m), m,
+                                 0.5f * (si + sh.s[jj]), ei * sh.e[jj],
+                                 qi * sh.q[jj], coulomb, acc);
       }
     }
   }

@@ -1,4 +1,4 @@
-"""Chain nonbonded pass (LJ + Coulomb over all pairs): ``ref.py``
-(PyTorch oracle), ``ops.py`` (packing, dispatch, the ctypes wrapper and
-the kernel's plain version) and ``csrc/nonbonded.cu`` (the Hopper
-kernel)."""
+"""Chain nonbonded pass (LJ + Coulomb), over all pairs and over neighbor
+lists: ``ref.py`` (PyTorch oracles), ``ops.py`` (packing, dispatch, the
+ctypes wrappers and the kernels' plain versions), ``csrc/nonbonded.cu``
+and ``csrc/nonbonded_sparse.cu`` (the Hopper kernels)."""

@@ -25,8 +25,9 @@
 // kernel sums the tiles in order.  No atomics: bitwise reproducible.
 // Speed work (reciprocals instead of divisions, wider j reuse, symmetry)
 // is for later; this version keeps the TPU kernel's arithmetic.  The sweep
-// itself (md::nb_sweep) lives in ../../csrc/md_terms.cuh, shared with
-// fused_baoab.cu.
+// itself (md::nb_sweep), the block sum and the in-order tile sum live in
+// ../../csrc/md_terms.cuh, shared with fused_baoab.cu and
+// nonbonded_sparse.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,20 +35,8 @@
 
 namespace {
 
+using md::block_sum;
 using md::kTile;
-
-__device__ __forceinline__ float block_sum(float v, float* sh) {
-  const int tid = threadIdx.x;
-  sh[tid] = v;
-  __syncthreads();
-  for (int s = kTile / 2; s > 0; s >>= 1) {
-    if (tid < s) sh[tid] += sh[tid + s];
-    __syncthreads();
-  }
-  const float out = sh[0];
-  __syncthreads();
-  return out;
-}
 
 __global__ void __launch_bounds__(kTile) nonbonded_tile_kernel(
     const float* __restrict__ pos, const float* __restrict__ sigma,
@@ -92,23 +81,6 @@ __global__ void __launch_bounds__(kTile) nonbonded_tile_kernel(
   }
 }
 
-// e[r] = 0.5 * sum over tiles in order (one thread per replica).
-__global__ void nonbonded_energy_kernel(const float* __restrict__ e_part,
-                                        float* __restrict__ e_lj,
-                                        float* __restrict__ e_el, int R,
-                                        int n_tiles) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const float* ep = e_part + (size_t)r * n_tiles * 2;
-  float lj = 0.f, el = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    lj += ep[2 * t];
-    el += ep[2 * t + 1];
-  }
-  e_lj[r] = 0.5f * lj;
-  e_el[r] = 0.5f * el;
-}
-
 }  // namespace
 
 extern "C" int nonbonded_launch(const float* pos, const float* sigma,
@@ -121,7 +93,7 @@ extern "C" int nonbonded_launch(const float* pos, const float* sigma,
   const int n_tiles = ld / kTile;
   nonbonded_tile_kernel<<<dim3(n_tiles, R), kTile, 0, st>>>(
       pos, sigma, sqrt_eps, charge, mask, f_lj, f_el, e_part, N, ld, coulomb);
-  nonbonded_energy_kernel<<<(R + 127) / 128, 128, 0, st>>>(e_part, e_lj, e_el,
-                                                           R, n_tiles);
+  md::tile_energy_kernel<<<(R + 127) / 128, 128, 0, st>>>(e_part, e_lj,
+                                                          e_el, R, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Host-side packing + dispatch for the chain nonbonded kernel.
+"""Host-side packing + dispatch for the chain nonbonded kernels.
 
 ``build_pack(system)`` keeps the system's per-atom parameters and builds
 what the CUDA kernel reads, once: the sqrt(eps) row and a uint8 copy of
@@ -12,6 +12,13 @@ outside it; a CPU stack through the PyTorch oracle
 (``ref.nonbonded_force``, the JAX package's CPU path).  The kernel's
 plain version, ``nonbonded_plain``, makes the same direct pair sums as
 the TPU kernel's ``nonbonded_pair_rows``.
+
+The sparse pass over a neighbor list: ``nonbonded_sparse`` /
+``nonbonded_force_sparse`` dispatch, ``nonbonded_sparse_batched``
+launches ``csrc/nonbonded_sparse.cu`` (counted on ``SPARSE_LIBRARY``).
+Its plain version is the oracle, ``ref.nonbonded_sparse``: the same
+direct slot sums, with eps as sqrt(eps_i eps_j) where the kernel takes
+sqrt(eps_i) sqrt(eps_j), a rounding apart.
 """
 from __future__ import annotations
 
@@ -22,8 +29,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import (REPLICA_CHUNK, KernelLibrary, check_cuda,
-                                 default_use_kernel, pad_to_block,
-                                 raise_on_error, stream_ptr)
+                                 default_use_kernel, f32_square,
+                                 pad_to_block, raise_on_error, stream_ptr)
 from repro_torch.kernels.lj_forces import ref
 
 LIBRARY = KernelLibrary(
@@ -126,6 +133,78 @@ def nonbonded_force(pos: torch.Tensor, pack: NonbondedPack,
         return ref.nonbonded_force(pos, pack.lj_sigma, pack.lj_eps,
                                    pack.charges, pack.nb_mask, salt_scale)
     f_lj, f_el, _, _ = nonbonded_batched(pos.contiguous(), pack)
+    if salt_scale is not None:
+        f_el = salt_scale[..., None, None] * f_el
+    return f_lj + f_el
+
+
+# -- the sparse (neighbor-list) pass ------------------------------------------
+
+SPARSE_LIBRARY = KernelLibrary(
+    "nonbonded_sparse",
+    Path(__file__).parent / "csrc" / "nonbonded_sparse.cu")
+
+
+_SPARSE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def nonbonded_sparse_batched(pos, pack: NonbondedPack, idx, valid,
+                             cutoff: float):
+    """The sparse kernel: a CUDA (R, N, 3) stack and its (R, N, K) int32
+    ``idx`` / f32 ``valid`` list -> (f_lj (R, N, 3), f_el (R, N, 3),
+    e_lj (R,), e_el (R,)) in one launch; anything else raises."""
+    r, n, _ = pos.shape
+    rows = (pack.lj_sigma, pack.sqrt_eps, pack.charges)
+    check_cuda((pos,) + rows + (idx, valid),
+               ("pos", "lj_sigma", "sqrt_eps", "charges", "idx", "valid"))
+    k = idx.shape[-1]
+    if (pos.dtype != torch.float32 or n != pack.lj_sigma.shape[0]
+            or idx.dtype != torch.int32 or valid.dtype != torch.float32
+            or tuple(idx.shape) != (r, n, k)
+            or tuple(valid.shape) != (r, n, k)):
+        raise ValueError(f"want float32 pos (R, {pack.lj_sigma.shape[0]}, 3)"
+                         f" with an int32 idx and f32 valid of (R, N, K); got "
+                         f"{pos.dtype} {tuple(pos.shape)}, {idx.dtype} "
+                         f"{tuple(idx.shape)}, {valid.dtype}")
+    fn = SPARSE_LIBRARY.function("nonbonded_sparse_launch", _SPARSE_ARGTYPES)
+    f_lj = torch.empty_like(pos)
+    f_el = torch.empty_like(pos)
+    e_part = torch.empty((r, pad_to_block(n, TILE) // TILE, 2),
+                         dtype=torch.float32, device=pos.device)
+    e_lj = torch.empty(r, dtype=torch.float32, device=pos.device)
+    e_el = torch.empty(r, dtype=torch.float32, device=pos.device)
+    ptrs = [t.data_ptr() for t in (pos,) + rows
+            + (idx, valid, f_lj, f_el, e_part, e_lj, e_el)]
+    code = fn(*ptrs, r, n, k, f32_square(cutoff), ref.COULOMB, stream_ptr())
+    raise_on_error(code, "nonbonded_sparse")
+    SPARSE_LIBRARY.count()
+    return f_lj, f_el, e_lj, e_el
+
+
+def nonbonded_sparse(pos, pack: NonbondedPack, idx, valid, cutoff: float,
+                     pair=None):
+    """The sparse pass with its energies: the kernel on the card (which
+    reads the packed atom rows and ignores ``pair``), the oracle on the
+    CPU (with the build-time planes when the list carries them)."""
+    if default_use_kernel(pos):
+        return nonbonded_sparse_batched(pos.contiguous(), pack, idx, valid,
+                                        cutoff)
+    return ref.nonbonded_sparse(pos, pack.lj_sigma, pack.lj_eps,
+                                pack.charges, idx, valid, cutoff, pair)
+
+
+def nonbonded_force_sparse(pos, pack: NonbondedPack, idx, valid,
+                           cutoff: float, salt_scale=None, pair=None):
+    """Combined (salt-scaled) sparse force for the propagate loop:
+    (R, N, 3) -> (R, N, 3).  The kernel path combines the sweep's split
+    outputs; the CPU path folds the scaling into one coefficient pass."""
+    if not default_use_kernel(pos):
+        return ref.nonbonded_force_sparse(pos, pack.lj_sigma, pack.lj_eps,
+                                          pack.charges, idx, valid, cutoff,
+                                          salt_scale, pair)
+    f_lj, f_el, _, _ = nonbonded_sparse_batched(pos.contiguous(), pack, idx,
+                                                valid, cutoff)
     if salt_scale is not None:
         f_el = salt_scale[..., None, None] * f_el
     return f_lj + f_el

@@ -6,9 +6,10 @@
 The features (U_base, U_elec, phi, psi) are computed once per exchange
 and every ctrl assignment is an O(R) reduction over them.  This is the
 replica-major forward path of the JAX package's ``md/energy.py``
-(``batched_features`` and the reductions); like there, it is plain
-tensor code, not a kernel.  The (R, N, N) pair pass is chunked over
-replicas so that its planes stay near a GB at N = 2881.
+(``batched_features``, ``sparse_features`` and the reductions).  The
+dense (R, N, N) pair pass is plain tensor code, chunked over replicas so
+that its planes stay near a GB at N = 2881; the sparse pair pass is one
+launch of the sparse nonbonded kernel on the card.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import REPLICA_CHUNK, wrap_deg
+from repro_torch.kernels.lj_forces import ops as nb_ops
 from repro_torch.kernels.lj_forces.ref import COULOMB
 from repro_torch.md.system import MolecularSystem
 
@@ -113,6 +115,29 @@ def batched_features(pos, sys: MolecularSystem,
         quads = feature_quads(sys)
     e_bonded, phi, psi = _batched_bonded_terms(pos, sys, quads)
     e_lj, e_elec = _batched_pair_terms(pos, sys)
+    return {"u_base": e_bonded + e_lj, "u_elec": e_elec,
+            "phi": phi, "psi": psi}
+
+
+def sparse_pair_energies(pos, nb_pack, idx, valid, cutoff: float,
+                         pair=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(LJ, elec) energies of the truncated potential from one O(N K)
+    neighbor-list sweep: one launch of the sparse kernel on the card, the
+    oracle on the CPU (with the list's ``pair`` planes when it has them).
+    ``nb_pack``: the engine's ``lj_forces.ops.NonbondedPack``."""
+    _, _, e_lj, e_el = nb_ops.nonbonded_sparse(pos, nb_pack, idx, valid,
+                                               cutoff, pair)
+    return e_lj, e_el
+
+
+def sparse_features(pos, sys: MolecularSystem, quads: torch.Tensor,
+                    nb_pack, idx, valid, cutoff: float, pair=None
+                    ) -> Dict[str, torch.Tensor]:
+    """:func:`batched_features` under the neighbor-list truncated
+    potential: the pair sums over the (R, N, K) list, not all pairs."""
+    e_bonded, phi, psi = _batched_bonded_terms(pos, sys, quads)
+    e_lj, e_elec = sparse_pair_energies(pos, nb_pack, idx, valid, cutoff,
+                                        pair)
     return {"u_base": e_bonded + e_lj, "u_elec": e_elec,
             "phi": phi, "psi": psi}
 

@@ -1,8 +1,8 @@
 """The MD engine of the port: the 'Amber' stand-in on the chain molecule.
 
 ``MDEngine`` implements the SimulationEngine protocol of the JAX
-package's ``md/engine.py`` for dense bonded and dense nonbonded passes
-on two force paths, with umbrella and salt controls on both:
+package's ``md/engine.py`` on two force paths, with umbrella and salt
+controls on both, for dense or sparse bonded and nonbonded passes:
 
   ``"pallas"``  per-pass analytic forces: the bonded kernel
                 (``kernels.chain_forces``, its bias variant when the grid
@@ -14,11 +14,21 @@ on two force paths, with umbrella and salt controls on both:
                 ``integrators.propagate_replica_major_fused`` with the
                 oracles, as the JAX package runs it there.
 
+``nonbonded="sparse"`` replaces the all-pairs sweep with a neighbor list
+(``md/neighbors.py``) that rides the state as ``state["nlist"]``: every
+force evaluation runs the skin check and the device-gated build
+(``kernels.nlist_build``), then the sparse nonbonded kernel
+(``kernels.lj_forces``, ``nonbonded_sparse.cu``), on both force paths;
+the fused path then runs the fused loop around them, as the JAX package
+does.  ``bonded="sparse"`` selects the slot-table bonded oracle on the
+CPU; the card keeps its bonded kernel either way.
+
 ``cross_energy`` builds the (R, C) matrix of the Gibbs exchange (the
 ``kernels.exchange_matrix`` kernel on the card).  The other force paths
-and the sparse passes are not ported yet; asking for them raises.
+and the cell-list build are not ported yet; asking for them raises.
 
-State is ``{"pos": (R, N, 3), "vel": (R, N, 3)}`` on ``engine.device``.
+State is ``{"pos": (R, N, 3), "vel": (R, N, 3)}`` (plus ``"nlist"`` on
+the sparse path) on ``engine.device``.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch import random as jr
+from repro_torch.core.engine import nb_zero_stats
 from repro_torch.device import resolve_device
 from repro_torch.kernels import default_use_kernel
 from repro_torch.kernels.chain_forces import ops as chain_ops
@@ -36,18 +47,21 @@ from repro_torch.kernels.fused_propagate import ops as fused_ops
 from repro_torch.kernels.lj_forces import ops as nb_ops
 from repro_torch.md import energy as E
 from repro_torch.md import integrators as I
-from repro_torch.md.system import (MolecularSystem, chain_molecule,
-                                   initial_positions)
+from repro_torch.md import neighbors as NB
+from repro_torch.md.system import (MolecularSystem, base_positions,
+                                   chain_molecule, initial_positions)
+from repro_torch.tree import tree_leaves
 
 FORCE_PATHS = ("pallas", "fused")
-NONBONDED_PATHS = ("dense",)
-BONDED_PATHS = ("dense",)
+NONBONDED_PATHS = ("dense", "sparse")
+BONDED_PATHS = ("dense", "sparse")
 
 
 def _any_nonfinite(state) -> torch.Tensor:
-    """(R,) bool: replica-level NaN/inf scan over every state leaf."""
-    bad = [(~torch.isfinite(x)).flatten(1).any(dim=1)
-           for x in state.values()]
+    """(R,) bool: replica-level NaN/inf scan over every state leaf, the
+    neighbor list's integer leaves included (always finite)."""
+    bad = [(~torch.isfinite(x)).reshape(x.shape[0], -1).any(dim=1)
+           for x in tree_leaves(state)]
     return functools.reduce(torch.logical_or, bad)
 
 
@@ -73,13 +87,29 @@ class MDEngine:
                  dt: float = 5e-4, gamma: float = 5.0,
                  init_temperature: float = 300.0,
                  force_path: str = "pallas", nonbonded: str = "dense",
+                 cutoff: float = 9.0, skin: float = 1.5,
+                 k_max: Optional[int] = None,
+                 nlist_build: Optional[str] = None,
+                 cell_capacity: Optional[int] = None,
                  bonded: str = "dense",
+                 nb_pair_planes: Optional[bool] = None,
                  max_energy: Optional[float] = None,
                  max_bond_stretch: Optional[float] = None,
                  device="cuda"):
         """``device``: where the state and the force passes live
         (default ``"cuda"``; raises if CUDA is missing — pass ``"cpu"``
         to run the PyTorch oracles on the CPU).
+
+        ``nonbonded="sparse"``: the neighbor-list pass over the potential
+        truncated at ``cutoff``, the list built to ``cutoff + skin`` and
+        rebuilt on the device when an atom drifts more than ``skin / 2``.
+        ``k_max`` and ``nlist_build`` default to the JAX package's
+        host-side heuristics on the reference geometry; only the "dense"
+        build is ported ("cell" raises).  ``cell_capacity`` feeds the
+        build choice as there.  ``nb_pair_planes`` carries the build-time
+        parameter planes in the list (default: on the CPU only, where
+        the oracle reads them; the card's kernel gathers its atom rows).
+        ``bonded="sparse"``: the slot-table bonded oracle on the CPU.
 
         ``max_energy`` / ``max_bond_stretch``: opt-in failure detectors
         beyond the non-finite scan — kinetic energy above the threshold,
@@ -90,6 +120,10 @@ class MDEngine:
             if value not in paths:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet (ported: {paths})")
+        if nb_pair_planes and nonbonded != "sparse":
+            raise ValueError(
+                "nb_pair_planes=True needs nonbonded='sparse' (there is "
+                "no neighbor list to carry the planes otherwise)")
         self.device = resolve_device(device)
         self.system = (system or chain_molecule()).to(self.device)
         self.dt = dt
@@ -108,6 +142,71 @@ class MDEngine:
         self._pack = chain_ops.build_pack(self.system)
         self._nb_pack = nb_ops.build_pack(self.system)
         self._feature_quads = E.feature_quads(self.system)
+        if nonbonded == "sparse":
+            self._init_sparse(cutoff, skin, k_max, nlist_build,
+                              cell_capacity, nb_pair_planes)
+
+    def _init_sparse(self, cutoff, skin, k_max, nlist_build, cell_capacity,
+                     nb_pair_planes) -> None:
+        """The sparse path's constants, from the JAX package's host-side
+        heuristics on the reference geometry."""
+        sys = self.system
+        self.cutoff = float(cutoff)
+        self.skin = float(skin)
+        self.r_list = self.cutoff + self.skin
+        if nb_pair_planes is None:
+            nb_pair_planes = self.device.type != "cuda"
+        self._pair_params = ((sys.lj_sigma, sys.lj_eps, sys.charges)
+                             if nb_pair_planes else None)
+        base = base_positions(sys)
+        mask = sys.nb_mask.cpu().numpy()
+        self.k_max = (NB.suggest_k_max(sys.n_atoms, base, mask, self.r_list)
+                      if k_max is None else int(k_max))
+        extent = base.max(0) - base.min(0) + 2.0 * self.r_list
+        grid_dims = NB.suggest_grid_dims(extent, self.r_list)
+        if cell_capacity is None:
+            cell_capacity = NB.suggest_cell_capacity(base, self.r_list,
+                                                     grid_dims)
+        if int(cell_capacity) < 1:
+            raise ValueError(f"cell_capacity must be >= 1, got "
+                             f"{cell_capacity}")
+        if nlist_build is None:
+            nlist_build = NB.suggest_build_method(
+                sys.n_atoms, grid_dims, int(cell_capacity))
+        if nlist_build not in ("dense", "cell"):
+            raise ValueError(f"nlist_build must be 'dense' or 'cell', got "
+                             f"{nlist_build!r}")
+        if nlist_build == "cell":
+            raise NotImplementedError(
+                "nlist_build='cell' (neighbors.build_cells) is not ported "
+                "yet (ported: 'dense')")
+        self.nlist_build = nlist_build
+
+    # -- neighbor-list plumbing (nonbonded="sparse") -----------------------
+
+    def _build_nlist(self, pos, prev=None):
+        return NB.build_neighbor_list(
+            pos, self._nb_pack, self.r_list, self.k_max,
+            method=self.nlist_build, prev=prev,
+            pair_params=self._pair_params)
+
+    def _refresh_nlist(self, pos, nlist):
+        """The propagate loop's policy, ``sync=True``: one tripped
+        replica rebuilds every replica's list."""
+        return NB.maybe_rebuild(
+            pos, nlist, self._nb_pack, self.r_list, self.skin, self.k_max,
+            method=self.nlist_build, sync=True,
+            pair_params=self._pair_params)
+
+    def nb_stats(self, state):
+        """Neighbor-list health, worst replica, as float32 scalars:
+        ``nb_overflow`` (cumulative dropped pairs) and ``nb_rebuilds``
+        (cumulative rebuilds); zeros on the dense path."""
+        if self.nonbonded != "sparse":
+            return nb_zero_stats(self.device)
+        nl = state["nlist"]
+        return {"nb_overflow": torch.amax(nl["overflow"]).to(torch.float32),
+                "nb_rebuilds": torch.amax(nl["rebuilds"]).to(torch.float32)}
 
     # -- protocol ----------------------------------------------------------
 
@@ -118,7 +217,10 @@ class MDEngine:
         vel = I.maxwell_boltzmann(kpv[:, 1], self.system.masses,
                                   self.init_temperature,
                                   (self.system.n_atoms, 3))
-        return {"pos": pos, "vel": vel}
+        state = {"pos": pos, "vel": vel}
+        if self.nonbonded == "sparse":
+            state["nlist"] = self._build_nlist(pos)
+        return state
 
     def propagate(self, state, ctrl, n_steps, rngs, max_steps: int):
         """``rngs``: per-replica keys (R, 2); ``max_steps``: the Python
@@ -126,23 +228,70 @@ class MDEngine:
         if self.force_path == "fused":
             return self._propagate_fused(state, ctrl, n_steps, rngs,
                                          max_steps)
+        if self.nonbonded == "sparse":
+            return self._propagate_sparse(state, ctrl, n_steps, rngs,
+                                          max_steps)
         return I.propagate_replica_major(
             state, self._analytic_force_fn(ctrl), self.system.masses,
             ctrl["temperature"], n_steps, rngs, max_steps, self.dt,
             self.gamma)
 
+    def _sparse_force_aux(self, ctrl):
+        """The sparse force field with its neighbor-list carry: every
+        evaluation runs the skin check and the gated build, then one
+        bonded pass and one O(N K) nonbonded pass.  Shared by the
+        per-pass and the fused loops."""
+        u_c, u_k = ctrl.get("umbrella_center"), ctrl.get("umbrella_k")
+        salt = ctrl.get("salt")
+        salt_scale = None if salt is None else 1.0 - 0.5 * salt
+        sparse_bonded = self.bonded == "sparse"
+
+        def force_aux(pos, nlist):
+            nlist = self._refresh_nlist(pos, nlist)
+            f, _ = chain_ops.bonded_forces(pos, self._pack, u_c, u_k,
+                                           sparse=sparse_bonded)
+            f = f + nb_ops.nonbonded_force_sparse(
+                pos, self._nb_pack, nlist["idx"], nlist["valid"],
+                self.cutoff, salt_scale, pair=nlist.get("pair"))
+            return f, nlist
+
+        return force_aux
+
+    def _propagate_sparse(self, state, ctrl, n_steps, rngs, max_steps: int):
+        """The per-pass sparse loop: the list rides the loop carry and
+        comes back in the returned state."""
+        out, nlist = I.propagate_replica_major_aux(
+            {"pos": state["pos"], "vel": state["vel"]},
+            self._sparse_force_aux(ctrl), state["nlist"], self.system.masses,
+            ctrl["temperature"], n_steps, rngs, max_steps, self.dt,
+            self.gamma)
+        out["nlist"] = nlist
+        return out
+
     def _propagate_fused(self, state, ctrl, n_steps, rngs, max_steps: int):
-        """``force_path="fused"``: on the card one fused-kernel launch per
-        BAOAB iteration; on the CPU the fused loop around the oracles."""
+        """``force_path="fused"``: on the card with the dense nonbonded
+        sweep, one fused-kernel launch per BAOAB iteration; otherwise
+        (the CPU, or the sparse list, whose carry rides the loop) the
+        fused loop around the force passes, as the JAX package runs it."""
         sys = self.system
+        md_state = {"pos": state["pos"], "vel": state["vel"]}
+        if self.nonbonded == "sparse":
+            out, nlist = I.propagate_replica_major_fused(
+                md_state, self._sparse_force_aux(ctrl), state["nlist"],
+                sys.masses, ctrl["temperature"], n_steps, rngs, max_steps,
+                self.dt, self.gamma)
+            out["nlist"] = nlist
+            return out
         if default_use_kernel(state["pos"]):
             return fused_ops.fused_propagate(
                 state, self._pack, self._nb_pack, sys.masses, ctrl, n_steps,
                 rngs, max_steps, self.dt, self.gamma)
-        return I.propagate_replica_major_fused(
-            state, self._analytic_force_fn(ctrl), sys.masses,
+        force_fn = self._analytic_force_fn(ctrl)
+        out, _ = I.propagate_replica_major_fused(
+            md_state, lambda pos, aux: (force_fn(pos), aux), (), sys.masses,
             ctrl["temperature"], n_steps, rngs, max_steps, self.dt,
             self.gamma)
+        return out
 
     def _analytic_force_fn(self, ctrl):
         """One bonded pass + one nonbonded pass, hand-derived gradients.
@@ -152,8 +301,11 @@ class MDEngine:
         salt = ctrl.get("salt")
         salt_scale = None if salt is None else 1.0 - 0.5 * salt
 
+        sparse_bonded = self.bonded == "sparse"
+
         def force_fn(pos):
-            f, _ = chain_ops.bonded_forces(pos, self._pack, u_c, u_k)
+            f, _ = chain_ops.bonded_forces(pos, self._pack, u_c, u_k,
+                                           sparse=sparse_bonded)
             return f + nb_ops.nonbonded_force(pos, self._nb_pack, salt_scale)
 
         return force_fn
@@ -163,6 +315,15 @@ class MDEngine:
             self.replica_features(state), ctrl)
 
     def replica_features(self, state):
+        """(R,) feature rows; on the sparse path those of the truncated
+        potential, through the list the propagate loop kept fresh (one
+        launch of the sparse kernel on the card)."""
+        if self.nonbonded == "sparse":
+            nl = state["nlist"]
+            return E.sparse_features(state["pos"], self.system,
+                                     self._feature_quads, self._nb_pack,
+                                     nl["idx"], nl["valid"], self.cutoff,
+                                     nl.get("pair"))
         return E.batched_features(state["pos"], self.system,
                                   self._feature_quads)
 

@@ -112,26 +112,28 @@ def propagate_replica_major_aux(state, force_aux_fn, aux, masses,
     return {"pos": pos, "vel": vel}, aux
 
 
-def propagate_replica_major_fused(state, force_fn: Callable, masses,
-                                  temperature, n_steps, rngs,
+def propagate_replica_major_fused(state, force_aux_fn: Callable, aux,
+                                  masses, temperature, n_steps, rngs,
                                   max_steps: int, dt: float = 5e-4,
                                   gamma: float = 5.0):
     """The fused-path propagate loop on plain tensors: the same
     ``max_steps + 1`` iterations and trail/lead masks as
-    :func:`propagate_replica_major`, with the O-step scales hoisted
+    :func:`propagate_replica_major_aux`, with the O-step scales hoisted
     (:func:`baoab_scales`) and each iteration drawing its own noise block
     (``noise.step_noise_unrolled``, the legacy-layout stream the JAX
-    fused path draws).  Returns {"pos", "vel"}."""
+    fused path draws).  ``force_aux_fn(pos, aux) -> (force, aux)`` carries
+    a force field's auxiliary state (the sparse path's neighbor list)
+    through the loop.  Returns ({"pos", "vel"}, aux)."""
     c1, noise_scale = baoab_scales(masses, temperature, dt, gamma)
     shape = state["pos"].shape[1:]
     pos, vel = state["pos"], state["vel"]
     for i in range(max_steps + 1):
-        f = force_fn(pos)
+        f, aux = force_aux_fn(pos, aux)
         noise_i = NZ.step_noise_unrolled(rngs, i, shape)
         pos, vel = baoab_fused_iteration(i, pos, vel, f, noise_i, c1,
                                          noise_scale, masses, n_steps,
                                          max_steps, dt)
-    return {"pos": pos, "vel": vel}
+    return {"pos": pos, "vel": vel}, aux
 
 
 def stacked_step_noise(rngs, max_steps: int, shape) -> torch.Tensor:

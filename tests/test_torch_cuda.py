@@ -12,12 +12,15 @@ Tolerance: forces within 1e-5 x max(max |F|, 1), energies 1e-5 relative
 (the same formulas summed in another order); one fused iteration within
 1e-5 A and 1e-4 A/ps (its force, with those errors, enters the velocity
 through dt * AKMA / m); the exchange matrix bitwise (built without FMA
-contraction).
+contraction).  The sparse kernel is held to its plain version like the
+nonbonded kernel; the neighbor-list build kernel bitwise, in both states
+of its device flag (it forms r2 without FMA contraction).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import random as jr
 from repro_torch.config import RepExConfig
 from repro_torch.core import REMDDriver
 from repro_torch.kernels.chain_forces import ops as chain_ops
@@ -25,6 +28,7 @@ from repro_torch.kernels.exchange_matrix import ops as x_ops
 from repro_torch.kernels.exchange_matrix import ref as x_ref
 from repro_torch.kernels.fused_propagate import ops as fused_ops
 from repro_torch.kernels.lj_forces import ops as nb_ops
+from repro_torch.kernels.nlist_build import ops as nl_ops
 from repro_torch.md import MDEngine
 from repro_torch.md.system import base_positions, chain_molecule
 
@@ -255,3 +259,135 @@ def test_fused_path_chunk_size_invariance_on_the_card():
     for h1, h3 in zip(runs[1][0].history, runs[3][0].history):
         np.testing.assert_array_equal(h1["assignment"], h3["assignment"])
     assert torch.equal(runs[1][1].state["pos"], runs[3][1].state["pos"])
+
+
+# -- the sparse neighbor-list path -----------------------------------------
+
+def _sparse_engine(device, n_atoms=64, path="fused", **kw):
+    return MDEngine(chain_molecule(n_atoms), force_path=path,
+                    nonbonded="sparse", bonded="sparse", device=device, **kw)
+
+
+def _sparse_state(n_atoms, n_rep, seed=0, **kw):
+    """A real list: ``init_state``, then positions moved far enough that
+    some listed pairs lie past the cutoff (padded slots occur anyway)."""
+    eng = _sparse_engine("cuda", n_atoms, **kw)
+    state = eng.init_state(jr.key(seed, "cuda"), n_rep)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pos = state["pos"] + 0.4 * torch.randn(state["pos"].shape, device="cuda",
+                                           generator=gen)
+    return eng, pos, state["nlist"]
+
+
+@pytest.mark.parametrize("n_atoms", [64, 257])
+@pytest.mark.parametrize("n_rep", [1, 3])
+def test_sparse_kernel_matches_plain_version(n_atoms, n_rep):
+    eng, pos, nl = _sparse_state(n_atoms, n_rep)
+    pk = eng._nb_pack
+    args = (pos, pk, nl["idx"], nl["valid"], eng.cutoff)
+    n0 = nb_ops.SPARSE_LIBRARY.launches
+    got = nb_ops.nonbonded_sparse_batched(*args)
+    assert nb_ops.SPARSE_LIBRARY.launches == n0 + 1
+    plain = nb_ops.ref.nonbonded_sparse(pos, pk.lj_sigma, pk.lj_eps,
+                                        pk.charges, nl["idx"], nl["valid"],
+                                        eng.cutoff)
+    for a, b in zip(got, plain):
+        _close(a, b, energy=a.ndim == 1)
+    salt = torch.linspace(0.5, 1.0, n_rep, device="cuda")
+    f_lj, f_el, _, _ = plain
+    _close(nb_ops.nonbonded_force_sparse(*args, salt_scale=salt),
+           f_lj + salt[:, None, None] * f_el)
+    assert torch.equal(nb_ops.nonbonded_sparse_batched(*args)[0], got[0])
+
+
+@pytest.mark.parametrize("k_max", [None, 4])
+def test_build_kernel_equals_plain_build_bitwise(k_max):
+    eng, pos, nl = _sparse_state(257, 3, k_max=k_max)
+    old = (nl["idx"], nl["valid"])
+    mask = eng._nb_pack.mask_u8
+    flags = {"off": torch.zeros(1, dtype=torch.int32, device="cuda"),
+             "on": torch.ones(1, dtype=torch.int32, device="cuda"),
+             "rows": torch.tensor([1, 0, 1], dtype=torch.int32,
+                                  device="cuda")}
+    for name, flag in flags.items():
+        got = nl_ops.nlist_build_batched(pos, flag, old, mask, eng.r_list,
+                                         eng.k_max)
+        want = nl_ops.build_gated_plain(pos, flag, old,
+                                        eng._nb_pack.nb_mask, eng.r_list,
+                                        eng.k_max)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+    kept = nl_ops.nlist_build_batched(pos, flags["off"], old, mask,
+                                      eng.r_list, eng.k_max)
+    assert torch.equal(kept[0], old[0]) and torch.equal(kept[1], old[1])
+    assert kept[0].data_ptr() != old[0].data_ptr()          # out of place
+    built = nl_ops.nlist_build_batched(pos, flags["on"], old, mask,
+                                       eng.r_list, eng.k_max)
+    assert (int(built[2].sum()) > 0) == (k_max == 4)
+
+
+def test_sparse_path_runs_under_the_sync_guard_through_its_kernels(
+        monkeypatch):
+    """One sparse chunk per force path on the card: the driver runs it
+    under ``set_sync_debug_mode("error")``, every force evaluation goes
+    through the gated build and the sparse kernel, and no plain version
+    is reached."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((nb_ops.ref, "nonbonded_sparse"),
+                      (nb_ops.ref, "nonbonded_force_sparse"),
+                      (nl_ops, "build_gated_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    libs = (chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
+            x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY)
+    for path, scheme in (("fused", "matrix"), ("pallas", "neighbor")):
+        cfg = RepExConfig(dimensions=(("temperature", 2), ("umbrella", 2),
+                                      ("umbrella", 2)),
+                          md_steps_per_cycle=4, n_cycles=3,
+                          exchange_scheme=scheme)
+        drv = REMDDriver(_sparse_engine("cuda", path=path, skin=0.3), cfg,
+                         device="cuda")
+        ens = drv.init(0)
+        n0 = [lib.launches for lib in libs]
+        drv.run_fused(ens, chunk_cycles=3)
+        moved = [lib.launches - n for lib, n in zip(libs, n0)]
+        assert moved == [15, 0, 0, 3 if scheme == "matrix" else 0, 18, 15]
+        assert drv.history[-1]["nb_rebuilds"] > 0
+        assert drv.history[-1]["nb_overflow"] == 0
+
+
+def _sparse_run(device, path, scheme, chunk=2, n_cycles=4, skin=0.3):
+    cfg = RepExConfig(dimensions=(("temperature", 2), ("umbrella", 2),
+                                  ("umbrella", 2)),
+                      md_steps_per_cycle=4, n_cycles=n_cycles,
+                      exchange_scheme=scheme)
+    drv = REMDDriver(_sparse_engine(device, path=path, skin=skin), cfg,
+                     device=device)
+    return drv, drv.run_fused(drv.init(0), chunk_cycles=chunk)
+
+
+@pytest.mark.parametrize("path,scheme", [("fused", "neighbor"),
+                                         ("fused", "matrix"),
+                                         ("pallas", "neighbor")])
+def test_sparse_path_card_and_cpu_make_the_same_decisions(path, scheme):
+    gpu, gpu_ens = _sparse_run("cuda", path, scheme)
+    cpu, cpu_ens = _sparse_run("cpu", path, scheme)
+    for hg, hc in zip(gpu.history, cpu.history):
+        np.testing.assert_array_equal(hg["assignment"], hc["assignment"])
+        assert hg["nb_rebuilds"] == hc["nb_rebuilds"]
+    assert gpu.acceptance_ratios() == cpu.acceptance_ratios()
+    np.testing.assert_allclose(gpu_ens.state["pos"].cpu().numpy(),
+                               cpu_ens.state["pos"].numpy(), atol=1e-4)
+
+
+def test_sparse_path_chunk_size_invariance_on_the_card():
+    runs = {k: _sparse_run("cuda", "fused", "neighbor", chunk=k,
+                           n_cycles=3) for k in (1, 3)}
+    assert runs[1][0].history[-1]["nb_rebuilds"] > 0
+    for h1, h3 in zip(runs[1][0].history, runs[3][0].history):
+        np.testing.assert_array_equal(h1["assignment"], h3["assignment"])
+    for key in ("pos", "vel"):
+        assert torch.equal(runs[1][1].state[key], runs[3][1].state[key])
+    for key, leaf in runs[1][1].state["nlist"].items():
+        assert torch.equal(leaf, runs[3][1].state["nlist"][key]), key

@@ -253,8 +253,10 @@ def test_unported_options_raise(kwargs, jax_system):
 
 
 @pytest.mark.parametrize("kwargs", [dict(force_path="vmap"),
-                                    dict(nonbonded="sparse"),
-                                    dict(bonded="sparse")])
+                                    dict(nonbonded="sparse",
+                                         nlist_build="cell"),
+                                    dict(force_path="batched",
+                                         bonded="sparse")])
 def test_unported_engine_paths_raise(kwargs, jax_system):
     with pytest.raises(NotImplementedError):
         MDEngine(_cpu_system(jax_system), device="cpu",
