@@ -7,7 +7,7 @@ The quickest proof that the port still starts on the GPU.  Phases, each
 printed on its own lines:
 
   1. environment  card name and power limit, CUDA, nvcc, triton
-  2. build        the four kernels from ``src/repro_torch/kernels/*/csrc``,
+  2. build        the seven sources of ``src/repro_torch/kernels/*/csrc``,
                   one ``nvcc`` per source, all started together
   3. kernels      the bonded and nonbonded kernels against their plain
                   PyTorch versions at N = 2881, R = 4 and R = 64, within
@@ -68,6 +68,26 @@ printed on its own lines:
                   rebuild: bitwise equal state for chunk sizes 1 and 3;
                   then a small sparse run on the card and on the CPU must
                   make the same decisions (margins printed if not)
+ 15. kernels      the fourth slice, ``LJEngine``'s fluid at Rahman's liquid
+                  argon (864 atoms, box 34.8 A): the energy and forces
+                  kernels against their plain versions at R = 4 and 64, on
+                  ``init_state`` positions and after 10 MD steps; the
+                  gradient of ``LJEnergy`` bitwise minus the forces kernel;
+                  the single-configuration (R = 1) entry points
+ 16. timing       both at R = 64 as in phase 4, with their bounds
+ 17. LJ slice     64 rungs (94.4-150 K) x 864 atoms: ``run_fused(
+                  chunk_cycles=4)``, 8 DEO cycles then 3 matrix cycles,
+                  then 4 cycles of the per-cycle ``run`` from the same
+                  seed, whose rows must equal the first 4 ``run_fused``
+                  rows; per cycle 11 forces and 1 energy launch, nothing
+                  else; no failure, permutation rows, positions in the box;
+                  17b: where an LJ cycle's time goes; the HarmonicEngine
+                  driver-overhead probe (64 rungs, 1 MD step) on
+                  ``run_fused`` and on ``run``
+ 18. invariance   LJ at R = 8, N = 864, 4 cycles at chunk sizes 1 and 4:
+                  bitwise equal state; then the small default LJEngine
+                  (64 atoms, R = 8) on the card and on the CPU must make
+                  the same decisions (margins printed if not)
 
 Any failed check raises and the script exits non-zero.  The next to last
 line is the kernels' JSON record, the last line the device record.
@@ -76,6 +96,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -84,6 +105,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -151,6 +173,26 @@ TOL_SPARSE_FORCE, TOL_SPARSE_ENERGY = 1e-4, 1e-5
 # The distance test of one pair: displacement 3, r^2 5, compare 1.
 DIST_TEST_OPS = 9
 K_LOW = 6                 # a k_max below the true counts: dropped > 0
+
+# The fourth slice: LJEngine's fluid at Rahman's liquid argon (A. Rahman,
+# Phys. Rev. 136, A405, 1964): 864 atoms in a cubic box of 10.229 sigma =
+# 34.8 A; the T-REMD 64 ladder's 64 rungs from his 94.4 K to 150 K (about
+# argon's critical temperature).
+LJ_ATOMS, LJ_BOX = 864, 34.8
+LJ_LADDER = dict(t_min=94.4, t_max=150.0)
+# Kernel vs plain version as for the nonbonded kernel: the same pair
+# formulas, the kernel summing each atom's row in ascending j and the
+# energy per block then block by block, PyTorch by its own reductions;
+# FMA contraction in the kernel.
+TOL_LJ_FORCE, TOL_LJ_ENERGY = 1e-4, 1e-5
+# Operations per unordered pair of the LJ fluid in its cheapest form,
+# counted as PAIR_OPS is (an FMA as two): displacement 3; the minimum
+# image 3 x (multiply by 1/box, rint, FMA) = 12; r^2 5; 1/r^2 1;
+# sigma^2/r^2 1 and its cube 2; the force coefficient 24 eps (2 s6 - 1) s6
+# / r^2 5; both atoms' force rows as FMAs 12.  The energy keeps the first
+# six and adds 4 eps s6 (s6 - 1) 3 and its accumulation 1.
+LJ_FORCE_PAIR_OPS = 3 + 12 + 5 + 1 + 3 + 5 + 12
+LJ_ENERGY_PAIR_OPS = 3 + 12 + 5 + 1 + 3 + 3 + 1
 
 
 def reset(libs) -> None:
@@ -404,7 +446,8 @@ def run_slice(libs, smi: str):
     check(launches == {"chain_forces": cfg.n_cycles * 11,
                        "nonbonded": cfg.n_cycles * 11,
                        "fused_baoab": 0, "exchange_matrix": 0,
-                       "nonbonded_sparse": 0, "nlist_build": 0}
+                       "nonbonded_sparse": 0, "nlist_build": 0,
+                       "lj_fluid": 0}
           and variants["chain_forces"] == {"plain": cfg.n_cycles * 11},
           "each per-pass kernel launched 8 cycles x 11 evaluations")
     check(ok_perm, "assignment is a permutation")
@@ -721,7 +764,7 @@ def run_tsu(libs, smi: str):
         want = {"chain_forces": 0, "nonbonded": 0,
                 "fused_baoab": n_cycles * 11,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
-                "nonbonded_sparse": 0, "nlist_build": 0}
+                "nonbonded_sparse": 0, "nlist_build": 0, "lj_fluid": 0}
         per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
         ms_cycle = per_chunk[-1]
         failed = sum(h["failed"] for h in driver.history)
@@ -850,7 +893,8 @@ def run_tsu_pallas(libs, smi: str) -> float:
     print(f"pallas: launches {launches}, bonded variants {variants}")
     check(launches == {"chain_forces": 33, "nonbonded": 33,
                        "fused_baoab": 0, "exchange_matrix": 0,
-                       "nonbonded_sparse": 0, "nlist_build": 0}
+                       "nonbonded_sparse": 0, "nlist_build": 0,
+                       "lj_fluid": 0}
           and variants == {"bias": 33},
           "per-pass TSU: bias variant and nonbonded 3 x 11, nothing else")
     check(control_multiset_ok(ens)
@@ -1117,7 +1161,8 @@ def run_tsu_sparse(libs, smi: str):
         evals = n_cycles * 11
         want = {"chain_forces": evals, "nonbonded": 0, "fused_baoab": 0,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
-                "nonbonded_sparse": evals + n_cycles, "nlist_build": evals}
+                "nonbonded_sparse": evals + n_cycles, "nlist_build": evals,
+                "lj_fluid": 0}
         per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
         ms_cycle = per_chunk[-1]
         last = driver.history[-1]
@@ -1316,6 +1361,386 @@ def invariance_sparse():
                                           "run's decisions")
 
 
+def lj_engine(n_atoms: int = LJ_ATOMS, box: float = LJ_BOX,
+              device: str = "cuda"):
+    from repro_torch.md import LJEngine
+    return LJEngine(n_particles=n_atoms, box=box, use_pallas=True,
+                    device=device)
+
+
+def lj_cfg(n_rungs: int, n_cycles: int, scheme: str = "neighbor",
+           md_steps: int = 10):
+    from repro_torch.config import RepExConfig
+    return RepExConfig(dimensions=(("temperature", n_rungs),),
+                       md_steps_per_cycle=md_steps, n_cycles=n_cycles,
+                       exchange_scheme=scheme, **LJ_LADDER)
+
+
+def lj_states(engine, n_rep: int):
+    """Positions from ``init_state`` and after 10 MD steps of the
+    ladder's first ``n_rep`` rungs."""
+    from repro_torch import random as jr
+    from repro_torch.core.controls import build_grid, ctrl_for_assignment
+    key = jr.key(SEED, "cuda")
+    s0 = engine.init_state(key, n_rep)
+    grid = build_grid(lj_cfg(R_MAIN, 1), "cuda")
+    ctrl = ctrl_for_assignment(grid, torch.arange(n_rep, device="cuda"),
+                               engine.ctrl_keys)
+    n_steps = torch.full((n_rep,), 10, dtype=torch.int64, device="cuda")
+    s10 = engine.propagate(s0, ctrl, n_steps, jr.split(key, n_rep),
+                           max_steps=10)
+    return {"init_state": s0["pos"], "after 10 steps": s10["pos"]}
+
+
+def in_box(pos, box: float) -> bool:
+    return bool(((pos >= 0) & (pos <= box)).all()
+                and torch.isfinite(pos).all())
+
+
+def compare_fourth(engine, n_rep: int, tag: str):
+    """The LJ fluid's energy and forces kernels against their plain
+    versions on ``init_state`` positions and after 10 MD steps, the
+    gradient of ``LJEnergy`` against minus the forces kernel (bitwise),
+    and the single-configuration entry points; returns the max absolute
+    errors and the positions after 10 steps."""
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    args = (engine.sigma, engine.eps, engine.box)
+    errs = {"lj_energy": 0.0, "lj_forces": 0.0}
+    for name, pos in lj_states(engine, n_rep).items():
+        check(in_box(pos, engine.box), f"{tag} {name}: positions in the box")
+        e_k = nb_ops.lj_energy_batched(pos, *args)
+        e_p = nb_ops.ref.lj_energy(pos, *args)
+        f_k = nb_ops.lj_forces_batched(pos, *args)
+        f_p = nb_ops.ref.lj_forces(pos, *args)
+        ee, ef = rel(e_k, e_p), rel(f_k, f_p)
+        errs["lj_energy"] = max(errs["lj_energy"],
+                                float((e_k - e_p).abs().max()))
+        errs["lj_forces"] = max(errs["lj_forces"],
+                                float((f_k - f_p).abs().max()))
+        p = pos.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(
+            nb_ops.LJEnergy.apply(p, *args).sum(), p)
+        grad_ok = torch.equal(g, -f_k)
+        e1 = rel(nb_ops.lj_energy(pos[0], *args)[None], e_p[:1])
+        f1 = rel(nb_ops.lj_forces(pos[0], *args), f_p[0])
+        print(f"{tag} {name}: energy {ee:.2e} (tol {TOL_LJ_ENERGY}; "
+              f"U/N {float(e_p.mean()) / engine.n:.4f} kcal/mol), forces "
+              f"{ef:.2e} (tol {TOL_LJ_FORCE}; max |F| "
+              f"{float(f_p.abs().max()):.2f}); autograd backward == -F "
+              f"bitwise {grad_ok}; R = 1 entry points: energy {e1:.2e}, "
+              f"forces {f1:.2e}")
+        check(ee <= TOL_LJ_ENERGY and e1 <= TOL_LJ_ENERGY,
+              f"{tag} {name}: energy kernel vs plain")
+        check(ef <= TOL_LJ_FORCE and f1 <= TOL_LJ_FORCE
+              and bool(torch.isfinite(f_k).all()),
+              f"{tag} {name}: forces kernel vs plain")
+        check(grad_ok, f"{tag} {name}: LJEnergy backward is -F bitwise")
+    return errs, pos
+
+
+def timing_fourth(engine, pos, smi: str):
+    """Phase 4's timing for the LJ fluid kernels at R = 64."""
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    phase(f"16 timing at R={R_MAIN}, N={LJ_ATOMS}")
+    args = (engine.sigma, engine.eps, engine.box)
+    kernels = {
+        "lj_energy": (lambda: nb_ops.lj_energy_batched(pos, *args),
+                      lambda: nb_ops.ref.lj_energy(pos, *args), 5),
+        "lj_forces": (lambda: nb_ops.lj_forces_batched(pos, *args),
+                      lambda: nb_ops.ref.lj_forces(pos, *args), 5),
+    }
+    res = {}
+    for name, (kernel, plain, n_plain) in kernels.items():
+        k_ms = graph_ms(kernel)
+        h_ms = host_ms(kernel)
+        p_ms = median_ms(plain, n_plain, 1)
+        res[name] = (k_ms, p_ms)
+        print(f"{name}: kernel {k_ms:.4f} ms device (graph replay), "
+              f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms "
+              f"[{smi}]")
+    return res
+
+
+def bounds_fourth(n_rep: int, n_atoms: int):
+    """(bound_ms, bound_by) of the LJ fluid kernels: every unordered pair
+    once (no cutoff: the function needs them all) at the operations of
+    its cheapest form; positions read once, forces or energies written
+    once."""
+    n_pairs = n_rep * n_atoms * (n_atoms - 1) // 2
+    stack = n_rep * n_atoms * 3 * 4
+    work = {"lj_energy": (stack + n_rep * 4, n_pairs * LJ_ENERGY_PAIR_OPS),
+            "lj_forces": (2 * stack, n_pairs * LJ_FORCE_PAIR_OPS)}
+    print(f"LJ fluid: {n_pairs} unordered pairs at R={n_rep}, "
+          f"N={n_atoms}")
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+        print(f"{name} bound: {nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP "
+              f"-> {out[name][0]:.5f} ms ({out[name][1]})")
+    return out
+
+
+def lj_checks(driver, ens, tag: str) -> None:
+    """No failure, every row a permutation, a finite state in the box."""
+    from repro_torch.core.ensemble import control_multiset_ok
+    n_rep = ens.assignment.shape[0]
+    check(sum(h["failed"] for h in driver.history) == 0,
+          f"{tag}: no replica failed")
+    check(control_multiset_ok(ens)
+          and all(sorted(h["assignment"].tolist()) == list(range(n_rep))
+                  for h in driver.history),
+          f"{tag}: every assignment row a permutation")
+    check(in_box(ens.state["pos"], driver.engine.box)
+          and bool(torch.isfinite(ens.state["vel"]).all()),
+          f"{tag}: finite positions in [0, box]")
+
+
+def run_lj(libs, smi: str):
+    """The fourth slice: LJEngine at 64 rungs x 864 atoms through
+    ``run_fused`` (8 DEO cycles, then 3 matrix cycles, each from
+    ``init``) and ``run`` (4 cycles from the same seed); every launch
+    count set to 0 just before each run."""
+    phase(f"17 LJ slice: {R_MAIN} rungs x {LJ_ATOMS} atoms, box {LJ_BOX} A, "
+          f"T {LJ_LADDER['t_min']}-{LJ_LADDER['t_max']} K, "
+          f"run_fused(chunk_cycles=4), then run")
+    from repro_torch.core import REMDDriver
+    engine = lj_engine()
+    out = {}
+    for scheme, n_cycles in (("neighbor", 8), ("matrix", 3)):
+        driver = REMDDriver(engine, lj_cfg(R_MAIN, n_cycles, scheme),
+                            device="cuda")
+        ens = driver.init(SEED)
+        reset(libs)
+        t0 = time.perf_counter()
+        ens = driver.run_fused(ens, chunk_cycles=4)
+        wall = time.perf_counter() - t0
+        launches = {lib.name: lib.launches for lib in libs}
+        variants = dict(libs[-1].variants)
+        want = dict.fromkeys(launches, 0)
+        want["lj_fluid"] = n_cycles * 12
+        per_chunk = [h["t_step"] * 1e3 for h in driver.history[::4]]
+        ms_cycle = per_chunk[-1]
+        print(f"{scheme}: ms/cycle {ms_cycle:.2f} (last chunk; per chunk "
+              f"{[round(t, 2) for t in per_chunk]}; whole run "
+              f"{wall / n_cycles * 1e3:.2f}) [{smi}]")
+        print(f"{scheme}: replica-steps/s "
+              f"{R_MAIN * 10 / ms_cycle * 1e3:.0f}, acceptance "
+              f"{driver.acceptance_ratios()}")
+        print(f"{scheme}: launches {launches}, LJ variants {variants} (want "
+              f"{n_cycles * 11} forces, {n_cycles} energy, nothing else)")
+        check(launches == want and variants == {"forces": n_cycles * 11,
+                                                "energy": n_cycles},
+              f"{scheme}: forces kernel 11 x cycles, energy kernel once "
+              f"per cycle, no other kernel")
+        lj_checks(driver, ens, scheme)
+        check(sum(a for a, _ in driver.acceptance.values()) > 0,
+              f"{scheme}: some exchanges accepted")
+        out[scheme] = dict(ms=ms_cycle, launches=launches,
+                           variants=variants, driver=driver, ens=ens)
+    driver = REMDDriver(engine, lj_cfg(R_MAIN, 4), device="cuda")
+    ens = driver.init(SEED)
+    reset(libs)
+    t0 = time.perf_counter()
+    ens = driver.run(ens)
+    wall = time.perf_counter() - t0
+    launches = {lib.name: lib.launches for lib in libs}
+    variants = dict(libs[-1].variants)
+    fused = out["neighbor"]["driver"].history[:4]
+    keys = ("assignment", "accept", "attempt", "failed")
+    same = all(all(np.array_equal(hf[k], hr[k]) for k in keys)
+               for hf, hr in zip(fused, driver.history))
+    parts = {k: statistics.median(h[k] * 1e3 for h in driver.history[1:])
+             for k in ("t_prep", "t_step", "t_recover", "t_data")}
+    print(f"run: {wall / 4 * 1e3:.2f} ms/cycle (4 cycles, the first warm), "
+          f"medians of the last 3: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in parts.items()) + f" [{smi}]")
+    print(f"run: history rows (assignment, accept, attempt, failed) equal "
+          f"to run_fused's first 4: {same}; launches {launches}, LJ "
+          f"variants {variants}")
+    check(same, "run makes run_fused's decisions")
+    want = dict.fromkeys(launches, 0)
+    want["lj_fluid"] = 4 * 12
+    check(launches == want and variants == {"forces": 44, "energy": 4},
+          "run: 11 forces and 1 energy launch per cycle")
+    lj_checks(driver, ens, "run")
+    out["run"] = dict(ms=wall / 4 * 1e3, launches=launches,
+                      variants=variants, driver=driver, ens=ens, parts=parts)
+    return out
+
+
+def breakdown_lj(runs, smi: str) -> None:
+    """Where an LJ cycle's time goes: each part timed alone at R = 64
+    times its calls per cycle, then the busy share and the two kernels'
+    device time from a profiled chunk of 2 DEO cycles."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random as jr
+    from repro_torch.core import exchange as X
+    from repro_torch.core import failures as F
+    from repro_torch.core.controls import ctrl_for_assignment
+    from repro_torch.md import integrators as I
+    phase("17b where an LJ cycle's time goes")
+    driver, ens = runs["neighbor"]["driver"], runs["neighbor"]["ens"]
+    eng, grid = driver.engine, driver.grid
+    state = ens.state
+    pos, vel = state["pos"], state["vel"]
+    ctrl = ctrl_for_assignment(grid, ens.assignment, eng.ctrl_keys)
+    keys = jr.split(ens.rng, R_MAIN)
+    n_steps = torch.full((R_MAIN,), 10, dtype=torch.int64, device="cuda")
+    noise = I.stacked_step_noise(keys, 11, (LJ_ATOMS, 3))
+    f = eng._force_stack(pos)
+    zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    parts = {
+        "noise draw (threefry + erf_inv, 11 steps)": (
+            lambda: I.stacked_step_noise(keys, 11, (LJ_ATOMS, 3)), 1),
+        "force evaluation (lj_forces kernel)": (
+            lambda: eng._force_stack(pos), 11),
+        "BAOAB update with the wrap": (lambda: I._baoab_apply(
+            1, pos, vel, f, noise[1], eng.masses, ctrl["temperature"],
+            n_steps, 10, eng.dt, eng.gamma, eng.box), 11),
+        "neighbor exchange (lj_energy kernel + DEO sweep)": (
+            lambda: X.neighbor_exchange(eng, state, grid, ens.assignment,
+                                        zero, zero, keys[0], ens.alive), 1),
+        "matrix exchange (lj_energy kernel + outer product + Gibbs)": (
+            lambda: X.matrix_exchange(eng, state, grid, ens.assignment,
+                                      keys[0]), 1),
+        "feature pass alone (lj_energy kernel)": (
+            lambda: eng.replica_features(state), 1),
+        "detect + recover": (lambda: F.detect_recover(
+            eng, ens, "relaunch", state), 1),
+    }
+    times = {}
+    for name, (fn, calls) in parts.items():
+        ms = median_ms(fn, 5, 1)
+        times[name] = ms * calls
+        print(f"{name}: {ms:.3f} ms x {calls} = {ms * calls:.3f} ms/cycle")
+    names = list(times)
+    md = sum(times[k] for k in names[:3])
+    for scheme, ex in (("neighbor", names[3]), ("matrix", names[4])):
+        total = md + times[ex] + times["detect + recover"]
+        print(f"{scheme}: sum of parts {total:.2f} ms/cycle vs measured "
+              f"{runs[scheme]['ms']:.2f} [{smi}]")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        driver.run_fused(ens, n_cycles=2, chunk_cycles=2)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / 2
+    ms = runs["neighbor"]["ms"]
+    print(f"profiled DEO chunk: device kernel time {busy:.2f} ms/cycle, "
+          f"busy share of the measured ms/cycle {busy / ms:.3f}")
+    for name, pattern, calls in (
+            ("lj_forces", r"lj_fluid_kernel(ILb1E|<true>)", 22),
+            ("lj_energy", r"lj_fluid_kernel(ILb0E|<false>)"
+                          r"|block_energy_kernel", 2)):
+        dev = sum(e.device_time_total for e in kernels
+                  if re.search(pattern, e.name)) / 1e3
+        print(f"profiled DEO chunk: {name} {dev / calls:.4f} ms device per "
+              f"call ({calls} calls)")
+
+
+def harmonic_probe(smi: str):
+    """The driver-overhead probe: HarmonicEngine at 64 rungs and one MD
+    step per cycle (no kernel; T_MD ~ 0), ms per cycle on ``run_fused``
+    (chunks of 16, after one warm chunk) and on ``run``."""
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.core.ensemble import control_multiset_ok
+    from repro_torch.md import HarmonicEngine
+    cfg = RepExConfig(dimensions=(("temperature", R_MAIN),),
+                      md_steps_per_cycle=1, n_cycles=32)
+    driver = REMDDriver(HarmonicEngine(device="cuda"), cfg, device="cuda")
+    ens = driver.run_fused(driver.init(SEED), n_cycles=16, chunk_cycles=16)
+    t0 = time.perf_counter()
+    ens = driver.run_fused(ens, n_cycles=32, chunk_cycles=16)
+    fused = (time.perf_counter() - t0) / 32 * 1e3
+    t0 = time.perf_counter()
+    ens = driver.run(ens, n_cycles=16)
+    per_cycle = (time.perf_counter() - t0) / 16 * 1e3
+    print(f"HarmonicEngine {R_MAIN} rungs, 1 MD step per cycle (driver "
+          f"overhead): run_fused {fused:.3f} ms/cycle (chunks of 16), run "
+          f"{per_cycle:.3f} ms/cycle [{smi}]")
+    # what the no-sync guard of run_fused costs: one chunk of 16 cycles
+    # queued with and without it (the chunk alone, no stats fetch)
+    chunk_ms = {}
+    for guarded in (True, False, True, False):
+        guard = (driver._no_host_sync() if guarded
+                 else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with guard:
+            driver._chunk(ens, ens.state, 16)
+        torch.cuda.synchronize()
+        chunk_ms.setdefault(guarded, []).append(
+            (time.perf_counter() - t0) / 16 * 1e3)
+    print(f"one chunk of 16 cycles, ms/cycle: under the no-sync guard "
+          f"{chunk_ms[True]}, without it {chunk_ms[False]} [{smi}]")
+    check(control_multiset_ok(ens) and bool(torch.isfinite(
+        ens.state["x"]).all()) and sum(h["failed"]
+                                       for h in driver.history) == 0,
+          "harmonic probe: permutation, finite state, no failure")
+    return fused, per_cycle
+
+
+def invariance_lj():
+    phase(f"18 LJ: chunk-size invariance (R=8, N={LJ_ATOMS}) and card vs "
+          f"CPU")
+    from repro_torch.core import REMDDriver
+    from repro_torch.core import exchange as X
+    engine = lj_engine()
+    out = {}
+    for k in (1, 4):
+        driver = REMDDriver(engine, lj_cfg(8, 4), device="cuda")
+        ens = driver.run_fused(driver.init(SEED), chunk_cycles=k)
+        out[k] = ([h["assignment"].tolist() for h in driver.history],
+                  ens.state)
+    same_rows = out[1][0] == out[4][0]
+    same_state = all(torch.equal(out[1][1][key], out[4][1][key])
+                     for key in ("pos", "vel"))
+    print(f"assignment rows identical {same_rows}, positions and "
+          f"velocities bitwise equal {same_state}")
+    check(same_rows and same_state, "LJ decisions independent of chunk "
+                                    "size")
+    runs = {}
+    orig = X.metropolis
+    for dev in ("cuda", "cpu"):
+        seen = []
+
+        def spy(delta, rng):
+            seen.append((delta.clone(), X.jr.uniform(rng, tuple(delta.shape))))
+            return orig(delta, rng)
+
+        X.metropolis = spy
+        try:
+            small = lj_engine(64, 12.0, dev)
+            driver = REMDDriver(small, lj_cfg(8, 4), device=dev)
+            ens = driver.run_fused(driver.init(SEED), chunk_cycles=2)
+        finally:
+            X.metropolis = orig
+        runs[dev] = ([h["assignment"].tolist() for h in driver.history],
+                     driver.acceptance_ratios(), ens.state["pos"].cpu(),
+                     seen)
+    same = runs["cuda"][:2] == runs["cpu"][:2]
+    dpos = float((runs["cuda"][2] - runs["cpu"][2]).abs().max())
+    print(f"small LJ run (R=8, N=64, box 12 A, 4 cycles) cuda vs cpu: "
+          f"decisions identical {same}, max |dpos| {dpos:.2e} A (tol "
+          f"{TOL_SMALL_POS})")
+    if not same:
+        for c, (a, b) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+            if a != b:
+                for dev in ("cuda", "cpu"):
+                    delta, u = runs[dev][3][c]
+                    margin = (u - torch.exp(torch.clamp_max(-delta, 0.0))
+                              ).abs().cpu()
+                    print(f"cycle {c} {dev}: Metropolis margins "
+                          f"{margin.tolist()}")
+                break
+    check(same and dpos <= TOL_SMALL_POS, "LJ cuda run makes the CPU run's "
+                                          "decisions")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1340,7 +1765,8 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = environment()
     libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
-            x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY]
+            x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY,
+            nb_ops.LJ_FLUID_LIBRARY]
     build(libs)
 
     phase(f"3 kernels vs plain versions at N={N_ATOMS}, R=4 and R={R_MAIN}")
@@ -1391,8 +1817,25 @@ def main() -> int:
         + f" [{smi}]")
     invariance_sparse()
 
+    phase(f"15 fourth-slice kernels vs plain versions at N={LJ_ATOMS}, R=4 "
+          f"and R={R_MAIN}")
+    lj = lj_engine()
+    compare_fourth(lj, 4, "R=4")
+    errs4, lj_pos = compare_fourth(lj, R_MAIN, f"R={R_MAIN}")
+    times.update(timing_fourth(lj, lj_pos, smi))
+    bound.update(bounds_fourth(R_MAIN, LJ_ATOMS))
+    del lj_pos
+    lj_runs = run_lj(libs, smi)
+    breakdown_lj(lj_runs, smi)
+    harmonic_probe(smi)
+    print(f"LJ ms/cycle: run_fused neighbor {lj_runs['neighbor']['ms']:.2f}, "
+          f"matrix {lj_runs['matrix']['ms']:.2f}, run "
+          f"{lj_runs['run']['ms']:.2f} [{smi}]")
+    invariance_lj()
+
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
-             "exchange_matrix", "nonbonded_sparse", "nlist_build")
+             "exchange_matrix", "nonbonded_sparse", "nlist_build",
+             "lj_energy", "lj_forces")
     src_of = {
         "chain_forces": "src/repro_torch/kernels/chain_forces/csrc/"
                         "chain_forces.cu",
@@ -1406,7 +1849,9 @@ def main() -> int:
         "nonbonded_sparse": "src/repro_torch/kernels/lj_forces/csrc/"
                             "nonbonded_sparse.cu",
         "nlist_build": "src/repro_torch/kernels/nlist_build/csrc/"
-                       "nlist_build.cu"}
+                       "nlist_build.cu",
+        "lj_energy": "src/repro_torch/kernels/lj_forces/csrc/lj_fluid.cu",
+        "lj_forces": "src/repro_torch/kernels/lj_forces/csrc/lj_fluid.cu"}
     replaces = {
         "chain_forces": "src/repro/kernels/chain_forces/kernel.py:190",
         "chain_forces_bias": "src/repro/kernels/chain_forces/kernel.py:190",
@@ -1416,7 +1861,9 @@ def main() -> int:
         "nonbonded_sparse": "src/repro/kernels/lj_forces/kernel.py:257",
         # not a TPU kernel: the port's form of the lax.cond around the jnp
         # build (maybe_rebuild)
-        "nlist_build": "src/repro/md/neighbors.py:346"}
+        "nlist_build": "src/repro/md/neighbors.py:346",
+        "lj_energy": "src/repro/kernels/lj_forces/kernel.py:94",
+        "lj_forces": "src/repro/kernels/lj_forces/kernel.py:116"}
     counts = {"chain_forces": launches["chain_forces"],
               "nonbonded": launches["nonbonded"],
               "chain_forces_bias": bias_launches,
@@ -1426,8 +1873,13 @@ def main() -> int:
               "nonbonded_sparse": sum(r["launches"]["nonbonded_sparse"]
                                       for r in sparse_runs.values()),
               "nlist_build": sum(r["launches"]["nlist_build"]
-                                 for r in sparse_runs.values())}
-    errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3)
+                                 for r in sparse_runs.values()),
+              "lj_energy": sum(r["variants"]["energy"]
+                               for r in lj_runs.values()),
+              "lj_forces": sum(r["variants"]["forces"]
+                               for r in lj_runs.values())}
+    errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3,
+                **errs4)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src_of[name],
          "replaces": replaces[name], "launches": counts[name],

@@ -16,9 +16,17 @@ package's ``core/repex.py``:
     sequence of launches cycle after cycle, and the kernels use no
     atomics, so the trajectory is bitwise identical for any K.
 
-The per-cycle legacy path (``run``), telemetry, checkpoints, failure
-injection and ``run_sharded`` are not ported yet; asking for them
-raises ``NotImplementedError``.  ``last_report`` stays ``None``.
+``run(ens)`` is the per-cycle path, the semantics oracle of
+``run_fused``: one cycle per call, the cycle count read on the host to
+schedule the sweep, then ``detect_recover``, with Eq. (1)'s host terms
+timed as in the JAX package (``t_prep``, ``t_step``, ``t_recover``,
+``t_data``).  It synchronises with the host by design, so it runs
+outside the no-sync guard; its cycles are the same launches as
+``run_fused``'s, so its history rows equal ``run_fused``'s.
+
+Telemetry, checkpoints, failure injection and ``run_sharded`` are not
+ported yet; asking for them raises ``NotImplementedError``.
+``last_report`` stays ``None``.
 """
 from __future__ import annotations
 
@@ -64,6 +72,10 @@ class REMDDriver:
                              f"on {self.device}")
         self.engine = engine
         self.capabilities = engine_capabilities(engine)
+        # can nb_stats ever be nonzero?  (no list, or a dense nonbonded
+        # path: ``run`` skips the read)
+        self._nb_live = (self.capabilities["nb_stats"]
+                         and self.capabilities["nonbonded"] != "dense")
         self.cfg = cfg
         self.grid: ControlGrid = build_grid(cfg, self.device)
         n = self.grid.n_ctrl
@@ -88,6 +100,80 @@ class REMDDriver:
         return make_ensemble(self.engine, rng, self.grid.n_ctrl,
                              hetero_speed=False)
 
+    def run(self, ens: Ensemble, n_cycles: Optional[int] = None,
+            verbose: bool = False) -> Ensemble:
+        """The per-cycle path: one cycle per iteration, with the host
+        reading the cycle count (T_RepEx_over), waiting for the cycle
+        (T_MD + T_EX), for detect + recover, and fetching the stats
+        (T_data), every cycle."""
+        cfg = self.cfg
+        policy = "relaunch" if cfg.relaunch_failed else "continue"
+        n_dims = len(self.grid.dims)
+        backup = self._start_carry(ens)
+        for _ in range(n_cycles or cfg.n_cycles):
+            t0 = time.perf_counter()
+            cyc = int(ens.cycle)
+            dim_index = cyc % n_dims
+            parity = (cyc // n_dims) % 2
+            dev = ens.cycle.device
+            t_prep = time.perf_counter() - t0            # T_RepEx_over
+
+            t1 = time.perf_counter()
+            new_ens, stats, ready = patterns._cycle_core(
+                self.engine, self.grid, ens, pattern=cfg.pattern,
+                md_steps=cfg.md_steps_per_cycle,
+                dim_index=torch.tensor(dim_index, device=dev),
+                parity=torch.tensor(parity, device=dev),
+                scheme=cfg.exchange_scheme, execution=self.execution)
+            self._sync()
+            t_step = time.perf_counter() - t1            # T_MD + T_EX
+            # the health counters of the pre-recovery state, as the fused
+            # path reads them
+            nb_state = new_ens.state
+
+            t2 = time.perf_counter()
+            new_ens, backup, esc = F.detect_recover(
+                self.engine, new_ens, policy, backup,
+                relaunch_budget=cfg.relaunch_budget)
+            esc = {k: int(v) for k, v in esc.items()}
+            t_recover = time.perf_counter() - t2
+
+            t3 = time.perf_counter()
+            accepted = float(stats["accepted"])
+            attempted = float(stats["attempted"])
+            ready_frac = float(torch.mean(ready.to(torch.float32)))
+            if self._nb_live:
+                nb = {k: float(v) for k, v in patterns.nb_health(
+                    self.engine, nb_state, dev).items()}
+            else:
+                nb = dict.fromkeys(NB_STAT_KEYS, 0.0)
+            assignment = new_ens.assignment.cpu().numpy()
+            t_data = time.perf_counter() - t3            # T_data
+
+            bucket = self.acceptance[f"dim{dim_index}"]
+            bucket[0] += accepted
+            bucket[1] += attempted
+            self.history.append({
+                "cycle": cyc, "dim": dim_index,
+                "t_step": t_step, "t_prep": t_prep,
+                "t_recover": t_recover, "t_data": t_data,
+                "accept": accepted, "attempt": attempted,
+                "failed": esc["failed"],
+                "esc_relaunch": esc["esc_relaunch"],
+                "esc_reinit": esc["esc_reinit"],
+                "esc_dead": esc["esc_dead"],
+                "ready_frac": ready_frac,
+                "assignment": assignment,
+                "nb_overflow": nb["nb_overflow"],
+                "nb_rebuilds": nb["nb_rebuilds"],
+            })
+            ens = new_ens
+            if verbose:
+                print(f"cycle {cyc:4d} dim {dim_index} "
+                      f"acc {accepted / max(attempted, 1.0) * 100:5.1f}%  "
+                      f"t {t_step * 1e3:7.1f} ms")
+        return ens
+
     def run_fused(self, ens: Ensemble, n_cycles: Optional[int] = None,
                   chunk_cycles: int = 16, verbose: bool = False) -> Ensemble:
         """K cycles per chunk, one host fetch per chunk (module docstring).
@@ -103,6 +189,11 @@ class REMDDriver:
                 for k, (a, n) in self.acceptance.items()}
 
     # -- the chunk ---------------------------------------------------------
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _no_host_sync(self):
         """Inside a chunk on CUDA, any host synchronisation raises."""
@@ -152,8 +243,7 @@ class REMDDriver:
             t0 = time.perf_counter()
             with self._no_host_sync():
                 ens, backup, rows = self._chunk(ens, backup, k)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            self._sync()
             t_chunk = time.perf_counter() - t0      # K x (T_MD + T_EX)
 
             t1 = time.perf_counter()

@@ -7,7 +7,9 @@
   lj_forces       — LJ + Coulomb forces and energies, over all pairs with
                     an exclusion mask (replaces ``nonbonded_kernel_batched``)
                     and over a neighbor list (replaces
-                    ``nonbonded_sparse_kernel_batched``).
+                    ``nonbonded_sparse_kernel_batched``); the LJ fluid's
+                    energy and forces under the minimum image (replace
+                    ``lj_energy_kernel_batched``, ``lj_forces_kernel_batched``).
   fused_propagate — one masked BAOAB iteration (bonded + nonbonded force
                     and the update) per launch; replaces
                     ``fused_baoab_kernel_batched``.

@@ -1,4 +1,16 @@
-"""Host-side packing + dispatch for the chain nonbonded kernels.
+"""Host-side packing + dispatch for the Lennard-Jones kernels.
+
+The LJ fluid (``LJEngine``): ``lj_energy_batched`` / ``lj_forces_batched``
+launch ``csrc/lj_fluid.cu`` on a CUDA (R, N, 3) stack (counted on
+``LJ_FLUID_LIBRARY`` under the variants "energy" and "forces") and raise
+on anything else; ``fluid_energy`` / ``fluid_forces`` are the MD-facing
+entry points, the kernels on the card and ``ref.lj_energy`` /
+``ref.lj_forces`` (their plain versions) on the CPU; ``LJEnergy`` is the
+counterpart of the JAX ops' ``custom_vjp``: energy forward, the forces
+kernel backward; ``lj_energy`` / ``lj_forces`` take one (N, 3)
+configuration through an R = 1 launch.
+
+The chain nonbonded kernels:
 
 ``build_pack(system)`` keeps the system's per-atom parameters and builds
 what the CUDA kernel reads, once: the sqrt(eps) row and a uint8 copy of
@@ -32,6 +44,106 @@ from repro_torch.kernels import (REPLICA_CHUNK, KernelLibrary, check_cuda,
                                  default_use_kernel, f32_square,
                                  pad_to_block, raise_on_error, stream_ptr)
 from repro_torch.kernels.lj_forces import ref
+
+# -- the LJ fluid -------------------------------------------------------------
+
+LJ_FLUID_LIBRARY = KernelLibrary(
+    "lj_fluid", Path(__file__).parent / "csrc" / "lj_fluid.cu")
+
+_ENERGY_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
+    [ctypes.c_float] * 3 + [ctypes.c_void_p]
+_FORCES_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
+    [ctypes.c_float] * 3 + [ctypes.c_void_p]
+
+
+def _check_stack(pos: torch.Tensor) -> None:
+    check_cuda((pos,), ("pos",))
+    if pos.dtype != torch.float32 or pos.ndim != 3 or pos.shape[-1] != 3:
+        raise ValueError(f"pos must be a float32 (R, N, 3) stack, got "
+                         f"{pos.dtype} {tuple(pos.shape)}")
+
+
+def lj_energy_batched(pos: torch.Tensor, sigma: float, eps: float,
+                      box: float) -> torch.Tensor:
+    """The energy kernel: a CUDA (R, N, 3) stack -> (R,) in one launch
+    (the block sums, then their in-order sum); anything else raises."""
+    _check_stack(pos)
+    r, n, _ = pos.shape
+    sig2, c4, _, box = ref.fluid_constants(sigma, eps, box)
+    fn = LJ_FLUID_LIBRARY.function("lj_energy_launch", _ENERGY_ARGTYPES)
+    e_part = torch.empty((r, (n + TILE - 1) // TILE), dtype=torch.float32,
+                         device=pos.device)
+    energy = torch.empty(r, dtype=torch.float32, device=pos.device)
+    code = fn(pos.data_ptr(), e_part.data_ptr(), energy.data_ptr(), r, n,
+              box, sig2, c4, stream_ptr())
+    raise_on_error(code, "lj_energy")
+    LJ_FLUID_LIBRARY.count("energy")
+    return energy
+
+
+def lj_forces_batched(pos: torch.Tensor, sigma: float, eps: float,
+                      box: float) -> torch.Tensor:
+    """The forces kernel: a CUDA (R, N, 3) stack -> (R, N, 3) forces in
+    one launch; anything else raises."""
+    _check_stack(pos)
+    r, n, _ = pos.shape
+    sig2, _, c24, box = ref.fluid_constants(sigma, eps, box)
+    fn = LJ_FLUID_LIBRARY.function("lj_forces_launch", _FORCES_ARGTYPES)
+    forces = torch.empty_like(pos)
+    code = fn(pos.data_ptr(), forces.data_ptr(), r, n, box, sig2, c24,
+              stream_ptr())
+    raise_on_error(code, "lj_forces")
+    LJ_FLUID_LIBRARY.count("forces")
+    return forces
+
+
+def fluid_energy(pos, sigma: float, eps: float, box: float):
+    """(R, N, 3) -> (R,): the energy kernel on the card, the oracle on
+    the CPU."""
+    if default_use_kernel(pos):
+        return lj_energy_batched(pos.contiguous(), sigma, eps, box)
+    return ref.lj_energy(pos, sigma, eps, box)
+
+
+def fluid_forces(pos, sigma: float, eps: float, box: float):
+    """(R, N, 3) -> (R, N, 3): the forces kernel on the card, the oracle
+    on the CPU."""
+    if default_use_kernel(pos):
+        return lj_forces_batched(pos.contiguous(), sigma, eps, box)
+    return ref.lj_forces(pos, sigma, eps, box)
+
+
+class LJEnergy(torch.autograd.Function):
+    """(R, N, 3) -> (R,) energies whose gradient is the forces pass, not
+    autodiff through the sweep: ``dU/dx = -F``, the backward of the JAX
+    ops' ``custom_vjp``.  Both directions dispatch by device."""
+
+    @staticmethod
+    def forward(ctx, pos, sigma: float, eps: float, box: float):
+        ctx.save_for_backward(pos)
+        ctx.params = (sigma, eps, box)
+        return fluid_energy(pos, sigma, eps, box)
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos,) = ctx.saved_tensors
+        f = fluid_forces(pos, *ctx.params)
+        return -g[:, None, None] * f, None, None, None
+
+
+def lj_energy(pos, sigma: float, eps: float, box: float):
+    """One (N, 3) configuration -> scalar, differentiable (``LJEnergy``
+    on an R = 1 stack: one launch each way on the card)."""
+    return LJEnergy.apply(pos[None], sigma, eps, box)[0]
+
+
+def lj_forces(pos, sigma: float, eps: float, box: float):
+    """One (N, 3) configuration -> (N, 3) forces (an R = 1 launch on the
+    card)."""
+    return fluid_forces(pos[None], sigma, eps, box)[0]
+
+
+# -- the chain nonbonded pass -------------------------------------------------
 
 LIBRARY = KernelLibrary(
     "nonbonded", Path(__file__).parent / "csrc" / "nonbonded.cu")

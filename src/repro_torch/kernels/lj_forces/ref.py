@@ -1,7 +1,12 @@
-"""PyTorch oracle for the chain-molecule nonbonded pass: LJ + bare
-Coulomb forces AND both energy accumulators from one pairwise sweep,
-with per-atom LJ parameters (Lorentz-Berthelot mixing), charges and an
-exclusion mask.
+"""PyTorch oracles of the Lennard-Jones passes.
+
+The LJ fluid (``lj_energy``, ``lj_forces``): uniform sigma and eps under
+the minimum-image periodic box, over all pairs; the CPU path of
+``LJEngine`` and the plain versions of ``csrc/lj_fluid.cu``.
+
+The chain-molecule nonbonded pass: LJ + bare Coulomb forces AND both
+energy accumulators from one pairwise sweep, with per-atom LJ parameters
+(Lorentz-Berthelot mixing), charges and an exclusion mask.
 
 The same math as the JAX package's ``lj_forces/ref.py``, with its sparse
 (neighbor-list) pass and the dense matched-cutoff oracle; this is also
@@ -10,11 +15,77 @@ replica stack (..., N, 3).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import f32_square
+from repro_torch.kernels import REPLICA_CHUNK, f32_square
 
 COULOMB = 332.0637   # kcal mol^-1 Angstrom e^-2
+
+
+# -- the LJ fluid (uniform sigma, eps; minimum image) -------------------------
+
+
+def fluid_constants(sigma: float, eps: float, box: float):
+    """(sigma^2, 4 eps, 24 eps, box) as the float32 values JAX forms: the
+    products in float64 (Python), each rounded once when it meets a
+    float32 array.  The kernels get the same four."""
+    return tuple(float(np.float32(v)) for v in
+                 (sigma * sigma, 4.0 * eps, 24.0 * eps, box))
+
+
+def _pair_terms(pos, sig2: float, box: float):
+    """Minimum-image displacements, guarded r^2, (sigma^2 / r^2)^3 and
+    the off-diagonal mask on (..., N, N) planes.  Divisions are tensor by
+    tensor (a scalar divisor is a reciprocal multiply on CUDA), the cube
+    is JAX's ``integer_pow``, ``x * (x * x)``."""
+    disp = pos[..., :, None, :] - pos[..., None, :, :]
+    if box > 0:
+        b = torch.full((), box, dtype=pos.dtype, device=pos.device)
+        disp = disp - box * torch.round(disp / b)
+    n = pos.shape[-2]
+    eye = torch.eye(n, dtype=pos.dtype, device=pos.device)
+    r2 = torch.sum(disp * disp, -1) + eye              # guard the diagonal
+    t = torch.full((), sig2, dtype=pos.dtype, device=pos.device) / r2
+    s6 = t * (t * t)
+    return disp, r2, s6, 1.0 - eye
+
+
+def _by_replica_chunks(fn, pos, *args):
+    """``fn`` over a replica stack in chunks of ``REPLICA_CHUNK``, so the
+    (R, N, N, 3) displacement planes stay small (573 MB at R = 64,
+    N = 864 unchunked)."""
+    if pos.ndim < 3 or pos.shape[0] <= REPLICA_CHUNK:
+        return fn(pos, *args)
+    return torch.cat([fn(pos[i:i + REPLICA_CHUNK], *args)
+                      for i in range(0, pos.shape[0], REPLICA_CHUNK)])
+
+
+def _lj_energy(pos, sigma, eps, box):
+    sig2, c4, _, box = fluid_constants(sigma, eps, box)
+    _, _, s6, mask = _pair_terms(pos, sig2, box)
+    e = c4 * (s6 * s6 - s6) * mask
+    return 0.5 * torch.sum(e, dim=(-2, -1))
+
+
+def _lj_forces(pos, sigma, eps, box):
+    sig2, _, c24, box = fluid_constants(sigma, eps, box)
+    disp, r2, s6, mask = _pair_terms(pos, sig2, box)
+    coef = c24 * (2.0 * s6 * s6 - s6) / r2 * mask
+    return torch.sum(coef[..., None] * disp, dim=-2)
+
+
+def lj_energy(pos, sigma: float, eps: float, box: float) -> torch.Tensor:
+    """(..., N, 3) -> (...) total LJ energy per configuration."""
+    return _by_replica_chunks(_lj_energy, pos, sigma, eps, box)
+
+
+def lj_forces(pos, sigma: float, eps: float, box: float) -> torch.Tensor:
+    """F = -dU/dx, analytic: (..., N, 3) -> (..., N, 3)."""
+    return _by_replica_chunks(_lj_forces, pos, sigma, eps, box)
+
+
+# -- the chain-molecule nonbonded pass ----------------------------------------
 
 
 def _coef_force(coef, pos):

@@ -1,1 +1,1 @@
-from repro_torch.md.engine import MDEngine  # noqa: F401
+from repro_torch.md.engine import HarmonicEngine, LJEngine, MDEngine  # noqa: F401

@@ -29,11 +29,20 @@ and the cell-list build are not ported yet; asking for them raises.
 
 State is ``{"pos": (R, N, 3), "vel": (R, N, 3)}`` (plus ``"nlist"`` on
 the sparse path) on ``engine.device``.
+
+Two temperature-only engines complete the set: ``LJEngine``, the
+Lennard-Jones fluid in a periodic box (the ``kernels.lj_forces`` fluid
+kernels on the card), and ``HarmonicEngine``, replicas in a harmonic
+well under the exact Ornstein-Uhlenbeck update (no kernel: the driver
+overhead probe).  Their exchange reductions share ``_TOnlyFeatureAPI``.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
+
+import numpy as np
 
 import torch
 
@@ -355,4 +364,253 @@ class MDEngine:
             bad = bad | _bond_overstretch(state["pos"], self.system.bonds,
                                           self.system.bond_r0,
                                           self.max_bond_stretch)
+        return bad
+
+
+class _TOnlyFeatureAPI:
+    """Shared exchange reductions for T-only engines: u(x; ctrl) =
+    beta(ctrl) * U(x), so the single feature is the bare potential.
+    Subclasses provide ``replica_features(state) -> {"u": (R,)}``.  The
+    Gibbs scheme's matrix is the outer product ``u[:, None] * beta[None,
+    :]`` (no exchange-matrix kernel)."""
+
+    def energy_pair(self, state, ctrl_a, ctrl_b):
+        return self.energy_pair_from_features(self.replica_features(state),
+                                              ctrl_a, ctrl_b)
+
+    def energy_pair_from_features(self, feats, ctrl_a, ctrl_b):
+        return ctrl_a["beta"] * feats["u"], ctrl_b["beta"] * feats["u"]
+
+    def cross_energy(self, state, ctrl_grid):
+        return self.cross_energy_from_features(self.replica_features(state),
+                                               ctrl_grid)
+
+    def cross_energy_from_features(self, feats, ctrl_grid):
+        return feats["u"][:, None] * ctrl_grid["beta"][None, :]  # (R, C)
+
+
+class HarmonicEngine(_TOnlyFeatureAPI):
+    """Replicas in a D-dimensional harmonic well, propagated by the EXACT
+    Ornstein-Uhlenbeck solution of overdamped Langevin dynamics:
+
+        x_{t+1} = a x_t + sigma(T) xi_t,   a = exp(-gamma dt),
+        sigma(T)^2 = (kB T / k_spring) (1 - a^2)
+
+    ``n`` masked steps fold into one closed-form update (a suffix product
+    of the per-step decay and the summed noise), a few launches whatever
+    the step count: the overhead-characterization engine.  With T_MD ~ 0
+    a cycle's time is the driver's own, and the stationary distribution
+    N(0, kB T / k_spring) makes the exchange statistics analytically
+    checkable.  Temperature exchange only.  ``batched=False`` runs the
+    per-replica oracle (a loop over replicas, the JAX package's vmap)."""
+
+    KB = I.KB
+    ctrl_keys = ("temperature", "beta")
+
+    def __init__(self, n_dim: int = 3, k_spring: float = 1.0,
+                 dt: float = 1e-2, gamma: float = 1.0,
+                 init_temperature: float = 300.0, batched: bool = True,
+                 device="cuda"):
+        """``device``: where the state lives (default ``"cuda"``; raises if
+        CUDA is missing)."""
+        self.device = resolve_device(device)
+        self.n_dim = n_dim
+        self.k_spring = k_spring
+        self.dt = dt
+        self.gamma = gamma
+        self.init_temperature = init_temperature
+        self.batched = batched
+
+    def init_state(self, rng: torch.Tensor, n_replicas: int):
+        std = (self.KB * self.init_temperature / self.k_spring) ** 0.5
+        return {"x": jr.normal(rng, (n_replicas, self.n_dim)) * std}
+
+    def _sigma(self, temperature, a: float):
+        """The per-step noise scale sqrt(kB T / k (1 - a^2)), float32 at
+        every step as JAX forms it (divisions tensor by tensor)."""
+        var = self.KB * temperature / torch.full_like(temperature,
+                                                      self.k_spring)
+        a32 = np.float32(a)
+        return torch.sqrt(var * float(np.float32(1.0) - a32 * a32))
+
+    def propagate(self, state, ctrl, n_steps, rngs, max_steps: int):
+        """``rngs``: per-replica keys (R, 2); step t of replica r draws
+        ``normal(fold_in(rngs[r], t), (D,))``."""
+        a = I.decay(self.gamma, self.dt)
+        x = state["x"]
+        ts = torch.arange(max_steps, dtype=torch.int64, device=x.device)
+        sigma = self._sigma(ctrl["temperature"], a)               # (R,)
+        xi = jr.normal(jr.fold_in(rngs[:, None, :], ts[None, :]),
+                       (self.n_dim,))                            # (R, S, D)
+        active = ts[None, :] < n_steps[:, None]                   # (R, S)
+        if not self.batched:
+            return {"x": torch.stack([
+                self._one(x[r], sigma[r], active[r], xi[r], a)
+                for r in range(x.shape[0])])}
+        decay = torch.where(active, a, 1.0)
+        noise = torch.where(active[..., None],
+                            sigma[:, None, None] * xi, 0.0)
+        # x_S = (prod_i f_i) x_0 + sum_i (prod_{j>i} f_j) g_i
+        cp = torch.flip(torch.cumprod(torch.flip(decay, [1]), dim=1), [1])
+        suffix = torch.cat([cp[:, 1:], torch.ones_like(cp[:, :1])], dim=1)
+        return {"x": cp[:, 0:1] * x
+                + torch.sum(suffix[..., None] * noise, dim=1)}
+
+    @staticmethod
+    def _one(x, sigma, active, xi, a: float):
+        """One replica of the oracle: (D,) state, (S,) step mask, (S, D)
+        normals."""
+        decay = torch.where(active, a, 1.0)                       # (S,)
+        noise = torch.where(active[:, None], sigma * xi, 0.0)
+        cp = torch.flip(torch.cumprod(torch.flip(decay, [0]), dim=0), [0])
+        suffix = torch.cat([cp[1:], torch.ones_like(cp[:1])])
+        return cp[0] * x + torch.sum(suffix[:, None] * noise, dim=0)
+
+    def _potential_stack(self, x):
+        """(R, D) -> (R,)."""
+        if self.batched:
+            return 0.5 * self.k_spring * torch.sum(x * x, dim=-1)
+        return torch.stack([0.5 * self.k_spring * torch.sum(xi * xi)
+                            for xi in x])
+
+    def energy(self, state, ctrl):
+        return ctrl["beta"] * self._potential_stack(state["x"])
+
+    def replica_features(self, state):
+        """T-only exchange feature: the bare potential, (R,)."""
+        return {"u": self._potential_stack(state["x"])}
+
+    def is_failed(self, state):
+        return _any_nonfinite(state)
+
+
+class LJEngine(_TOnlyFeatureAPI):
+    """Lennard-Jones fluid of argon (sigma 3.4 A, eps 0.238 kcal/mol,
+    39.9 amu) in a periodic cubic box under the minimum image;
+    temperature exchange only.
+
+    ``batched=True`` (default): the force-sharing BAOAB loop over the
+    whole stack, one launch of the forces kernel per force evaluation,
+    positions wrapped into the box after each step.  ``batched=False``:
+    the per-replica oracle, whole BAOAB steps with two force evaluations
+    each, the force from ``torch.autograd.grad`` of ``LJEnergy`` (whose
+    backward is the forces pass), as the JAX package takes ``jax.grad``
+    through its ``custom_vjp``.
+
+    ``use_pallas`` is kept for the JAX package's signature and selects
+    nothing: as in ``MDEngine``, the kernels run exactly where the data
+    lives, on the card whatever the flag says, the PyTorch oracles on the
+    CPU."""
+
+    ctrl_keys = ("temperature", "beta")
+
+    def __init__(self, n_particles: int = 64, box: float = 12.0,
+                 dt: float = 2e-3, gamma: float = 2.0,
+                 use_pallas: bool = False, batched: bool = True,
+                 max_energy: Optional[float] = None, device="cuda"):
+        """``device``: where the state and the force passes live (default
+        ``"cuda"``; raises if CUDA is missing — pass ``"cpu"`` to run the
+        PyTorch oracles on the CPU).  ``max_energy``: opt-in kinetic-
+        energy failure threshold beyond the non-finite scan."""
+        self.device = resolve_device(device)
+        self.n = n_particles
+        self.box = box
+        self.dt = dt
+        self.gamma = gamma
+        self.use_pallas = use_pallas
+        self.batched = batched
+        self.masses = torch.full((n_particles,), 39.9,      # argon
+                                 dtype=torch.float32, device=self.device)
+        self.sigma = 3.4
+        self.eps = 0.238
+        self.max_energy = None if max_energy is None else float(max_energy)
+        self.failure_detectors = (
+            ("nonfinite",)
+            + (("energy",) if self.max_energy is not None else ()))
+
+    def _potential(self, pos):
+        """One configuration (N, 3) -> scalar, differentiable."""
+        return nb_ops.lj_energy(pos, self.sigma, self.eps, self.box)
+
+    def _potential_stack(self, pos):
+        """Replica stack (R, N, 3) -> (R,): one launch of the energy
+        kernel (batched), or one per replica (the oracle)."""
+        if not self.batched:
+            return torch.stack([self._potential(p) for p in pos])
+        return nb_ops.fluid_energy(pos, self.sigma, self.eps, self.box)
+
+    def init_state(self, rng: torch.Tensor, n_replicas: int):
+        """A cubic lattice (the first N sites of side^3, side from the
+        float32 cube root as JAX takes it) with 0.05 A jitter, velocities
+        from Maxwell-Boltzmann at 120 K; keys split per replica, then
+        into (position, velocity) keys."""
+        keys = jr.split(rng, n_replicas)                 # (R, 2)
+        kpv = jr.split(keys, 2)                          # (R, 2, 2)
+        side = int(math.ceil(np.float32(self.n ** (1 / 3))))
+        ar = torch.arange(side, device=self.device)
+        grid = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
+                           -1).reshape(-1, 3)
+        base = (grid[: self.n] + 0.5) * (self.box / side)
+        pos = base + jr.normal(kpv[:, 0], (self.n, 3)) * 0.05
+        vel = I.maxwell_boltzmann(kpv[:, 1], self.masses, 120.0,
+                                  (self.n, 3))
+        return {"pos": pos, "vel": vel}
+
+    def _force_stack(self, pos):
+        """Analytic forces for the stack: one launch of the forces kernel
+        on the card, the oracle's pairwise sweep on the CPU."""
+        return nb_ops.fluid_forces(pos, self.sigma, self.eps, self.box)
+
+    def propagate(self, state, ctrl, n_steps, rngs, max_steps: int):
+        """``rngs``: per-replica keys (R, 2); ``max_steps``: the Python
+        int bound on ``n_steps`` (the loop length)."""
+        if not self.batched:
+            return self._propagate_vmap(state, ctrl, n_steps, rngs,
+                                        max_steps)
+        # The shared force is evaluated at the wrapped positions; the
+        # oracle evaluates its trailing half-B at the pre-wrap positions,
+        # which agrees up to fp rounding (the minimum-image force is
+        # wrap-invariant).
+        return I.propagate_replica_major(
+            state, self._force_stack, self.masses, ctrl["temperature"],
+            n_steps, rngs, max_steps, self.dt, self.gamma, box=self.box)
+
+    def _autograd_force(self, pos):
+        """-dU/dx of the stack through ``LJEnergy``'s backward (the forces
+        pass): bitwise the forces pass itself."""
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            u = nb_ops.LJEnergy.apply(p, self.sigma, self.eps, self.box)
+            (f,) = torch.autograd.grad(-u.sum(), p)
+        return f
+
+    def _propagate_vmap(self, state, ctrl, n_steps, rngs, max_steps: int):
+        """The reference oracle: ``max_steps`` whole BAOAB steps per
+        replica (step t keyed ``fold_in(rngs[r], t)``), each wrapped into
+        the box, lanes past their ``n_steps`` frozen."""
+        pos, vel = state["pos"], state["vel"]
+        temp = ctrl["temperature"]
+        for t in range(max_steps):
+            npos, nvel = I.baoab_step(pos, vel, jr.fold_in(rngs, t),
+                                      self._autograd_force, self.masses,
+                                      temp, self.dt, self.gamma)
+            npos = torch.remainder(npos, self.box)
+            active = (n_steps > t)[:, None, None]
+            pos = torch.where(active, npos, pos)
+            vel = torch.where(active, nvel, vel)
+        return {"pos": pos, "vel": vel}
+
+    def energy(self, state, ctrl):
+        return ctrl["beta"] * self._potential_stack(state["pos"])
+
+    def replica_features(self, state):
+        """T-only exchange feature: the bare potential, (R,) — one
+        O(N^2) evaluation serves both exchange assignments."""
+        return {"u": self._potential_stack(state["pos"])}
+
+    def is_failed(self, state):
+        bad = _any_nonfinite(state)
+        if self.max_energy is not None:
+            ke = _kinetic_energy(state["vel"], self.masses)
+            bad = bad | (ke > self.max_energy)
         return bad

@@ -32,20 +32,48 @@ def maxwell_boltzmann(keys, masses, temperature: float, shape3):
     return torch.sqrt(var)[..., None] * jr.normal(keys, shape3)
 
 
+def decay(gamma: float, dt: float) -> float:
+    """``exp(-gamma dt)`` as JAX forms it from Python floats: the
+    argument rounded to float32, its exponential in float64 rounded once
+    (a float32 value, as a Python float)."""
+    return float(np.float32(math.exp(float(np.float32(-gamma * dt)))))
+
+
 def baoab_scales(masses, temperature, dt: float, gamma: float):
     """The loop-invariant BAOAB coefficients: the O-step decay ``c1 =
     exp(-gamma dt)`` (a float32 value, as a Python float) and the
     (R, N, 1) thermal noise scale ``sqrt(1 - c1^2) * sigma(T, m)``."""
-    # host float32 scalars, rounded once from float64 like XLA's constants
-    c1 = torch.tensor(math.exp(float(np.float32(-gamma * dt))),
-                      dtype=torch.float32)
+    c1 = torch.tensor(decay(gamma, dt), dtype=torch.float32)
     sigma = torch.sqrt(AKMA * KB * temperature[:, None]
                        / masses[None, :])[..., None]              # (R, N, 1)
     return float(c1), float(torch.sqrt(1 - c1 * c1)) * sigma
 
 
+def baoab_step(pos, vel, rng, force_fn: Callable, masses, temperature,
+               dt: float = 5e-4, gamma: float = 5.0):
+    """One whole BAOAB step with two force evaluations, the unbatched
+    oracle's step: ``rng`` (..., 2) keys and ``temperature`` (...,) for
+    a (..., N, 3) state, leading axes batched (the vmap over replicas,
+    written out).  The O-step scales are :func:`baoab_scales`' values,
+    the association of ``sqrt(1 - c1^2) * sigma * noise`` included."""
+    m = masses[..., None]
+    f = force_fn(pos)
+    vel = vel + 0.5 * dt * AKMA * f / m                      # B
+    pos = pos + 0.5 * dt * vel                               # A
+    c1, noise_scale = baoab_scales(masses, temperature.reshape(-1), dt,
+                                   gamma)
+    noise_scale = noise_scale.reshape(temperature.shape + m.shape)
+    noise = jr.normal(rng, pos.shape[-2:])
+    vel = c1 * vel + noise_scale * noise                     # O
+    pos = pos + 0.5 * dt * vel                               # A
+    f = force_fn(pos)
+    vel = vel + 0.5 * dt * AKMA * f / m                      # B
+    return pos, vel
+
+
 def baoab_fused_iteration(i: int, pos, vel, f, noise_i, c1, noise_scale,
-                          masses, n_steps, max_steps: int, dt: float):
+                          masses, n_steps, max_steps: int, dt: float,
+                          box: float = 0.0):
     """ONE masked force-sharing BAOAB update given this iteration's
     force, noise block and scales.  Returns (pos, vel)."""
     # trailing half-B of step i-1: existed and was active iff i-1 < n
@@ -54,15 +82,16 @@ def baoab_fused_iteration(i: int, pos, vel, f, noise_i, c1, noise_scale,
     # iteration's force)
     lead = ((n_steps > i) & (i < max_steps))[:, None, None]
     return baoab_masked_update(pos, vel, f, noise_scale * noise_i, c1,
-                               masses, trail, lead, dt)
+                               masses, trail, lead, dt, box)
 
 
 def baoab_masked_update(pos, vel, f, noise, c1, masses, trail, lead,
-                        dt: float):
+                        dt: float, box: float = 0.0):
     """The B-A-O-A-B arithmetic of one iteration with pre-scaled noise:
     ``trail`` (R, 1, 1) applies the previous step's trailing half-B,
-    ``lead`` the leading half-B + A O A of this step.  The fused kernel's
-    plain version shares it."""
+    ``lead`` the leading half-B + A O A of this step.  ``box > 0`` wraps
+    the new positions into [0, box] (``jnp.mod``'s floor-mod, bitwise)
+    before the select.  The fused kernel's plain version shares it."""
     m = masses[None, :, None]
     kick = 0.5 * dt * AKMA * f / m
     vel = torch.where(trail, vel + kick, vel)
@@ -70,11 +99,14 @@ def baoab_masked_update(pos, vel, f, noise, c1, masses, trail, lead,
     npos = pos + 0.5 * dt * nvel                             # A
     nvel = c1 * nvel + noise                                 # O
     npos = npos + 0.5 * dt * nvel                            # A
+    if box > 0:
+        npos = torch.remainder(npos, box)
     return torch.where(lead, npos, pos), torch.where(lead, nvel, vel)
 
 
 def _baoab_apply(i: int, pos, vel, f, noise_i, masses, temperature,
-                 n_steps, max_steps: int, dt: float, gamma: float):
+                 n_steps, max_steps: int, dt: float, gamma: float,
+                 box: float = 0.0):
     """One force-sharing BAOAB update over the whole replica stack.
 
     The force of a step's trailing half-B equals the force of the next
@@ -83,24 +115,27 @@ def _baoab_apply(i: int, pos, vel, f, noise_i, masses, temperature,
     leading half-B + A O A of step i (masked for i == max_steps)."""
     c1, noise_scale = baoab_scales(masses, temperature, dt, gamma)
     return baoab_fused_iteration(i, pos, vel, f, noise_i, c1, noise_scale,
-                                 masses, n_steps, max_steps, dt)
+                                 masses, n_steps, max_steps, dt, box)
 
 
 def propagate_replica_major(state, force_fn: Callable, masses, temperature,
                             n_steps, rngs, max_steps: int,
-                            dt: float = 5e-4, gamma: float = 5.0):
+                            dt: float = 5e-4, gamma: float = 5.0,
+                            box: float = 0.0):
     """Pre-drawn noise + ``max_steps + 1`` force-sharing BAOAB iterations.
     ``state``: {"pos", "vel"} with leading replica axis; ``rngs``: (R, 2)
-    per-replica keys; ``n_steps``: (R,) per-replica step counts."""
+    per-replica keys; ``n_steps``: (R,) per-replica step counts; ``box``:
+    the periodic box (0: none)."""
     out, _ = propagate_replica_major_aux(
         state, lambda pos, aux: (force_fn(pos), aux), (), masses,
-        temperature, n_steps, rngs, max_steps, dt, gamma)
+        temperature, n_steps, rngs, max_steps, dt, gamma, box)
     return out
 
 
 def propagate_replica_major_aux(state, force_aux_fn, aux, masses,
                                 temperature, n_steps, rngs, max_steps: int,
-                                dt: float = 5e-4, gamma: float = 5.0):
+                                dt: float = 5e-4, gamma: float = 5.0,
+                                box: float = 0.0):
     """:func:`propagate_replica_major` for force fields that carry
     auxiliary state through the step loop.  Returns ({"pos", "vel"}, aux)."""
     noise = stacked_step_noise(rngs, max_steps + 1, state["pos"].shape[1:])
@@ -108,7 +143,8 @@ def propagate_replica_major_aux(state, force_aux_fn, aux, masses,
     for i in range(max_steps + 1):
         f, aux = force_aux_fn(pos, aux)
         pos, vel = _baoab_apply(i, pos, vel, f, noise[i], masses,
-                                temperature, n_steps, max_steps, dt, gamma)
+                                temperature, n_steps, max_steps, dt, gamma,
+                                box)
     return {"pos": pos, "vel": vel}, aux
 
 

@@ -14,7 +14,9 @@ Tolerance: forces within 1e-5 x max(max |F|, 1), energies 1e-5 relative
 through dt * AKMA / m); the exchange matrix bitwise (built without FMA
 contraction).  The sparse kernel is held to its plain version like the
 nonbonded kernel; the neighbor-list build kernel bitwise, in both states
-of its device flag (it forms r2 without FMA contraction).
+of its device flag (it forms r2 without FMA contraction).  The LJ fluid
+kernels are held to their plain versions like the nonbonded kernel, the
+gradient of ``LJEnergy`` bitwise to minus the forces kernel.
 """
 import numpy as np
 import pytest
@@ -391,3 +393,111 @@ def test_sparse_path_chunk_size_invariance_on_the_card():
         assert torch.equal(runs[1][1].state[key], runs[3][1].state[key])
     for key, leaf in runs[1][1].state["nlist"].items():
         assert torch.equal(leaf, runs[3][1].state["nlist"][key]), key
+
+
+# -- the LJ fluid (LJEngine) and the harmonic probe -------------------------
+
+def _fluid(n_atoms, n_rep, box=12.0, seed=0):
+    """Lattice + jitter positions in the box: pairs across the boundary
+    (the minimum image) and atoms near the corners."""
+    side = int(np.ceil(n_atoms ** (1 / 3) - 1e-9))
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)[:n_atoms]
+    rng = np.random.default_rng(seed)
+    pos = (g + 0.5) * (box / side) + 0.3 * rng.standard_normal(
+        (n_rep, n_atoms, 3))
+    return torch.from_numpy(np.mod(pos, box).astype(np.float32)).cuda()
+
+
+LJ_ARGS = (3.4, 0.238, 12.0)
+
+
+@pytest.mark.parametrize("n_atoms", [27, 64, 130, 257])
+@pytest.mark.parametrize("n_rep", [1, 3])
+def test_lj_fluid_kernels_match_plain_versions(n_atoms, n_rep):
+    pos = _fluid(n_atoms, n_rep)
+    lib = nb_ops.LJ_FLUID_LIBRARY
+    n0 = dict(lib.variants)
+    e = nb_ops.lj_energy_batched(pos, *LJ_ARGS)
+    f = nb_ops.lj_forces_batched(pos, *LJ_ARGS)
+    assert lib.variants["energy"] == n0.get("energy", 0) + 1
+    assert lib.variants["forces"] == n0.get("forces", 0) + 1
+    _close(e, nb_ops.ref.lj_energy(pos, *LJ_ARGS), energy=True)
+    _close(f, nb_ops.ref.lj_forces(pos, *LJ_ARGS))
+    assert torch.equal(nb_ops.lj_forces_batched(pos, *LJ_ARGS), f)
+    # the single-configuration entry points: one R = 1 launch each
+    _close(nb_ops.lj_forces(pos[0], *LJ_ARGS), f[0])
+    _close(nb_ops.lj_energy(pos[0], *LJ_ARGS)[None], e[:1], energy=True)
+
+
+def test_lj_energy_gradient_is_the_forces_kernel_bitwise():
+    pos = _fluid(130, 3).requires_grad_(True)
+    u = nb_ops.LJEnergy.apply(pos, *LJ_ARGS)
+    (g,) = torch.autograd.grad(u.sum(), pos)
+    assert torch.equal(g, -nb_ops.lj_forces_batched(pos.detach(), *LJ_ARGS))
+
+
+def test_lj_fluid_wrappers_reject_what_the_kernels_do_not_take():
+    pos = _fluid(64, 2)
+    for bad in (pos.cpu(), pos.double(), pos[..., :2].contiguous()):
+        with pytest.raises(ValueError):
+            nb_ops.lj_energy_batched(bad, *LJ_ARGS)
+        with pytest.raises(ValueError):
+            nb_ops.lj_forces_batched(bad, *LJ_ARGS)
+
+
+def test_lj_engine_launch_counts():
+    """One propagate of 10 steps: 11 launches of the forces kernel, none
+    of the energy kernel; one feature pass: one energy launch."""
+    from repro_torch.core.controls import build_grid, ctrl_for_assignment
+    from repro_torch.md import LJEngine
+    eng = LJEngine(device="cuda")
+    grid = build_grid(RepExConfig(dimensions=(("temperature", 4),)), "cuda")
+    state = eng.init_state(jr.key(0, "cuda"), 4)
+    ctrl = ctrl_for_assignment(grid, torch.arange(4, device="cuda"),
+                               eng.ctrl_keys)
+    lib = nb_ops.LJ_FLUID_LIBRARY
+    lib.reset()
+    out = eng.propagate(state, ctrl, torch.full((4,), 10, device="cuda"),
+                        jr.split(jr.key(1, "cuda"), 4), max_steps=10)
+    assert lib.variants == {"forces": 11}
+    eng.replica_features(out)
+    assert lib.variants == {"forces": 11, "energy": 1}
+    pos = out["pos"]
+    assert bool(((pos >= 0) & (pos <= eng.box)).all())
+
+
+def _t_only_run(engine_cls, device, scheme, chunk=2, n_cycles=4, **kw):
+    cfg = RepExConfig(dimensions=(("temperature", 8),), t_min=94.4,
+                      t_max=150.0, md_steps_per_cycle=10, n_cycles=n_cycles,
+                      exchange_scheme=scheme)
+    drv = REMDDriver(engine_cls(device=device, **kw), cfg, device=device)
+    return drv, drv.run_fused(drv.init(0), chunk_cycles=chunk)
+
+
+@pytest.mark.parametrize("engine", ["lj", "harmonic"])
+@pytest.mark.parametrize("scheme", ["neighbor", "matrix"])
+def test_t_only_engines_card_and_cpu_make_the_same_decisions(engine,
+                                                             scheme):
+    from repro_torch.md import HarmonicEngine, LJEngine
+    cls = LJEngine if engine == "lj" else HarmonicEngine
+    gpu, gpu_ens = _t_only_run(cls, "cuda", scheme)
+    cpu, cpu_ens = _t_only_run(cls, "cpu", scheme)
+    for hg, hc in zip(gpu.history, cpu.history):
+        np.testing.assert_array_equal(hg["assignment"], hc["assignment"])
+    assert gpu.acceptance_ratios() == cpu.acceptance_ratios()
+    key = "pos" if engine == "lj" else "x"
+    np.testing.assert_allclose(gpu_ens.state[key].cpu().numpy(),
+                               cpu_ens.state[key].numpy(), atol=1e-4)
+
+
+def test_lj_run_equals_run_fused_on_the_card():
+    from repro_torch.md import LJEngine
+    fused, fused_ens = _t_only_run(LJEngine, "cuda", "neighbor", chunk=4)
+    drv = REMDDriver(LJEngine(device="cuda"), fused.cfg, device="cuda")
+    ens = drv.run(drv.init(0))
+    for hf, hr in zip(fused.history, drv.history):
+        np.testing.assert_array_equal(hf["assignment"], hr["assignment"])
+        assert (hf["accept"], hf["attempt"], hf["failed"]) == \
+            (hr["accept"], hr["attempt"], hr["failed"])
+    assert torch.equal(ens.state["pos"], fused_ens.state["pos"])
