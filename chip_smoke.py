@@ -7,7 +7,7 @@ The quickest proof that the port still starts on the GPU.  Phases, each
 printed on its own lines:
 
   1. environment  card name and power limit, CUDA, nvcc, triton
-  2. build        the seven sources of ``src/repro_torch/kernels/*/csrc``,
+  2. build        the eight sources of ``src/repro_torch/kernels/*/csrc``,
                   one ``nvcc`` per source, all started together
   3. kernels      the bonded and nonbonded kernels against their plain
                   PyTorch versions at N = 2881, R = 4 and R = 64, within
@@ -88,6 +88,24 @@ printed on its own lines:
                   bitwise equal state; then the small default LJEngine
                   (64 atoms, R = 8) on the card and on the CPU must make
                   the same decisions (margins printed if not)
+ 19. kernel       the fifth slice, LM serving: the flash attention kernel
+                  against its plain version on 217 cases (float32 and
+                  bfloat16; causal, non-causal, causal with a window of
+                  64; 1, 2, 4 and 8 query heads per kv head; S = T = 16,
+                  100, 2048; D = 16, 64, 128) and at OLMo-1B's prefill
+                  shape (4, 2048, 16, 128) in bfloat16
+ 20. timing       the kernel at that shape as in phase 4, with PyTorch's
+                  ``scaled_dot_product_attention`` on the same tensors as
+                  the yardstick call, and the bound
+ 21. serve        ``repro_torch.launch.serve.main`` on OLMo-1B at full
+                  width (seeded weights): 4 prompts of 2048 tokens, 32
+                  greedy tokens; init, prefill and decode times, peak
+                  memory; exactly 16 flash launches (one per layer of the
+                  prefill, none in decode); a second run from the same
+                  weights bitwise equal; prefill(2048) + one decode step
+                  against prefill(2049); 21b: where a prefill's time goes
+ 22. card vs CPU  the olmo and phi3 smoke configs at float32 dtypes served
+                  on the card and on the CPU: identical tokens
 
 Any failed check raises and the script exits non-zero.  The next to last
 line is the kernels' JSON record, the last line the device record.
@@ -97,7 +115,9 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -194,6 +214,43 @@ TOL_LJ_FORCE, TOL_LJ_ENERGY = 1e-4, 1e-5
 LJ_FORCE_PAIR_OPS = 3 + 12 + 5 + 1 + 3 + 5 + 12
 LJ_ENERGY_PAIR_OPS = 3 + 12 + 5 + 1 + 3 + 3 + 1
 
+
+# The fifth slice: LM serving (prefill + greedy decode) of OLMo-1B
+# (arXiv:2402.00838) at full width on the package's seeded weights:
+# 4 prompts of 2048 tokens, 32 new tokens.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_TOKENS = "olmo_1b", 4, 2048, 32
+# The flash attention kernel against its plain version, per element:
+# |got - plain| <= RTOL_FA * |plain| + TOL_FA_F32 * max |plain|.  Both
+# sides sum float32 FMAs in another order (the online softmax's
+# rescaling, tile sums): the absolute part.  In bfloat16 each side then
+# rounds its float32 value once, so two outputs may sit one bf16 step
+# apart, and a step is at most 2^-7 of the value: the relative part.  A
+# global bound (max |diff| / max |plain|) would let the late causal rows,
+# whose outputs average many keys and are ~1/100 of the first rows', be
+# wrong by their own size.
+TOL_FA_F32 = 5e-5
+RTOL_FA = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+# prefill(S) + one decode step against prefill(S + 1), of max |logit|:
+# the kernel on bf16 k, v against the plain decode attention on the bf16
+# cache.  The seeded OLMo-1B turns a rounding difference into a different
+# argmax key: its (d, h, hd) projections wq, wk draw with fan-in
+# shape[-2] = n_heads = 16 (``params._std_for``, as the JAX package), std
+# 0.25, so on unit-variance normed inputs q and k elements have std ~11
+# and the scores std ~128 (printed by phase 21): each softmax row is near
+# one-hot.  A difference grows about tenfold every two layers (measured
+# on the card: float32 2e-5 at 2 layers, 2e-4 to 6e-3 at 4, 0.6-0.9 at
+# 16, the plain attention as much as the kernel), so the check holds the
+# full-width model cut to its first CONSIST_LAYERS layers; the 16-layer
+# figure is printed.  Phase 19's random inputs, not these near-one-hot
+# rows, are the test of the kernel's arithmetic.
+TOL_LM_CONSIST = 2e-2
+CONSIST_LAYERS = 2
+# The smoke configs at float32 dtypes, card (kernel) vs CPU (plain), of
+# max |logit|: the same float32 formulas, summed in another order.
+TOL_LM_CPU = 1e-4
+# The H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the
+# attention's products take bf16 operands.
+BF16_TC_FLOPS_PER_S = 989e12
 
 def reset(libs) -> None:
     """Every launch count to 0, just before a path is driven."""
@@ -443,11 +500,9 @@ def run_slice(libs, smi: str):
     print(f"launches {launches}, by variant {variants} (want "
           f"{cfg.n_cycles * 11} of the bonded bias=False variant and of the "
           f"nonbonded kernel, 0 of the others)")
-    check(launches == {"chain_forces": cfg.n_cycles * 11,
-                       "nonbonded": cfg.n_cycles * 11,
-                       "fused_baoab": 0, "exchange_matrix": 0,
-                       "nonbonded_sparse": 0, "nlist_build": 0,
-                       "lj_fluid": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_forces=cfg.n_cycles * 11, nonbonded=cfg.n_cycles * 11)
+    check(launches == want
           and variants["chain_forces"] == {"plain": cfg.n_cycles * 11},
           "each per-pass kernel launched 8 cycles x 11 evaluations")
     check(ok_perm, "assignment is a permutation")
@@ -764,7 +819,8 @@ def run_tsu(libs, smi: str):
         want = {"chain_forces": 0, "nonbonded": 0,
                 "fused_baoab": n_cycles * 11,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
-                "nonbonded_sparse": 0, "nlist_build": 0, "lj_fluid": 0}
+                "nonbonded_sparse": 0, "nlist_build": 0, "lj_fluid": 0,
+                "flash_attention": 0}
         per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
         ms_cycle = per_chunk[-1]
         failed = sum(h["failed"] for h in driver.history)
@@ -894,7 +950,7 @@ def run_tsu_pallas(libs, smi: str) -> float:
     check(launches == {"chain_forces": 33, "nonbonded": 33,
                        "fused_baoab": 0, "exchange_matrix": 0,
                        "nonbonded_sparse": 0, "nlist_build": 0,
-                       "lj_fluid": 0}
+                       "lj_fluid": 0, "flash_attention": 0}
           and variants == {"bias": 33},
           "per-pass TSU: bias variant and nonbonded 3 x 11, nothing else")
     check(control_multiset_ok(ens)
@@ -1162,7 +1218,7 @@ def run_tsu_sparse(libs, smi: str):
         want = {"chain_forces": evals, "nonbonded": 0, "fused_baoab": 0,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
                 "nonbonded_sparse": evals + n_cycles, "nlist_build": evals,
-                "lj_fluid": 0}
+                "lj_fluid": 0, "flash_attention": 0}
         per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
         ms_cycle = per_chunk[-1]
         last = driver.history[-1]
@@ -1497,6 +1553,10 @@ def lj_checks(driver, ens, tag: str) -> None:
           f"{tag}: finite positions in [0, box]")
 
 
+def lj_lib(libs):
+    return next(lib for lib in libs if lib.name == "lj_fluid")
+
+
 def run_lj(libs, smi: str):
     """The fourth slice: LJEngine at 64 rungs x 864 atoms through
     ``run_fused`` (8 DEO cycles, then 3 matrix cycles, each from
@@ -1517,7 +1577,7 @@ def run_lj(libs, smi: str):
         ens = driver.run_fused(ens, chunk_cycles=4)
         wall = time.perf_counter() - t0
         launches = {lib.name: lib.launches for lib in libs}
-        variants = dict(libs[-1].variants)
+        variants = dict(lj_lib(libs).variants)
         want = dict.fromkeys(launches, 0)
         want["lj_fluid"] = n_cycles * 12
         per_chunk = [h["t_step"] * 1e3 for h in driver.history[::4]]
@@ -1546,7 +1606,7 @@ def run_lj(libs, smi: str):
     ens = driver.run(ens)
     wall = time.perf_counter() - t0
     launches = {lib.name: lib.launches for lib in libs}
-    variants = dict(libs[-1].variants)
+    variants = dict(lj_lib(libs).variants)
     fused = out["neighbor"]["driver"].history[:4]
     keys = ("assignment", "accept", "attempt", "failed")
     same = all(all(np.array_equal(hf[k], hr[k]) for k in keys)
@@ -1742,6 +1802,323 @@ def invariance_lj():
 
 
 
+def fa_cases():
+    """Phase 19's cases: (dtype, mask, H / G, S = T, D, B, H)."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, window in ((True, 0), (False, 0), (True, 64)):
+            for rep in (1, 2, 4, 8):
+                for s in (16, 100, 2048):
+                    for d in (16, 64, 128):
+                        cases.append((dtype, causal, window, rep, s, d, 1, 8))
+    # the OLMo-1B prefill shape
+    cases.append((torch.bfloat16, True, 0, 1, LM_PROMPT, 128, LM_BATCH, 16))
+    return cases
+
+
+def fa_inputs(dtype, rep, s, d, b, h, seed=SEED):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, h // rep, d), generator=gen,
+                    device="cuda").to(dtype)
+    v = torch.randn((b, s, h // rep, d), generator=gen,
+                    device="cuda").to(dtype)
+    return q, k, v
+
+
+def fa_allowance_used(got, want, dtype) -> float:
+    """max |got - plain| / (RTOL_FA |plain| + TOL_FA_F32 max |plain|):
+    at most 1 when the kernel meets its plain version."""
+    got, want = got.float(), want.float()
+    allow = RTOL_FA[dtype] * want.abs() + TOL_FA_F32 * want.abs().max()
+    return float(((got - want).abs() / allow).max())
+
+
+def compare_fifth():
+    """Kernel 8 against its plain version on every case; returns the max
+    absolute error at the OLMo-1B prefill shape."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    worst, used = {}, {}
+    err_olmo = None
+    for dtype, causal, window, rep, s, d, b, h in fa_cases():
+        q, k, v = fa_inputs(dtype, rep, s, d, b, h)
+        got = fa_ops.flash_attention_kernel(q, k, v, causal=causal,
+                                            window=window)
+        want = fa_ops.ref.attention(q, k, v, causal=causal, window=window)
+        e = rel(got.float(), want.float())
+        u = fa_allowance_used(got, want, dtype)
+        tag = (f"{str(dtype)[6:]} causal={causal} window={window} H/G={rep} "
+               f"S=T={s} D={d} B={b} H={h}")
+        check(got.dtype == dtype and bool(torch.isfinite(got).all())
+              and u <= 1.0, f"flash_attention vs plain: {tag}: {u:.3f} of "
+                            f"the allowance (max |diff| / max |plain| "
+                            f"{e:.2e})")
+        key = str(dtype)[6:]
+        worst[key] = max(worst.get(key, 0.0), e)
+        used[key] = max(used.get(key, 0.0), u)
+        if (b, s, h, d) == (LM_BATCH, LM_PROMPT, 16, 128):
+            err_olmo = float((got.float() - want.float()).abs().max())
+            late = (got.float() - want.float())[:, s // 2:].abs() / \
+                want.float()[:, s // 2:].abs().clamp_min(1e-30)
+            print(f"OLMo-1B prefill shape {tag}: max |diff| / max |plain| "
+                  f"{e:.2e}, max |diff| {err_olmo:.3e}, {u:.3f} of the "
+                  f"allowance; rows S/2..S: mean |plain| "
+                  f"{float(want.float()[:, s // 2:].abs().mean()):.4f}, "
+                  f"median |diff| / |plain| {float(late.median()):.2e}")
+    print(f"{len(fa_cases())} cases: worst max |diff| / max |plain| {worst}; "
+          f"worst share of the per-element allowance {used} (|diff| <= "
+          f"{RTOL_FA[torch.bfloat16]:.4g} |plain| in bfloat16, 0 in "
+          f"float32, + {TOL_FA_F32} max |plain|)")
+    return err_olmo
+
+
+def bounds_fifth(b: int, s: int, h: int, g: int, d: int, elem: int):
+    """(bound_ms, bound_by) of causal attention at these shapes: 4 B H D
+    x the kept (query, key) pairs S (S + 1) / 2 operations at the bf16
+    tensor-core rate; q, k, v, out read or written once."""
+    kept = s * (s + 1) // 2
+    ops = 4 * b * h * d * kept
+    nbytes = (2 * b * s * h * d + 2 * b * s * g * d) * elem
+    t_ops, t_bytes = ops / BF16_TC_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound = (max(t_ops, t_bytes) * 1e3,
+             "operations" if t_ops >= t_bytes else "bytes")
+    print(f"flash_attention bound: {ops:.4e} operations, "
+          f"{nbytes / 1e6:.1f} MB -> {t_ops * 1e3:.4f} ms (bf16 tensor "
+          f"cores, 989 TFLOP/s) vs {t_bytes * 1e3:.4f} ms (bytes): "
+          f"{bound[0]:.4f} ms ({bound[1]}); at the fp32 CUDA-core rate "
+          f"{ops / FP32_FLOPS_PER_S * 1e3:.4f} ms")
+    return {"flash_attention": bound}
+
+
+def timing_fifth(smi: str):
+    """Phase 4's timing for kernel 8 at the OLMo-1B prefill shape, with
+    PyTorch's scaled_dot_product_attention on the same tensors as the
+    yardstick (timed here, never called by the port)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    phase(f"20 timing at the OLMo-1B prefill shape (B={LM_BATCH}, "
+          f"S={LM_PROMPT}, H=G=16, D=128, bfloat16, causal)")
+    q, k, v = fa_inputs(torch.bfloat16, 1, LM_PROMPT, 128, LM_BATCH, 16)
+    k_ms = graph_ms(lambda: fa_ops.flash_attention_kernel(q, k, v),
+                    calls=5)
+    h_ms = host_ms(lambda: fa_ops.flash_attention_kernel(q, k, v), n=20)
+    p_ms = median_ms(lambda: fa_ops.ref.attention(q, k, v), 5, 1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib_ms = graph_ms(sdpa, calls=5)
+    e_lib = rel(sdpa().transpose(1, 2).float(), fa_ops.ref.attention(
+        q, k, v).float())
+    print(f"flash_attention: kernel {k_ms:.4f} ms device (graph replay), "
+          f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms device (graph "
+          f"replay; vs plain {e_lib:.2e}) [{smi}]")
+    bound = bounds_fifth(LM_BATCH, LM_PROMPT, 16, 16, 128, 2)
+    print(f"flash_attention: {bound['flash_attention'][0] / k_ms:.4f} of "
+          f"its bound, {lib_ms / k_ms:.3f} x the library call's time")
+    return {"flash_attention": (k_ms, p_ms)}, bound, lib_ms
+
+
+def serve_argv(*extra):
+    return ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--tokens", str(LM_TOKENS), *extra]
+
+
+def score_spread(params, cfg, toks, n: int = 256) -> None:
+    """Layer 0's attention scores on the seeded weights, float32, over the
+    first ``n`` positions of one prompt: their std and the mean largest
+    softmax weight of the causal rows past the first 16."""
+    from repro_torch.models import layers as L
+    x = L.apply_norm({}, cfg, params["embed"][toks[0, :n]][None].float())
+    pos = torch.arange(n, device="cuda")
+    q, k = (L.apply_rope(L._project(x, params["layers"]["attn"][w][0]),
+                         pos, cfg.rope_theta)[0] for w in ("wq", "wk"))
+    sc = torch.einsum("shd,thd->hst", q, k) / math.sqrt(q.shape[-1])
+    keep = L._mask(pos, pos, True, 0)
+    top = torch.softmax(sc.masked_fill(~keep, float("-inf")), -1).amax(-1)
+    print(f"{cfg.name} layer 0 on the seeded weights (wq std "
+          f"{float(params['layers']['attn']['wq'][0].std()):.4f}): "
+          f"attention scores std {float(sc[:, keep].std()):.1f}, mean "
+          f"largest softmax weight of rows 16..{n - 1} "
+          f"{float(top[:, 16:].mean()):.3f}")
+
+
+def run_serve(libs, smi: str):
+    """The fifth slice: ``serve.main`` on OLMo-1B at full width, twice
+    from the same weights, then prefill(S) + decode against
+    prefill(S + 1); every launch count set to 0 just before each run.
+    Returns the second run's report (with the weights) and the first
+    run's launch counts."""
+    from repro_torch import random as jr
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    phase(f"21 LM serving: {LM_ARCH} at full width, {LM_BATCH} prompts x "
+          f"{LM_PROMPT} tokens, {LM_TOKENS} new tokens (seeded weights)")
+    cfg = registry.get_config(LM_ARCH)
+    reset(libs)
+    rep = {}
+    gen = serve.main(serve_argv(), report=rep)
+    launches = {lib.name: lib.launches for lib in libs}
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.n_layers
+    dec = statistics.median(rep["decode_ms"])
+    peak = rep["peak_bytes"] / 2 ** 30
+    print(f"params {registry.param_count(cfg)} ({cfg.param_dtype}); init "
+          f"{rep['init_s']:.2f} s; prefill {rep['prefill_ms']:.2f} ms; "
+          f"decode {dec:.3f} ms/token (median of {len(rep['decode_ms'])}; "
+          f"min {min(rep['decode_ms']):.3f}, max "
+          f"{max(rep['decode_ms']):.3f}), {LM_BATCH / dec * 1e3:.1f} "
+          f"tokens/s; peak memory {peak:.2f} GiB [{smi}]")
+    print(f"launches {launches} (want {cfg.n_layers} flash, one per layer "
+          f"of the one prefill, none in decode)")
+    check(launches == want, "serve: 16 flash launches, nothing else")
+    check(gen.shape == (LM_BATCH, LM_TOKENS) and all(
+        bool(torch.isfinite(x).all()) for x in rep["logits"]),
+          "serve: tokens of the right shape, finite logits")
+    params = rep.pop("params")
+    reset(libs)
+    rep2 = {}
+    gen2 = serve.main(serve_argv(), params=params, report=rep2)
+    same = torch.equal(gen, gen2)
+    print(f"second run, same weights: tokens bitwise equal {same}; prefill "
+          f"{rep2['prefill_ms']:.2f} ms, decode "
+          f"{statistics.median(rep2['decode_ms']):.3f} ms/token [{smi}]")
+    check(same and fa_ops.LIBRARY.launches == cfg.n_layers,
+          "serve: bitwise reproducible tokens")
+    rep2["params"] = params
+    score_spread(params, cfg, jr.randint(jr.key(1, "cuda"), (1, 256), 0,
+                                         cfg.vocab_size))
+
+    # prefill(S) then decode_step(token S) against prefill(S + 1): held at
+    # full width on the first CONSIST_LAYERS layers; all 16 printed
+    toks = jr.randint(jr.key(2, "cuda"), (LM_BATCH, LM_PROMPT + 1), 0,
+                      cfg.vocab_size)
+    for depth in (CONSIST_LAYERS, cfg.n_layers):
+        lm = registry.build(dataclasses.replace(cfg, n_layers=depth))
+        stacks = params["layers"]
+        cut = dict(params, layers={
+            blk: {name: w[:depth] for name, w in leaves.items()}
+            for blk, leaves in stacks.items()})
+        reset(libs)
+        _, state = lm.prefill(cut, {"tokens": toks[:, :-1]},
+                              cache_len=LM_PROMPT + 1)
+        n_pre = fa_ops.LIBRARY.launches
+        dec_logits, _ = lm.decode_step(cut, state, toks[:, -1:])
+        n_dec = fa_ops.LIBRARY.launches - n_pre
+        del state
+        full_logits, _ = lm.prefill(cut, {"tokens": toks})
+        e = rel(dec_logits, full_logits)
+        agree = float((dec_logits.argmax(-1) == full_logits.argmax(-1))
+                      .float().mean())
+        held = depth == CONSIST_LAYERS
+        print(f"{depth} layers: prefill({LM_PROMPT}) + decode vs "
+              f"prefill({LM_PROMPT + 1}): max |diff| / max |logit| {e:.2e}"
+              + (f" (tol {TOL_LM_CONSIST})" if held else " (not held: the "
+                 "seeded network's depth amplifies rounding)")
+              + f", argmax agreement {agree:.2f}; flash launches {n_pre} in "
+              f"prefill, {n_dec} in decode")
+        check(n_pre == depth and n_dec == 0,
+              "flash: one launch per layer per prefill, none in decode")
+        check(e <= TOL_LM_CONSIST or not held,
+              "prefill + decode agrees with prefill(S+1)")
+    return rep2, launches
+
+
+def breakdown_serve(rep, smi: str) -> None:
+    """Where a full-width prefill's time goes, from one profiled call:
+    the flash kernel, the matmuls, the rest; the busy share against the
+    unprofiled prefill time of the second (warm) serve run, ``rep``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random as jr
+    from repro_torch.models import registry
+    phase("21b where a prefill's time goes")
+    cfg = registry.get_config(LM_ARCH)
+    lm, params = registry.build(cfg), rep["params"]
+    toks = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
+                      cfg.vocab_size)
+    lm.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm.prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    groups = {"flash_attention kernel": 0.0, "matmuls (cuBLAS)": 0.0,
+              "the rest": 0.0}
+    for e in kernels:
+        name = e.name.lower()
+        if "flash_attention_kernel" in name:
+            key = "flash_attention kernel"
+        elif re.search(r"gemm|nvjet|xmma|cutlass|sm90_", name):
+            key = "matmuls (cuBLAS)"
+        else:
+            key = "the rest"
+        groups[key] += e.device_time_total / 1e3
+    busy = sum(groups.values())
+    for key, ms in groups.items():
+        print(f"{key}: {ms:.3f} ms device ({ms / busy:.3f} of kernel time)")
+    print(f"device kernel time {busy:.3f} ms of a {rep['prefill_ms']:.3f} ms "
+          f"prefill: busy share {busy / rep['prefill_ms']:.3f} [{smi}]")
+    norm_cost(cfg, smi)
+
+
+def norm_cost(cfg, smi: str) -> None:
+    """``apply_norm`` (float32 statistics) against the float64-statistics
+    form the port first used for bitwise bf16 parity with XLA on the CPU
+    (each mean summed in float64, rsqrt through float64, each rounded
+    once), at the prefill and the decode shape: device time from graph
+    replays and host time per call, times the 2 L + 1 norms of a pass."""
+    from repro_torch.models import layers as L
+
+    def f64_stats(x):
+        x32 = x.float()
+        d = x32 - x32.double().mean(-1, keepdim=True).float()
+        var = (d * d).double().mean(-1, keepdim=True).float()
+        return (d * torch.rsqrt((var + 1e-5).double()).float()).to(x.dtype)
+    n = 2 * cfg.n_layers + 1
+    for s in (LM_PROMPT, 1):
+        x = torch.randn((LM_BATCH, s, cfg.d_model), device="cuda").to(
+            torch.bfloat16)
+        got = {}
+        for tag, fn in (("float32", lambda: L.apply_norm({}, cfg, x)),
+                        ("float64", lambda: f64_stats(x))):
+            got[tag] = (graph_ms(fn, calls=10), host_ms(fn, n=200))
+        print(f"norm statistics at ({LM_BATCH}, {s}, {cfg.d_model}) x {n} "
+              "per pass: " + ", ".join(
+                  f"{tag} {dev * n:.3f} ms device, {host * n:.3f} ms host"
+                  for tag, (dev, host) in got.items()) + f" [{smi}]")
+
+
+def serve_against_cpu():
+    """The smoke configs at float32 dtypes on the card (kernel) and on
+    the CPU (plain): identical tokens, logits within TOL_LM_CPU."""
+    phase("22 LM serving: card vs CPU (olmo-smoke, phi3-smoke, float32)")
+    from repro_torch.launch import serve
+    for arch in ("olmo_1b", "phi3_medium_14b"):
+        argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+                "16", "--tokens", "8", "--override", "compute_dtype=float32",
+                "cache_dtype=float32", "reduce_dtype=float32"]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            rep = {}
+            gen = serve.main(argv + ["--device", dev], report=rep)
+            runs[dev] = (gen.cpu(), torch.stack(rep["logits"]).cpu())
+        same = torch.equal(runs["cuda"][0], runs["cpu"][0])
+        e = rel(runs["cuda"][1], runs["cpu"][1])
+        print(f"{arch} smoke: tokens identical {same}, logits max |diff| / "
+              f"max |logit| {e:.2e} (tol {TOL_LM_CPU})")
+        if not same:
+            top2 = runs["cpu"][1].topk(2, dim=-1).values
+            print(f"{arch} smoke: top-2 logit margins on the CPU "
+                  f"{(top2[..., 0] - top2[..., 1]).tolist()}")
+        check(same and e <= TOL_LM_CPU, f"{arch} smoke: the card makes the "
+                                        f"CPU's tokens")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1754,6 +2131,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.kernels.chain_forces import ops as chain_ops
     from repro_torch.kernels.exchange_matrix import ops as x_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_propagate import ops as fused_ops
     from repro_torch.kernels.lj_forces import ops as nb_ops
     from repro_torch.kernels.nlist_build import ops as nl_ops
@@ -1766,7 +2144,7 @@ def main() -> int:
     smi = environment()
     libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
             x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY,
-            nb_ops.LJ_FLUID_LIBRARY]
+            nb_ops.LJ_FLUID_LIBRARY, fa_ops.LIBRARY]
     build(libs)
 
     phase(f"3 kernels vs plain versions at N={N_ATOMS}, R=4 and R={R_MAIN}")
@@ -1833,9 +2211,20 @@ def main() -> int:
           f"{lj_runs['run']['ms']:.2f} [{smi}]")
     invariance_lj()
 
+    phase("19 fifth-slice kernel vs its plain version: flash attention, "
+          f"{len(fa_cases())} cases")
+    err5 = compare_fifth()
+    times5, bound5, lib_ms = timing_fifth(smi)
+    times.update(times5)
+    bound.update(bound5)
+    serve_rep, serve_launches = run_serve(libs, smi)
+    breakdown_serve(serve_rep, smi)
+    del serve_rep
+    serve_against_cpu()
+
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",
-             "lj_energy", "lj_forces")
+             "lj_energy", "lj_forces", "flash_attention")
     src_of = {
         "chain_forces": "src/repro_torch/kernels/chain_forces/csrc/"
                         "chain_forces.cu",
@@ -1851,7 +2240,9 @@ def main() -> int:
         "nlist_build": "src/repro_torch/kernels/nlist_build/csrc/"
                        "nlist_build.cu",
         "lj_energy": "src/repro_torch/kernels/lj_forces/csrc/lj_fluid.cu",
-        "lj_forces": "src/repro_torch/kernels/lj_forces/csrc/lj_fluid.cu"}
+        "lj_forces": "src/repro_torch/kernels/lj_forces/csrc/lj_fluid.cu",
+        "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention.cu"}
     replaces = {
         "chain_forces": "src/repro/kernels/chain_forces/kernel.py:190",
         "chain_forces_bias": "src/repro/kernels/chain_forces/kernel.py:190",
@@ -1863,7 +2254,8 @@ def main() -> int:
         # build (maybe_rebuild)
         "nlist_build": "src/repro/md/neighbors.py:346",
         "lj_energy": "src/repro/kernels/lj_forces/kernel.py:94",
-        "lj_forces": "src/repro/kernels/lj_forces/kernel.py:116"}
+        "lj_forces": "src/repro/kernels/lj_forces/kernel.py:116",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85"}
     counts = {"chain_forces": launches["chain_forces"],
               "nonbonded": launches["nonbonded"],
               "chain_forces_bias": bias_launches,
@@ -1877,15 +2269,17 @@ def main() -> int:
               "lj_energy": sum(r["variants"]["energy"]
                                for r in lj_runs.values()),
               "lj_forces": sum(r["variants"]["forces"]
-                               for r in lj_runs.values())}
+                               for r in lj_runs.values()),
+              "flash_attention": serve_launches["flash_attention"]}
     errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3,
-                **errs4)
+                **errs4, flash_attention=err5)
+    library = {"flash_attention": lib_ms}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src_of[name],
          "replaces": replaces[name], "launches": counts[name],
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bound[name][0],
-         "bound_by": bound[name][1], "library_ms": None}
+         "bound_by": bound[name][1], "library_ms": library.get(name)}
         for name in names]}
     print(f"total seconds {time.perf_counter() - t_start:.1f}")
     print(smi)

@@ -1,6 +1,6 @@
 """Carry state across from the JAX package into the port.
 
-Both functions take plain host arrays (anything ``np.asarray`` accepts,
+The MD functions take plain host arrays (anything ``np.asarray`` accepts,
 JAX arrays included), so the port imports nothing of JAX: the caller
 hands over ``jax.random.key_data(ens.rng)`` for the driver key.  The
 caller names the device: like every entry point of the port, nothing
@@ -64,3 +64,25 @@ def ensemble_from_arrays(ens, rng_key_data, device) -> Ensemble:
         failures=t(ens.failures, torch.int64),
         relaunches=t(ens.relaunches, torch.int64),
     )
+
+
+def _lm_leaf(x, device) -> torch.Tensor:
+    """One leaf, same shape and dtype; bfloat16 (numpy's ml_dtypes, which
+    torch cannot read) through float32, exactly."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_arrays(tree, device):
+    """An LM parameter tree (nested dicts of host arrays, the JAX
+    package's ``init_params`` output) as the port's, same keys, shapes
+    and dtypes."""
+    return tree_map(lambda x: _lm_leaf(x, device), dict(tree))
+
+
+# an LM decode state (``index`` and the stacked ``cache``) converts leaf
+# by leaf the same way
+lm_state_from_arrays = lm_params_from_arrays

@@ -19,6 +19,10 @@
                     TPU counterpart (the JAX package builds the list with
                     jnp under ``lax.cond``), it is the port's form of that
                     cond.
+  flash_attention — causal / sliding-window attention, forward only,
+                    the model layout with grouped kv heads; replaces
+                    ``flash_attention_kernel``.  Every prefill attention
+                    of the LM on the card.
 
 Each subpackage: ``csrc/*.cu`` (CUDA C++ for ``sm_90a`` with a plain C
 entry point), ``ops.py`` (the ctypes wrappers with their launch counters,

@@ -18,6 +18,8 @@ module re-implements the pieces that path uses, following the installed
                      float32 ``erf_inv`` polynomial (M. Giles), ``* sqrt 2``
   permutation        ``_shuffle``: stable sorts of ``arange(n)`` by
                      32-bit random keys
+  randint            ``_randint`` for int32: two words per value from a
+                     split key, folded into the span with a modulus
 
 For ``normal`` to match bit for bit, the pieces XLA's CPU backend
 computes differently from PyTorch are mirrored too: its ``log1p`` and
@@ -78,9 +80,10 @@ def _words(keys: torch.Tensor, n_new: int):
     return keys[..., 0].reshape(shape), keys[..., 1].reshape(shape)
 
 
-def _counters(n: int, device):
-    """The flat 64-bit counters 0 .. n-1 as (high, low) uint32 words."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def _counters(n: int, device, offset: int = 0):
+    """The flat 64-bit counters offset .. offset+n-1 as (high, low)
+    uint32 words."""
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return idx >> 32, idx & _M32
 
 
@@ -102,12 +105,17 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
-    """32-bit random words: (..., 2) keys -> (..., *shape) int64."""
+def random_bits(keys: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
+    """32-bit random words: (..., 2) keys -> (..., *shape) int64.
+
+    ``offset`` starts the flat counters there: the words of elements
+    ``offset .. offset + prod(shape) - 1`` of a larger draw from the same
+    key, bitwise (each element's words depend on its flat index alone),
+    so a large draw can be made in slices."""
     shape = tuple(shape)
     n = math.prod(shape)
     k1, k2 = _words(keys, 1)
-    hi, lo = _counters(n, keys.device)
+    hi, lo = _counters(n, keys.device, offset)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
     return (b1 ^ b2).reshape(keys.shape[:-1] + shape)
 
@@ -251,3 +259,23 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         bits = random_bits(sub, (n,))
         x = x[torch.sort(bits, stable=True).indices]
     return x
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 (the
+    default dtype), bitwise: words ``hi`` and ``lo`` from the two halves
+    of ``split(key)``, then ``minval + ((hi % span) * m + lo % span) %
+    span`` with ``m = (2^16 % span)^2 % span``, every product and sum
+    wrapping at 2^32 as uint32 does (so m = 0 for spans above 2^16).
+    Returns int64 values."""
+    minval, maxval = int(minval), int(maxval)
+    if not -2 ** 31 <= minval <= maxval < 2 ** 31:
+        raise ValueError(f"randint bounds must be int32 with minval <= "
+                         f"maxval, got {minval}, {maxval}")
+    span = max(maxval - minval, 1)
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    mult = (((2 ** 16 % span) ** 2) & _M32) % span
+    offset = ((((higher % span) * mult) & _M32) + lower % span) & _M32
+    return minval + offset % span

@@ -16,7 +16,11 @@ contraction).  The sparse kernel is held to its plain version like the
 nonbonded kernel; the neighbor-list build kernel bitwise, in both states
 of its device flag (it forms r2 without FMA contraction).  The LJ fluid
 kernels are held to their plain versions like the nonbonded kernel, the
-gradient of ``LJEnergy`` bitwise to minus the forces kernel.
+gradient of ``LJEnergy`` bitwise to minus the forces kernel.  The flash
+attention kernel per element within 5e-5 of max |out| of its plain
+version (the online softmax sums in another order), plus in bfloat16 one
+rounding step, 2^-7 of the element (each side rounds its float32 value
+once); one launch per layer of a prefill and none in decode.
 """
 import numpy as np
 import pytest
@@ -501,3 +505,76 @@ def test_lj_run_equals_run_fused_on_the_card():
         assert (hf["accept"], hf["attempt"], hf["failed"]) == \
             (hr["accept"], hr["attempt"], hr["failed"])
     assert torch.equal(ens.state["pos"], fused_ens.state["pos"])
+
+
+# -- flash attention (LM serving) -------------------------------------------
+
+
+def _qkv(dtype, b, s, h, g, d, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((b, s, h, d), (b, s, g, d), (b, s, g, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 64)])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("s,d", [(16, 16), (100, 64), (257, 128),
+                                 (130, 80), (2048, 128)])
+def test_flash_attention_matches_plain_version(dtype, causal, window, rep,
+                                               s, d):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v = _qkv(dtype, 2, s, 8, 8 // rep, d)
+    got = fa_ops.flash_attention_kernel(q, k, v, causal=causal,
+                                        window=window)
+    want = fa_ops.ref.attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    got, want = got.float(), want.float()
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    allow = rtol * want.abs() + 5e-5 * want.abs().max()
+    assert bool(((got - want).abs() <= allow).all())
+
+
+def test_flash_attention_wrapper_contract():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v = _qkv(torch.bfloat16, 1, 64, 4, 2, 32)
+    n0 = fa_ops.LIBRARY.launches
+    first = fa_ops.flash_attention(q, k, v)
+    second = fa_ops.flash_attention(q, k, v)
+    assert fa_ops.LIBRARY.launches == n0 + 2 and torch.equal(first, second)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_ops.flash_attention_kernel(q.cpu(), k.cpu(), v.cpu())
+    for bad in ((q.float(), k, v), (q, k[:, :, :1].expand(-1, -1, 3, -1)
+                                    .contiguous(), v)):
+        with pytest.raises(ValueError):
+            fa_ops.flash_attention_kernel(*bad)
+
+
+def _smoke_lm(**kw):
+    import dataclasses
+    from repro_torch.models import registry
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(registry.get_smoke_config("phi3_medium_14b"),
+                              **kw)
+    lm = registry.build(cfg)
+    return cfg, lm, init_params(jr.key(0, "cuda"), lm.param_defs())
+
+
+def test_prefill_launches_one_flash_kernel_per_layer():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cfg, lm, params = _smoke_lm()
+    tokens = jr.randint(jr.key(1, "cuda"), (2, 20), 0, cfg.vocab_size)
+    n0 = fa_ops.LIBRARY.launches
+    logits, state = lm.prefill(params, {"tokens": tokens}, cache_len=24)
+    assert fa_ops.LIBRARY.launches == n0 + cfg.n_layers
+    lm.decode_step(params, state, tokens[:, :1])
+    assert fa_ops.LIBRARY.launches == n0 + cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_softcap_raises_on_the_card():
+    cfg, lm, params = _smoke_lm(logit_softcap=30.0)
+    tokens = jr.randint(jr.key(1, "cuda"), (2, 16), 0, cfg.vocab_size)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        lm.prefill(params, {"tokens": tokens})
