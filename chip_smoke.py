@@ -30,7 +30,9 @@ printed on its own lines:
   7. kernels      the fused BAOAB kernel (bias off, bias on, salt on), the
                   bonded kernel's bias variant and the exchange-matrix
                   kernel against their plain versions at N = 2881, R = 4
-                  and R = 384; then each timed at R = 384 as in phase 4
+                  and R = 384; then each timed at R = 384 as in phase 4,
+                  the fused kernel beside its time before the Newton's
+                  third law design (BEFORE_MS) and its bound
   8. TSU slice    the paper's grid, temperature x umbrella(phi) x
                   umbrella(psi) = 6 x 8 x 8 = 384 replicas at 2881 atoms,
                   ``force_path="fused"``, 10 MD steps per cycle,
@@ -93,10 +95,15 @@ printed on its own lines:
                   bfloat16; causal, non-causal, causal with a window of
                   64; 1, 2, 4 and 8 query heads per kv head; S = T = 16,
                   100, 2048; D = 16, 64, 128) and at OLMo-1B's prefill
-                  shape (4, 2048, 16, 128) in bfloat16
+                  shape (4, 2048, 16, 128) in bfloat16, then 32 softcap
+                  cases (c = 30, scores scaled up so the cap bites; float32
+                  and bfloat16; causal and windowed); the launches by
+                  variant ("bf16_tc" on the tensor cores, "f32")
  20. timing       the kernel at that shape as in phase 4, with PyTorch's
                   ``scaled_dot_product_attention`` on the same tensors as
-                  the yardstick call, and the bound
+                  the yardstick call (and the share of phase 19's
+                  allowance its output uses, printed only), the bound and
+                  the kernel's time before the tensor-core design
  21. serve        ``repro_torch.launch.serve.main`` on OLMo-1B at full
                   width (seeded weights): 4 prompts of 2048 tokens, 32
                   greedy tokens; init, prefill and decode times, peak
@@ -248,6 +255,15 @@ CONSIST_LAYERS = 2
 # The smoke configs at float32 dtypes, card (kernel) vs CPU (plain), of
 # max |logit|: the same float32 formulas, summed in another order.
 TOL_LM_CPU = 1e-4
+# The softcap of phase 19's added cases, and the factor on q that takes
+# the scores (std ~1 on unit normals) to where the cap bites.
+FA_SOFTCAP, FA_SOFTCAP_Q = 30.0, 20.0
+# Kernel times before the current designs, at the same shapes: kernel 3
+# (fused BAOAB, R = 384, N = 2881; every ordered pair, divisions) and
+# kernel 8 (flash attention, OLMo-1B prefill shape, bf16 on the CUDA
+# cores), measured by this script on an NVIDIA H100 80GB HBM3 at 700 W
+# as PERF.md section 6 records them; printed beside this run's times.
+BEFORE_MS = {"fused_baoab": 9.3263, "flash_attention": 5.3706}
 # The H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the
 # attention's products take bf16 operands.
 BF16_TC_FLOPS_PER_S = 989e12
@@ -365,7 +381,8 @@ def build(libs) -> None:
         list(pool.map(lambda lib: lib.load(), libs))
     for lib in libs:
         regs = [ln.strip() for ln in lib.build_log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "warning" in ln.lower() or "Performance" in ln]
         took = ("cached" if lib.build_seconds is None
                 else f"nvcc {lib.build_seconds:.1f} s")
         print(f"{lib.name}: {took} -> {lib.path.name}")
@@ -757,6 +774,14 @@ def timing_second(engine, d, smi: str):
     return res
 
 
+def before_and_bound(name: str, k_ms: float, bound) -> None:
+    """A redesigned kernel's time beside its time before and its bound."""
+    print(f"{name}: {k_ms:.4f} ms now, {BEFORE_MS[name]:.4f} ms before "
+          f"(PERF.md), bound {bound[name][0]:.5f} ms: "
+          f"{BEFORE_MS[name] / k_ms:.2f}x faster, {k_ms / bound[name][0]:.2f}"
+          f"x the bound")
+
+
 def bounds_second(engine, n_rep: int):
     """(bound_ms, bound_by) of the second slice's kernels at R = C =
     ``n_rep``, from this run's data, as in ``bounds``."""
@@ -774,10 +799,12 @@ def bounds_second(engine, n_rep: int):
     rows = n_rep * 8 * 4
     n_pairs = int(nb.mask_u8.to(torch.int64).sum()) // 2
     work = {
-        # pos, vel, noise in; step and bias rows; tables, atom rows, mask,
-        # masses; new pos and vel out
+        # pos, vel, noise in; step and bias rows; tables, atom rows, the
+        # mask (as the pack's bits and per-tile flags), masses; new pos and
+        # vel out
         "fused_baoab": (3 * stack + 2 * rows + tables + 4 * n * 4
-                        + nb.mask_u8.numel() + 2 * stack,
+                        + nb.mask_bits.numel() * 4 + nb.tile_kept.numel()
+                        + 2 * stack,
                         n_rep * (n_pairs * PAIR_FORCE_OPS + bonded_ops
                                  + BIAS_OPS + n * ATOM_UPDATE_OPS)),
         "chain_forces_bias": (2 * stack + rows + tables + n_rep * 4,
@@ -1803,16 +1830,25 @@ def invariance_lj():
 
 
 def fa_cases():
-    """Phase 19's cases: (dtype, mask, H / G, S = T, D, B, H)."""
+    """Phase 19's cases: (dtype, mask, H / G, S = T, D, B, H, softcap)."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for causal, window in ((True, 0), (False, 0), (True, 64)):
             for rep in (1, 2, 4, 8):
                 for s in (16, 100, 2048):
                     for d in (16, 64, 128):
-                        cases.append((dtype, causal, window, rep, s, d, 1, 8))
+                        cases.append((dtype, causal, window, rep, s, d, 1, 8,
+                                      0.0))
     # the OLMo-1B prefill shape
-    cases.append((torch.bfloat16, True, 0, 1, LM_PROMPT, 128, LM_BATCH, 16))
+    cases.append((torch.bfloat16, True, 0, 1, LM_PROMPT, 128, LM_BATCH, 16,
+                  0.0))
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (0, 64):
+            for rep in (1, 4):
+                for s in (100, 2048):
+                    for d in (64, 128):
+                        cases.append((dtype, True, window, rep, s, d, 1, 8,
+                                      FA_SOFTCAP))
     return cases
 
 
@@ -1840,20 +1876,24 @@ def compare_fifth():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     worst, used = {}, {}
     err_olmo = None
-    for dtype, causal, window, rep, s, d, b, h in fa_cases():
+    fa_ops.LIBRARY.reset()
+    for dtype, causal, window, rep, s, d, b, h, cap in fa_cases():
         q, k, v = fa_inputs(dtype, rep, s, d, b, h)
+        if cap:
+            q = FA_SOFTCAP_Q * q
         got = fa_ops.flash_attention_kernel(q, k, v, causal=causal,
-                                            window=window)
-        want = fa_ops.ref.attention(q, k, v, causal=causal, window=window)
+                                            window=window, softcap=cap)
+        want = fa_ops.ref.attention(q, k, v, causal=causal, window=window,
+                                    softcap=cap)
         e = rel(got.float(), want.float())
         u = fa_allowance_used(got, want, dtype)
         tag = (f"{str(dtype)[6:]} causal={causal} window={window} H/G={rep} "
-               f"S=T={s} D={d} B={b} H={h}")
+               f"S=T={s} D={d} B={b} H={h} softcap={cap}")
         check(got.dtype == dtype and bool(torch.isfinite(got).all())
               and u <= 1.0, f"flash_attention vs plain: {tag}: {u:.3f} of "
                             f"the allowance (max |diff| / max |plain| "
                             f"{e:.2e})")
-        key = str(dtype)[6:]
+        key = str(dtype)[6:] + (f" softcap {cap}" if cap else "")
         worst[key] = max(worst.get(key, 0.0), e)
         used[key] = max(used.get(key, 0.0), u)
         if (b, s, h, d) == (LM_BATCH, LM_PROMPT, 16, 128):
@@ -1869,6 +1909,13 @@ def compare_fifth():
           f"worst share of the per-element allowance {used} (|diff| <= "
           f"{RTOL_FA[torch.bfloat16]:.4g} |plain| in bfloat16, 0 in "
           f"float32, + {TOL_FA_F32} max |plain|)")
+    n = len(fa_cases())
+    n_bf16 = sum(c[0] == torch.bfloat16 for c in fa_cases())
+    print(f"launches by variant {fa_ops.LIBRARY.variants} (want bf16_tc "
+          f"{n_bf16}, f32 {n - n_bf16})")
+    check(fa_ops.LIBRARY.variants == {"bf16_tc": n_bf16, "f32": n - n_bf16},
+          "flash_attention: bfloat16 on the tensor-core variant, float32 "
+          "on the f32 variant")
     return err_olmo
 
 
@@ -1909,15 +1956,23 @@ def timing_fifth(smi: str):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                               enable_gqa=True)
     lib_ms = graph_ms(sdpa, calls=5)
-    e_lib = rel(sdpa().transpose(1, 2).float(), fa_ops.ref.attention(
-        q, k, v).float())
+    want = fa_ops.ref.attention(q, k, v)
+    lib_out = sdpa().transpose(1, 2)
+    e_lib = rel(lib_out.float(), want.float())
+    u_lib = fa_allowance_used(lib_out, want, torch.bfloat16)
+    u_k = fa_allowance_used(fa_ops.flash_attention_kernel(q, k, v), want,
+                            torch.bfloat16)
     print(f"flash_attention: kernel {k_ms:.4f} ms device (graph replay), "
           f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms, "
           f"scaled_dot_product_attention {lib_ms:.4f} ms device (graph "
           f"replay; vs plain {e_lib:.2e}) [{smi}]")
+    print(f"share of phase 19's per-element allowance used at this shape: "
+          f"kernel {u_k:.3f}, scaled_dot_product_attention {u_lib:.3f} "
+          f"(printed, not checked)")
     bound = bounds_fifth(LM_BATCH, LM_PROMPT, 16, 16, 128, 2)
     print(f"flash_attention: {bound['flash_attention'][0] / k_ms:.4f} of "
           f"its bound, {lib_ms / k_ms:.3f} x the library call's time")
+    before_and_bound("flash_attention", k_ms, bound)
     return {"flash_attention": (k_ms, p_ms)}, bound, lib_ms
 
 
@@ -1964,6 +2019,7 @@ def run_serve(libs, smi: str):
     launches = {lib.name: lib.launches for lib in libs}
     want = dict.fromkeys(launches, 0)
     want["flash_attention"] = cfg.n_layers
+    variants = dict(fa_ops.LIBRARY.variants)
     dec = statistics.median(rep["decode_ms"])
     peak = rep["peak_bytes"] / 2 ** 30
     print(f"params {registry.param_count(cfg)} ({cfg.param_dtype}); init "
@@ -1972,9 +2028,11 @@ def run_serve(libs, smi: str):
           f"min {min(rep['decode_ms']):.3f}, max "
           f"{max(rep['decode_ms']):.3f}), {LM_BATCH / dec * 1e3:.1f} "
           f"tokens/s; peak memory {peak:.2f} GiB [{smi}]")
-    print(f"launches {launches} (want {cfg.n_layers} flash, one per layer "
-          f"of the one prefill, none in decode)")
-    check(launches == want, "serve: 16 flash launches, nothing else")
+    print(f"launches {launches}, flash by variant {variants} (want "
+          f"{cfg.n_layers} flash on bf16_tc, one per layer of the one "
+          f"prefill, none in decode)")
+    check(launches == want and variants == {"bf16_tc": cfg.n_layers},
+          "serve: 16 flash launches on the tensor cores, nothing else")
     check(gen.shape == (LM_BATCH, LM_TOKENS) and all(
         bool(torch.isfinite(x).all()) for x in rep["logits"]),
           "serve: tokens of the right shape, finite logits")
@@ -2168,6 +2226,7 @@ def main() -> int:
     errs2, inputs = compare_second(tsu, grid, R_TSU, f"R={R_TSU}")
     times.update(timing_second(tsu, inputs, smi))
     bound.update(bounds_second(tsu, R_TSU))
+    before_and_bound("fused_baoab", times["fused_baoab"][0], bound)
     del inputs
 
     runs = run_tsu(libs, smi)

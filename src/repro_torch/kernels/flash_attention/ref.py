@@ -6,8 +6,8 @@ the GQA expansion of its ``ops.flash_attention`` folded in: query head
 ``h`` reads kv head ``h // (H / G)``, as ``jnp.repeat(k, H // G, axis=2)``
 maps it.  ``attention`` is also the model's one plain attention body
 (``models.layers.full_attention``): its ``kv_len`` (decode's cache
-length) and ``softcap`` go beyond the kernel's function, and the
-kernel's wrapper never passes them.
+length) goes beyond the kernel's function, and the kernel's wrapper
+never passes it.
 """
 from __future__ import annotations
 

@@ -38,7 +38,7 @@ from repro_torch.md import noise as NZ
 LIBRARY = KernelLibrary(
     "fused_baoab", Path(__file__).parent / "csrc" / "fused_baoab.cu")
 
-_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 4 + [ctypes.c_void_p])
 
 
@@ -57,19 +57,21 @@ def fused_baoab_batched(pos, vel, noise, st, bias: Optional[torch.Tensor],
                         cpack, npack, masses, c1: float, dt: float):
     """The kernel: CUDA (R, N, 3) pos / vel / pre-scaled noise, (R, 8)
     step rows, (R, 8) bias rows or None -> (new pos, new vel) in one
-    launch; anything else raises."""
+    launch (one block per replica, its force rows in shared memory: N up
+    to about 15,000 atoms); anything else raises."""
     r, n, _ = pos.shape
     tables = (cpack.bonds, cpack.bond_par, cpack.angles, cpack.ang_par,
               cpack.quads, cpack.quad_par, cpack.slot_idx, cpack.slot_sign,
-              npack.lj_sigma, npack.sqrt_eps, npack.charges, npack.mask_u8,
-              masses)
+              npack.lj_sigma, npack.sqrt_eps, npack.charges,
+              npack.mask_bits, npack.tile_kept, masses)
     stacks = (pos, vel, noise, st) + (() if bias is None else (bias,))
     check_cuda(stacks + tables,
                ("pos", "vel", "noise", "step_par")
                + (() if bias is None else ("bias",))
                + ("bonds", "bond_par", "angles", "ang_par", "quads",
                   "quad_par", "slot_idx", "slot_sign", "lj_sigma",
-                  "sqrt_eps", "charges", "mask_u8", "masses"))
+                  "sqrt_eps", "charges", "mask_bits", "tile_kept",
+                  "masses"))
     for name, t, shape in (("pos", pos, (r, cpack.n_atoms, 3)),
                            ("vel", vel, (r, n, 3)),
                            ("noise", noise, (r, n, 3)),
@@ -79,13 +81,18 @@ def fused_baoab_batched(pos, vel, noise, st, bias: Optional[torch.Tensor],
                               or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    ld = npack.mask_bits.shape[0]
+    smem = LIBRARY.function("fused_baoab_smem_bytes", [ctypes.c_int])
+    if smem(ld) == 0:
+        raise ValueError(f"{n} atoms: the replica's force rows do not fit "
+                         f"in one block's shared memory")
     fn = LIBRARY.function("fused_baoab_launch", _ARGTYPES)
     npos = torch.empty_like(pos)
     nvel = torch.empty_like(vel)
     ptrs = [t.data_ptr() for t in (pos, vel, noise, st)]
     ptrs += [None if bias is None else bias.data_ptr()]
     ptrs += [t.data_ptr() for t in tables + (npos, nvel)]
-    code = fn(*ptrs, r, n, npack.mask_u8.shape[1], cpack.bonds.shape[0],
+    code = fn(*ptrs, r, n, ld, cpack.bonds.shape[0],
               cpack.angles.shape[0], cpack.quads.shape[0],
               cpack.top.edge_width, cpack.slots.n_slots, nb_ref.COULOMB, c1,
               0.5 * dt * I.AKMA, 0.5 * dt, stream_ptr())

@@ -13,9 +13,11 @@ configuration through an R = 1 launch.
 The chain nonbonded kernels:
 
 ``build_pack(system)`` keeps the system's per-atom parameters and builds
-what the CUDA kernel reads, once: the sqrt(eps) row and a uint8 copy of
+what the CUDA kernels read, once: the sqrt(eps) row and a uint8 copy of
 the 0/1 exclusion mask (8.7 MB at N = 2881 instead of the 34.7 MB f32
-mask, so it stays in the 50 MB L2 while every replica re-reads it).
+mask, so it stays in the 50 MB L2 while every replica re-reads it); for
+the fused kernel the same mask as 32-bit rows of bits and a flag per
+pair of 64-atom tiles that no exclusion touches (``tile_flags``).
 
 ``nonbonded_force`` is the one MD-facing entry point: a CUDA stack goes
 through the kernel (``nonbonded_batched``, which launches
@@ -149,6 +151,7 @@ LIBRARY = KernelLibrary(
     "nonbonded", Path(__file__).parent / "csrc" / "nonbonded.cu")
 
 TILE = 128          # atoms per tile; must match kTile in nonbonded.cu
+PAIR_TILE = 64      # atoms per tile of the fused kernel; kFT in fused_baoab.cu
 
 
 class NonbondedPack(NamedTuple):
@@ -159,6 +162,24 @@ class NonbondedPack(NamedTuple):
     sqrt_eps: torch.Tensor    # (N,) f32: eps_ij = sqrt_eps_i * sqrt_eps_j
     mask_u8: torch.Tensor     # (N, ld) uint8 copy of nb_mask, zero-padded
                               # to ld = a whole number of tiles
+    mask_bits: torch.Tensor   # (ld, ld / 32) int32: bit b of word w in row
+                              # i is mask_u8[i, 32 w + b]; rows >= N zero
+    tile_kept: torch.Tensor   # (ld / 64, ld / 64) uint8: 1 where a tile
+                              # pair holds only kept pairs of real atoms
+
+
+def tile_flags(mask_u8: torch.Tensor, tile: int = PAIR_TILE):
+    """(mask bits, all-kept flags) of an (N, ld) uint8 mask, ld a multiple
+    of ``tile`` and of 32, padded with zero rows to (ld, ld): a tile pair
+    at the ragged edge or holding an exclusion is not all kept."""
+    n, ld = mask_u8.shape
+    full = torch.zeros((ld, ld), dtype=torch.uint8, device=mask_u8.device)
+    full[:n] = mask_u8
+    words = sum(full[:, b::32].to(torch.int64) << b for b in range(32))
+    bits = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    nt = ld // tile
+    kept = full.reshape(nt, tile, nt, tile).amin(dim=(1, 3))
+    return bits.to(torch.int32), kept
 
 
 def build_pack(system) -> NonbondedPack:
@@ -167,11 +188,13 @@ def build_pack(system) -> NonbondedPack:
     mask_u8 = torch.zeros((n, ld), dtype=torch.uint8,
                           device=system.nb_mask.device)
     mask_u8[:, :n] = system.nb_mask.to(torch.uint8)
+    mask_bits, tile_kept = tile_flags(mask_u8)
     return NonbondedPack(
         lj_sigma=system.lj_sigma.contiguous(),
         lj_eps=system.lj_eps.contiguous(),
         charges=system.charges.contiguous(), nb_mask=system.nb_mask,
-        sqrt_eps=torch.sqrt(system.lj_eps).contiguous(), mask_u8=mask_u8)
+        sqrt_eps=torch.sqrt(system.lj_eps).contiguous(), mask_u8=mask_u8,
+        mask_bits=mask_bits, tile_kept=tile_kept)
 
 
 def _plain_block(pos, pack: NonbondedPack):

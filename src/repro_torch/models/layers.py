@@ -26,7 +26,7 @@ from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.kernels import default_use_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 # full_attention, the plain O(S^2) attention, is the kernel's plain
-# version, which also takes decode's kv_len and the softcap
+# version, which also takes decode's kv_len
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, attention as full_attention, mask as _mask)
 from repro_torch.models.params import ParamDef, dense
@@ -209,11 +209,8 @@ def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         out = decode_attention(q, cache["k"].to(cd), cache["v"].to(cd),
                                kv_len=kv_len, softcap=cfg.logit_softcap)
     elif default_use_kernel(q):
-        if cfg.logit_softcap:
-            raise NotImplementedError(
-                "logit_softcap: the flash attention kernel has no softcap "
-                "(nor has the TPU kernel it replaces)")
-        out = flash_attention(q, k, v, causal=causal, window=cfg.window_size)
+        out = flash_attention(q, k, v, causal=causal, window=cfg.window_size,
+                              softcap=cfg.logit_softcap)
     elif x.shape[1] >= 8192:
         out = chunked_attention(q, k, v, causal=causal,
                                 window=cfg.window_size,

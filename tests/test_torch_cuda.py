@@ -20,7 +20,11 @@ gradient of ``LJEnergy`` bitwise to minus the forces kernel.  The flash
 attention kernel per element within 5e-5 of max |out| of its plain
 version (the online softmax sums in another order), plus in bfloat16 one
 rounding step, 2^-7 of the element (each side rounds its float32 value
-once); one launch per layer of a prefill and none in decode.
+once), with and without the softcap; one launch per layer of a prefill
+and none in decode, on the "bf16_tc" variant for bfloat16 and "f32" for
+float32; a softcapped prefill on the card within 1e-4 of max |logit| of
+the CPU's plain attention (float32: the same formulas summed in another
+order).
 """
 import numpy as np
 import pytest
@@ -190,7 +194,7 @@ def _fused_args(n_atoms, n_rep, bias, salt, seed=0):
 @pytest.mark.parametrize("i", [0, 1, 2])
 @pytest.mark.parametrize("bias,salt", [(False, False), (True, False),
                                        (False, True), (True, True)])
-@pytest.mark.parametrize("n_atoms", [130, 257])
+@pytest.mark.parametrize("n_atoms", [130, 257, 700])
 def test_fused_kernel_matches_plain_version(n_atoms, bias, salt, i):
     pos, vel, noise, b, cp, npk, m, n_steps, salt_col = _fused_args(
         n_atoms, 3, bias, salt)
@@ -522,13 +526,17 @@ def _qkv(dtype, b, s, h, g, d, seed=0):
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("s,d", [(16, 16), (100, 64), (257, 128),
                                  (130, 80), (2048, 128)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_flash_attention_matches_plain_version(dtype, causal, window, rep,
-                                               s, d):
+                                               s, d, softcap):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     q, k, v = _qkv(dtype, 2, s, 8, 8 // rep, d)
+    if softcap:
+        q = 20 * q                       # scores up to ~100: the cap bites
     got = fa_ops.flash_attention_kernel(q, k, v, causal=causal,
-                                        window=window)
-    want = fa_ops.ref.attention(q, k, v, causal=causal, window=window)
+                                        window=window, softcap=softcap)
+    want = fa_ops.ref.attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
     assert got.dtype == dtype and got.shape == q.shape
     got, want = got.float(), want.float()
     rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
@@ -539,14 +547,20 @@ def test_flash_attention_matches_plain_version(dtype, causal, window, rep,
 def test_flash_attention_wrapper_contract():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     q, k, v = _qkv(torch.bfloat16, 1, 64, 4, 2, 32)
-    n0 = fa_ops.LIBRARY.launches
-    first = fa_ops.flash_attention(q, k, v)
-    second = fa_ops.flash_attention(q, k, v)
-    assert fa_ops.LIBRARY.launches == n0 + 2 and torch.equal(first, second)
+    for x, variant in (((q, k, v), "bf16_tc"),
+                       ((q.float(), k.float(), v.float()), "f32")):
+        n0 = fa_ops.LIBRARY.launches
+        v0 = fa_ops.LIBRARY.variants.get(variant, 0)
+        first = fa_ops.flash_attention(*x)
+        second = fa_ops.flash_attention(*x)
+        assert fa_ops.LIBRARY.launches == n0 + 2
+        assert fa_ops.LIBRARY.variants[variant] == v0 + 2
+        assert torch.equal(first, second)
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention_kernel(q.cpu(), k.cpu(), v.cpu())
     for bad in ((q.float(), k, v), (q, k[:, :, :1].expand(-1, -1, 3, -1)
-                                    .contiguous(), v)):
+                                    .contiguous(), v),
+                _qkv(torch.bfloat16, 1, 16, 2, 2, 12)):   # TMA: D % 8
         with pytest.raises(ValueError):
             fa_ops.flash_attention_kernel(*bad)
 
@@ -573,8 +587,21 @@ def test_prefill_launches_one_flash_kernel_per_layer():
     assert bool(torch.isfinite(logits).all())
 
 
-def test_softcap_raises_on_the_card():
-    cfg, lm, params = _smoke_lm(logit_softcap=30.0)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softcap_prefill_runs_through_the_kernel(dtype):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import registry
+    from repro_torch.tree import tree_map
+    cfg, lm, params = _smoke_lm(logit_softcap=30.0, compute_dtype=dtype,
+                                cache_dtype=dtype, reduce_dtype=dtype)
     tokens = jr.randint(jr.key(1, "cuda"), (2, 16), 0, cfg.vocab_size)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        lm.prefill(params, {"tokens": tokens})
+    variant = "f32" if dtype == "float32" else "bf16_tc"
+    v0 = fa_ops.LIBRARY.variants.get(variant, 0)
+    logits, _ = lm.prefill(params, {"tokens": tokens})
+    assert fa_ops.LIBRARY.variants[variant] == v0 + cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+    if dtype == "float32":
+        cpu, _ = registry.build(cfg).prefill(
+            tree_map(lambda t: t.cpu(), params), {"tokens": tokens.cpu()})
+        scale = float(cpu.abs().max())
+        assert float((logits.cpu() - cpu).abs().max()) <= 1e-4 * scale

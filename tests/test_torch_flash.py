@@ -9,14 +9,25 @@ numpy inputs.
     S = 100 (one block of 100) with and without a window;
   * the port's ``full_attention`` and ``chunked_attention(chunk=64)``
     against JAX's, GQA 1, 2 and 4 query heads per kv head;
-  * ``flash_attention`` on CPU tensors is the plain version and launches
-    nothing.
+  * the softcap (``tanh(s / c) c``, c = 30, scores scaled up so the cap
+    bites): the plain version and the port's attention cores against
+    JAX's ``full_attention`` and ``chunked_attention``;
+  * ``flash_attention`` on CPU tensors is the plain version (softcap
+    included) and launches nothing;
+  * the bf16 kernel's P V arithmetic, emulated: P rounded once to bf16
+    spends several times the per-element allowance of phase 19 of
+    ``chip_smoke.py`` on short rows, P split as P_hi + P_lo (both bf16)
+    stays within it.
 
 Tolerance: ``test_kernels.py``'s own, max |diff| < 5e-5 in float32 and
 2e-2 in bfloat16 (the kernel's online softmax and the plain softmax sum
 in another order); the plain cores within 1e-6 (one formula, PyTorch's
-and XLA's reductions).
+and XLA's reductions), 1e-5 with the softcap (scores near 30, where an
+ulp of tanh's argument or result is 2e-6 and the near one-hot softmax
+passes it on).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,3 +114,62 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     _, (q, k, v) = _inputs(1, 16, 2, 2, 8, "float32")
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention_kernel(q, k, v)
+
+
+@pytest.mark.parametrize("h,g", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+def test_softcap_matches_jax(h, g, causal, window):
+    (jq, jk, jv), (q, k, v) = _inputs(2, 128, h, g, 16, "float32", seed=h)
+    jq, q = 20 * jq, 20 * q                   # scores up to ~100: capped
+    kw = dict(causal=causal, window=window, softcap=30.0)
+    want = np.asarray(JL.full_attention(jq, jk, jv, **kw))
+    jchunked = np.asarray(JL.chunked_attention(jq, jk, jv, chunk=64, **kw))
+    plain = fa_ref.attention(q, k, v, **kw)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(TL.full_attention(q, k, v, **kw).numpy(),
+                               want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        TL.chunked_attention(q, k, v, chunk=64, **kw).numpy(), jchunked,
+        rtol=0, atol=1e-5)
+    # the cap moves the output: it is exercised
+    uncapped = fa_ref.attention(q, k, v, causal=causal, window=window)
+    assert float((uncapped - plain).abs().max()) > 1e-2
+
+
+def test_flash_attention_on_cpu_passes_the_softcap():
+    _, (q, k, v) = _inputs(1, 100, 4, 2, 16, "bfloat16")
+    q = 20 * q
+    before = fa_ops.LIBRARY.launches
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=16,
+                                 softcap=30.0)
+    assert torch.equal(got, fa_ref.attention(q, k, v, causal=True,
+                                             window=16, softcap=30.0))
+    assert fa_ops.LIBRARY.launches == before
+
+
+def _pv(q, k, v, causal, split):
+    """The bf16 kernel's output arithmetic, whole rows at once: float32
+    scores and P = exp(s - max), P V with P as one bf16 rounding or as
+    P_hi + P_lo, divided by l = sum of the float32 P, rounded to bf16."""
+    b, s, h, d = q.shape
+    sc = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        sc = sc.masked_fill(torch.ones(s, s).triu(1).bool(), -math.inf)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    terms = (hi, (p - hi).bfloat16().float()) if split else (hi,)
+    acc = sum(torch.einsum("bhst,bthd->bshd", t, v.float()) for t in terms)
+    return (acc / p.sum(-1).transpose(1, 2)[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_p_keeps_the_bf16_allowance(causal):
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 100, 4, 64), generator=gen).bfloat16()
+               for _ in range(3))
+    want = fa_ref.attention(q, k, v, causal=causal).float()
+    allow = 2.0 ** -7 * want.abs() + 5e-5 * want.abs().max()
+    used = {split: float(((_pv(q, k, v, causal, split).float() - want).abs()
+                          / allow).max()) for split in (False, True)}
+    assert used[True] <= 1.0 < 2.0 < used[False]

@@ -8,7 +8,11 @@ small size (``chain_molecule`` of 10-40 atoms, 4 replicas):
     (``fused_propagate.ops.fused_propagate(..., interpret=True)``);
   * the fused propagate loop of the engine's CPU path;
   * ``REMDDriver.run_fused`` on a 2x2x2 T x U x U grid and a 2x2 T x salt
-    grid with both exchange schemes, chunk sizes 1 and 3.
+    grid with both exchange schemes, chunk sizes 1 and 3;
+  * the fused kernel's pack-time mask form (``lj_forces.ops.tile_flags``):
+    the 32-bit rows of bits and the per-64-atom-tile "all kept" flags
+    against the JAX system's exclusion mask, exactly, on the 2881-atom
+    chain and on ragged N = 130 and 257.
 
 Tolerances, with their reasons:
   * bonded forces: 1e-5 of max |F| (same formulas; the dense incidence
@@ -212,6 +216,27 @@ def test_fused_kernel_takes_no_cpu_tensor(pair):
         tfops.fused_baoab_batched(pos, pos, pos, st, None, teng._pack,
                                   teng._nb_pack, teng.system.masses, 0.9,
                                   5e-4)
+
+
+@pytest.mark.parametrize("n_atoms", [2881, 130, 257])
+def test_tile_flags_match_the_mask(n_atoms):
+    from repro_torch.kernels.lj_forces import ops as tnops
+    jsys = j_chain_molecule(n_atoms)
+    pk = tnops.build_pack(convert.system_from_arrays(jsys, device="cpu"))
+    ld, t = pk.mask_u8.shape[1], tnops.PAIR_TILE
+    full = np.zeros((ld, ld), np.uint8)
+    full[:n_atoms, :n_atoms] = np.asarray(jsys.nb_mask) > 0.5
+    np.testing.assert_array_equal(pk.mask_u8.numpy(), full[:n_atoms])
+    words = pk.mask_bits.numpy().astype(np.int64) & 0xFFFFFFFF
+    unpacked = (words[:, :, None] >> np.arange(32)) & 1
+    np.testing.assert_array_equal(unpacked.reshape(ld, ld), full)
+    nt = ld // t
+    want = np.array([[full[t * i:t * i + t, t * j:t * j + t].all()
+                      for j in range(nt)] for i in range(nt)])
+    np.testing.assert_array_equal(pk.tile_kept.numpy().astype(bool), want)
+    assert not want.diagonal().any()          # the self pairs are excluded
+    if n_atoms == 2881:                       # 89 of 1035 tile pairs masked
+        assert int((~want[np.triu_indices(nt, 1)]).sum()) == 89
 
 
 # -- the driver --------------------------------------------------------------

@@ -12,6 +12,8 @@ seeds and numpy inputs.
     against JAX's jitted functions, at float32 and bfloat16;
   * ``LM.prefill`` + 8 ``decode_step``s on the four smoke configs from
     weights converted with ``convert.lm_params_from_arrays``;
+  * ``LM.prefill`` + 2 ``decode_step``s of the olmo smoke config with
+    ``logit_softcap=30`` (the attention scores capped as tanh(s / c) c);
   * ``serve.main(--smoke --device cpu)`` makes JAX ``serve.main``'s
     tokens.
 
@@ -250,6 +252,35 @@ def test_prefill_and_decode(arch, exact):
         jlog, jst = decode(jp, jst, jtok)
         tlog, tst = tlm.decode_step(tp, tst, _t(jtok).long())
     assert int(tst["index"]) == int(jst["index"]) == 24
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_prefill_and_decode_with_softcap(exact):
+    jc, tc = _cfgs("olmo_1b", exact, logit_softcap=30.0)
+    jlm, tlm = j_registry.build(jc), registry.build(tc)
+    jp = j_init_params(jax.random.key(0), jlm.param_defs())
+    tp = convert.lm_params_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
+    tokens = jax.random.randint(jax.random.key(1), (2, 16), 0, jc.vocab_size)
+    jlog, jst = jax.jit(lambda p, t: jlm.prefill(p, {"tokens": t},
+                                                 cache_len=24))(jp, tokens)
+    ttok = _t(tokens).long()
+    tlog, tst = tlm.prefill(tp, {"tokens": ttok}, cache_len=24)
+    uncapped, _ = registry.build(dataclasses.replace(tc, logit_softcap=0.0)
+                                 ).prefill(tp, {"tokens": ttok}, cache_len=24)
+    assert float((uncapped - tlog).abs().max()) > _tol(exact) * float(
+        tlog.abs().max())                      # the cap moves the logits
+    decode = jax.jit(jlm.decode_step)
+    for step in range(3):
+        _close(tlog, jlog, _tol(exact))
+        jtok = jnp.argmax(jlog[:, -1], -1)[:, None]
+        if exact:
+            np.testing.assert_array_equal(
+                torch.argmax(tlog[:, -1], -1)[:, None].numpy(),
+                np.asarray(jtok))
+        if step == 2:
+            break
+        jlog, jst = decode(jp, jst, jtok)
+        tlog, tst = tlm.decode_step(tp, tst, _t(jtok).long())
 
 
 def test_serve_main_makes_jax_tokens(monkeypatch):
