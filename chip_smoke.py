@@ -11,12 +11,16 @@ printed on its own lines:
                   one ``nvcc`` per source, all started together
   3. kernels      the bonded and nonbonded kernels against their plain
                   PyTorch versions at N = 2881, R = 4 and R = 64, within
-                  a stated tolerance
+                  a stated tolerance; then at N = 10,000, R = 1, where the
+                  nonbonded kernel's partial force rows leave shared
+                  memory for device memory (no ceiling on N)
   4. timing       each of them and its plain version at the main path's
                   shape (R = 64, N = 2881): the kernel's device time from
                   CUDA-graph replays, its wrapper's host time beside it,
                   the plain version's synchronised wall time; the bound
-                  worked out for the function from this run's data
+                  worked out for the function from this run's data; the
+                  nonbonded kernel beside its time before the each-pair-
+                  once design (BEFORE_MS), and at N = 10,000, R = 1
   5. slice        the main path: T-REMD, 64 rungs, 2881 atoms,
                   ``run_fused(chunk_cycles=4)`` for 8 cycles, every chunk
                   under ``set_sync_debug_mode("error")``; each kernel must
@@ -75,8 +79,13 @@ printed on its own lines:
                   kernels against their plain versions at R = 4 and 64, on
                   ``init_state`` positions and after 10 MD steps; the
                   gradient of ``LJEnergy`` bitwise minus the forces kernel;
-                  the single-configuration (R = 1) entry points
- 16. timing       both at R = 64 as in phase 4, with their bounds
+                  the single-configuration (R = 1) entry points; the same
+                  at R = 1 and argon's density for N = 4,000 and N =
+                  17,500 (no ceiling on N: the forces kernel's partial
+                  rows live in device memory)
+ 16. timing       both at R = 64 as in phase 4, with their bounds, the
+                  forces kernel beside its time before the each-pair-once
+                  design (BEFORE_MS)
  17. LJ slice     64 rungs (94.4-150 K) x 864 atoms: ``run_fused(
                   chunk_cycles=4)``, 8 DEO cycles then 3 matrix cycles,
                   then 4 cycles of the per-cycle ``run`` from the same
@@ -259,11 +268,20 @@ TOL_LM_CPU = 1e-4
 # the scores (std ~1 on unit normals) to where the cap bites.
 FA_SOFTCAP, FA_SOFTCAP_Q = 30.0, 20.0
 # Kernel times before the current designs, at the same shapes: kernel 3
-# (fused BAOAB, R = 384, N = 2881; every ordered pair, divisions) and
+# (fused BAOAB, R = 384, N = 2881; every ordered pair, divisions),
 # kernel 8 (flash attention, OLMo-1B prefill shape, bf16 on the CUDA
-# cores), measured by this script on an NVIDIA H100 80GB HBM3 at 700 W
-# as PERF.md section 6 records them; printed beside this run's times.
-BEFORE_MS = {"fused_baoab": 9.3263, "flash_attention": 5.3706}
+# cores), kernel 2 (nonbonded, R = 64, N = 2881) and kernel 6 (LJ fluid
+# forces, R = 64, N = 864), the last two with every ordered pair and
+# divisions, measured by this script on an NVIDIA H100 80GB HBM3 at
+# 700 W as PERF.md section 6 records them; printed beside this run's
+# times.
+BEFORE_MS = {"fused_baoab": 9.3263, "flash_attention": 5.3706,
+             "nonbonded": 2.1584, "lj_forces": 0.2866}
+# The "no ceiling" sizes, at R = 1: N where the nonbonded kernel's partial
+# force rows no longer fit in shared memory; two fluids far above the main
+# path's 864 atoms.
+N_NB_BIG = 10000
+LJ_BIG = (4000, 17500)
 # The H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the
 # attention's products take bf16 operands.
 BF16_TC_FLOPS_PER_S = 989e12
@@ -436,7 +454,11 @@ def bounds(engine, n_rep: int):
     b_bytes = io + tables + n_rep * 4
     b_ops = n_rep * (n_b * BOND_OPS + n_a * ANGLE_OPS + n_q * TORSION_OPS
                      + n * pk.slots.n_slots * SLOT_OPS + n_b + n_a + n_q)
-    n_bytes = (n_rep * n * 3 * 4 + 3 * n * 4 + nb.mask_u8.numel()
+    # positions, atom rows, the pack's mask bits and tile flags and the
+    # schedule table in; two force stacks and two energies out
+    n_t = nb.tile_kept.shape[0]
+    n_bytes = (n_rep * n * 3 * 4 + 3 * n * 4 + nb.mask_bits.numel() * 4
+               + nb.tile_kept.numel() + n_t * n_t * 4
                + 2 * n_rep * n * 3 * 4 + 2 * n_rep * 4)
     # the mask is symmetric with a zero diagonal: kept unordered pairs
     n_pairs = int(nb.mask_u8.to(torch.int64).sum()) // 2
@@ -484,6 +506,24 @@ def timing(engine, pos, smi: str):
     return res
 
 
+def no_ceiling_nonbonded(smi: str) -> None:
+    """The nonbonded kernel at N = N_NB_BIG, R = 1, where its partial
+    force rows live in device memory (variant "rows_l2"): against its
+    plain version with phase 3's tolerances, then its device time."""
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    engine = MDEngine(chain_molecule(N_NB_BIG), device="cuda")
+    v0 = nb_ops.LIBRARY.variants.get("rows_l2", 0)
+    _, _, pos = compare(engine, 1, f"N={N_NB_BIG} R=1")
+    check(nb_ops.LIBRARY.variants.get("rows_l2", 0) == v0 + 1,
+          f"N={N_NB_BIG}: the partial rows in device memory")
+    k_ms = graph_ms(lambda: nb_ops.nonbonded_batched(pos, engine._nb_pack),
+                    calls=5)
+    print(f"nonbonded at N={N_NB_BIG}, R=1 (partial rows in device "
+          f"memory): kernel {k_ms:.4f} ms device (graph replay) [{smi}]")
+
+
 def run_slice(libs, smi: str):
     phase(f"5 slice: T-REMD {R_MAIN} rungs x {N_ATOMS} atoms, run_fused")
     from repro_torch.config import RepExConfig
@@ -520,7 +560,8 @@ def run_slice(libs, smi: str):
     want = dict.fromkeys(launches, 0)
     want.update(chain_forces=cfg.n_cycles * 11, nonbonded=cfg.n_cycles * 11)
     check(launches == want
-          and variants["chain_forces"] == {"plain": cfg.n_cycles * 11},
+          and variants["chain_forces"] == {"plain": cfg.n_cycles * 11}
+          and variants["nonbonded"] == {"rows_shared": cfg.n_cycles * 11},
           "each per-pass kernel launched 8 cycles x 11 evaluations")
     check(ok_perm, "assignment is a permutation")
     check(failed == 0, "no replica failed")
@@ -591,7 +632,7 @@ def breakdown(driver, ens, ms_cycle: float, smi: str) -> None:
     # kernel names as the trace gives them, mangled or not
     for name, pattern in (
             ("chain_forces", r"(?<!non)bonded_(edges|gather|energy)_kernel"),
-            ("nonbonded", r"nonbonded_tile_kernel|tile_energy_kernel")):
+            ("nonbonded", r"nonbonded_(pairs|combine)_kernel")):
         dev = sum(e.device_time_total for e in kernels
                   if re.search(pattern, e.name)) / 1e3
         print(f"profiled chunk: {name} kernels {dev / calls:.4f} ms device "
@@ -1521,6 +1562,31 @@ def compare_fourth(engine, n_rep: int, tag: str):
     return errs, pos
 
 
+def no_ceiling_lj() -> None:
+    """The forces kernel at R = 1 and argon's density (Rahman's 864
+    atoms in 34.8 A) for each N of LJ_BIG, after 10 MD steps, against its
+    plain version within TOL_LJ_FORCE (its partial rows live in device
+    memory at every N)."""
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    for n in LJ_BIG:
+        engine = lj_engine(n, LJ_BOX * (n / LJ_ATOMS) ** (1 / 3))
+        pos = lj_states(engine, 1)["after 10 steps"]
+        args = (engine.sigma, engine.eps, engine.box)
+        f_k = nb_ops.lj_forces_batched(pos, *args)
+        f_p = nb_ops.ref.lj_forces(pos, *args)
+        ef = rel(f_k, f_p)
+        print(f"N={n} R=1, box {engine.box:.3f} A: forces {ef:.2e} (tol "
+              f"{TOL_LJ_FORCE}; max |F| {float(f_p.abs().max()):.2f})")
+        check(ef <= TOL_LJ_FORCE and bool(torch.isfinite(f_k).all()),
+              f"N={n}: forces kernel vs plain")
+        del f_p
+        # the energy kernel, not redesigned: printed only (ROADMAP P8)
+        ee = rel(nb_ops.lj_energy_batched(pos, *args),
+                 nb_ops.ref.lj_energy(pos, *args))
+        print(f"N={n} R=1: energy kernel vs plain {ee:.2e} (printed; "
+              f"TOL_LJ_ENERGY {TOL_LJ_ENERGY} holds at N={LJ_ATOMS})")
+
+
 def timing_fourth(engine, pos, smi: str):
     """Phase 4's timing for the LJ fluid kernels at R = 64."""
     from repro_torch.kernels.lj_forces import ops as nb_ops
@@ -1719,9 +1785,8 @@ def breakdown_lj(runs, smi: str) -> None:
     print(f"profiled DEO chunk: device kernel time {busy:.2f} ms/cycle, "
           f"busy share of the measured ms/cycle {busy / ms:.3f}")
     for name, pattern, calls in (
-            ("lj_forces", r"lj_fluid_kernel(ILb1E|<true>)", 22),
-            ("lj_energy", r"lj_fluid_kernel(ILb0E|<false>)"
-                          r"|block_energy_kernel", 2)):
+            ("lj_forces", r"lj_forces_(pairs|combine)_kernel", 22),
+            ("lj_energy", r"lj_energy_kernel|block_energy_kernel", 2)):
         dev = sum(e.device_time_total for e in kernels
                   if re.search(pattern, e.name)) / 1e3
         print(f"profiled DEO chunk: {name} {dev / calls:.4f} ms device per "
@@ -2211,6 +2276,8 @@ def main() -> int:
     abs_b, abs_nb, pos = compare(engine, R_MAIN, f"R={R_MAIN}")
     times = timing(engine, pos, smi)
     bound = bounds(engine, R_MAIN)
+    before_and_bound("nonbonded", times["nonbonded"][0], bound)
+    no_ceiling_nonbonded(smi)
 
     launches, ms_cycle, driver, ens = run_slice(libs, smi)
     breakdown(driver, ens, ms_cycle, smi)
@@ -2259,8 +2326,10 @@ def main() -> int:
     lj = lj_engine()
     compare_fourth(lj, 4, "R=4")
     errs4, lj_pos = compare_fourth(lj, R_MAIN, f"R={R_MAIN}")
+    no_ceiling_lj()
     times.update(timing_fourth(lj, lj_pos, smi))
     bound.update(bounds_fourth(R_MAIN, LJ_ATOMS))
+    before_and_bound("lj_forces", times["lj_forces"][0], bound)
     del lj_pos
     lj_runs = run_lj(libs, smi)
     breakdown_lj(lj_runs, smi)

@@ -36,8 +36,11 @@ or raises, a CPU tensor to the oracle.
 Build: ``KernelLibrary.load`` compiles one source with ``nvcc`` into a
 shared library under ``build/repro_torch/`` (cached by a hash of the
 source, the shared headers of ``csrc/`` and the flags) at first use, and
-loads it with ``ctypes``.  Device code that two kernels share (the bonded
-terms, the nonbonded sweep) lives once in ``csrc/md_terms.cuh``.
+loads it with ``ctypes``.  Device code that two kernels share lives once
+in ``csrc/``: the bonded terms and the neighbor-list pair term in
+``md_terms.cuh``, the all-pairs tile walk (each unordered pair once, for
+``nonbonded.cu`` and ``lj_fluid.cu``'s forces kernel) in
+``pair_tiles.cuh``.
 """
 from __future__ import annotations
 

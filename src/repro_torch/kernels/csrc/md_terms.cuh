@@ -1,8 +1,9 @@
 // Device code shared by the port's force kernels, written once: the bonded
 // term gradients (chain_forces.cu, fused_baoab.cu), the nonbonded pair term
-// (nonbonded.cu, fused_baoab.cu, nonbonded_sparse.cu), the all-pairs sweep
-// around it (nonbonded.cu, fused_baoab.cu) and the fixed-order energy sums
-// (nonbonded.cu, nonbonded_sparse.cu).  The TPU kernels share
+// of the neighbor-list kernel (nonbonded_sparse.cu) and the fixed-order
+// energy sums (nonbonded_sparse.cu, lj_fluid.cu's energy kernel).  The
+// all-pairs walk of nonbonded.cu and lj_fluid.cu's forces kernel is
+// pair_tiles.cuh.  The TPU kernels share
 // the same math the same way: fused_propagate/kernel.py calls
 // chain_forces/kernel.py:bonded_scatter_rows and
 // lj_forces/kernel.py:nonbonded_pair_rows.
@@ -19,7 +20,8 @@ namespace md {
 constexpr float kClipLo = (float)(-1.0 + 1e-6);
 constexpr float kClipHi = (float)(1.0 - 1e-6);
 constexpr float kDeg = (float)(180.0 / 3.14159265358979323846);
-constexpr int kTile = 128;   // atoms per nonbonded tile; TILE in the ops.py
+constexpr int kTile = 128;   // atoms per block of the per-atom kernels; TILE
+                             // in lj_forces/ops.py
 
 struct V3 {
   float x, y, z;
@@ -234,60 +236,6 @@ __global__ void tile_energy_kernel(const float* __restrict__ e_part,
   }
   e_lj[r] = 0.5f * lj;
   e_el[r] = 0.5f * el;
-}
-
-// Shared-memory staging of one j-tile's atom rows.
-struct NbTile {
-  float x[kTile], y[kTile], z[kTile], s[kTile], e[kTile], q[kTile];
-};
-
-// The all-pairs sweep of atom i (this thread's) in a block of kTile
-// threads: LJ with Lorentz-Berthelot mixing from sigma and sqrt(eps), bare
-// Coulomb, the 0/1 uint8 exclusion mask row of i (ld bytes, zero past N).
-// Masked pairs get r2 += 1 - mask as at lj_forces/kernel.py:162, so they
-// stay finite and add exactly zero.  Every thread of the block must call
-// it (it synchronises); a thread with live == false only stages tiles.
-template <bool kEnergy>
-__device__ __forceinline__ void nb_sweep(
-    const float* __restrict__ P, const float* __restrict__ sigma,
-    const float* __restrict__ sqrt_eps, const float* __restrict__ charge,
-    const uint8_t* __restrict__ mrow, int N, bool live, V3 pi, float si,
-    float ei, float qi, float coulomb, NbTile& sh, PairAcc& acc) {
-  const int tid = threadIdx.x;
-  for (int j0 = 0; j0 < N; j0 += kTile) {
-    const int j = j0 + tid;
-    __syncthreads();
-    if (j < N) {
-      sh.x[tid] = P[3 * j];
-      sh.y[tid] = P[3 * j + 1];
-      sh.z[tid] = P[3 * j + 2];
-      sh.s[tid] = sigma[j];
-      sh.e[tid] = sqrt_eps[j];
-      sh.q[tid] = charge[j];
-    } else {     // padding atoms: zero rows, and their mask bytes are 0
-      sh.x[tid] = sh.y[tid] = sh.z[tid] = 0.f;
-      sh.s[tid] = sh.e[tid] = sh.q[tid] = 0.f;
-    }
-    __syncthreads();
-    if (!live) continue;
-    const uint4* mv = reinterpret_cast<const uint4*>(mrow + j0);
-#pragma unroll 1
-    for (int v = 0; v < kTile / 16; ++v) {
-      const uint4 pk = mv[v];
-      const uint32_t words[4] = {pk.x, pk.y, pk.z, pk.w};
-#pragma unroll
-      for (int b = 0; b < 16; ++b) {
-        const int jj = v * 16 + b;
-        const float m = (float)((words[b >> 2] >> (8 * (b & 3))) & 0xFFu);
-        const float dx = pi.x - sh.x[jj], dy = pi.y - sh.y[jj],
-                    dz = pi.z - sh.z[jj];
-        pair_accumulate<kEnergy>(dx, dy, dz,
-                                 dx * dx + dy * dy + dz * dz + (1.0f - m), m,
-                                 0.5f * (si + sh.s[jj]), ei * sh.e[jj],
-                                 qi * sh.q[jj], coulomb, acc);
-      }
-    }
-  }
 }
 
 }  // namespace md

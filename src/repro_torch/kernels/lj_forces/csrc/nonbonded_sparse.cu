@@ -12,7 +12,9 @@
 // Per slot, the TPU body's arithmetic: mask = valid * [r2 <= cutoff^2],
 // r2 += 1 - mask, sigma the Lorentz mean, eps = sqrt(eps_i) * sqrt(eps_j) (the
 // kernel's form, not the PyTorch oracle's sqrt(eps_i eps_j)), then the pair
-// term md::pair_accumulate shared with the all-pairs kernels; e = 1/2 sum.
+// term md::pair_accumulate (the pair code the all-pairs kernels used
+// before their each-pair-once redesign; this kernel is its last user);
+// e = 1/2 sum.
 // r2 is formed without FMA contraction (__fmul_rn / __fadd_rn), as PyTorch's
 // separate elementwise ops form it, so the cutoff mask equals the plain
 // version's bit for bit and a pair at the cutoff cannot flip.

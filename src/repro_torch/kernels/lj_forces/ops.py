@@ -13,11 +13,18 @@ configuration through an R = 1 launch.
 The chain nonbonded kernels:
 
 ``build_pack(system)`` keeps the system's per-atom parameters and builds
-what the CUDA kernels read, once: the sqrt(eps) row and a uint8 copy of
-the 0/1 exclusion mask (8.7 MB at N = 2881 instead of the 34.7 MB f32
-mask, so it stays in the 50 MB L2 while every replica re-reads it); for
-the fused kernel the same mask as 32-bit rows of bits and a flag per
-pair of 64-atom tiles that no exclusion touches (``tile_flags``).
+what the CUDA kernels read, once: the sqrt(eps) row, a uint8 copy of
+the 0/1 exclusion mask (the neighbor-list build reads it) and the same
+mask as 32-bit rows of bits with a flag per pair of 64-atom tiles that
+no exclusion touches (``tile_flags``; the all-pairs and fused kernels
+read these).
+
+The all-pairs kernels (``csrc/nonbonded.cu``, the forces kernel of
+``csrc/lj_fluid.cu``) visit each unordered pair once through the walk
+of ``csrc/pair_tiles.cuh``; the host side of that walk is here:
+``tile_schedule`` (the round table), ``block_split`` (blocks per
+replica) and ``rows_in_shared`` (where the chain kernel's partial force
+rows live; the fluid's are always in device memory).
 
 ``nonbonded_force`` is the one MD-facing entry point: a CUDA stack goes
 through the kernel (``nonbonded_batched``, which launches
@@ -40,12 +47,86 @@ import ctypes
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import (REPLICA_CHUNK, KernelLibrary, check_cuda,
                                  default_use_kernel, f32_square,
                                  pad_to_block, raise_on_error, stream_ptr)
 from repro_torch.kernels.lj_forces import ref
+
+# -- the all-pairs walk (csrc/pair_tiles.cuh) ---------------------------------
+
+TILE = 128          # atoms per block of the per-atom kernels (kTile in
+                    # csrc/md_terms.cuh); atom axes pad to a multiple of it
+PAIR_TILE = 64      # atoms per tile of the pair walk; kPT in pair_tiles.cuh
+                    # and kFT in fused_baoab.cu
+MAX_WARPS = 24      # warps of a block at most; kMaxWarps in pair_tiles.cuh
+SMEM_LIMIT = 232448  # shared memory one block may use on an H100 (kMaxSmem)
+# Warps that one wave of blocks keeps in flight: 132 SMs at 24 warps each.
+# A constant, not read from the card, so a split and with it every sum's
+# order depend on the shapes alone.
+WAVE_WARPS = 132 * MAX_WARPS
+
+_SCHEDULES: dict = {}
+
+
+def pair_warps(n_tiles: int) -> int:
+    """Warps of a block: one per tile pair of a round, at most
+    ``MAX_WARPS``."""
+    return min(n_tiles // 2, MAX_WARPS)
+
+
+def block_split(n_rep: int, n_tiles: int, waves: int = 1) -> int:
+    """Blocks per replica S: enough for ``waves`` waves of ``WAVE_WARPS``
+    warps over the stack, at least 1, at most one round of the schedule
+    per block.  The chain kernel takes one wave (R = 64, N = 2881: S = 2;
+    its 23-warp, 80-register blocks fit once per SM, so S = 2 fills 128
+    of the 132 SMs); the fluid's forces kernel two (R = 64, N = 864:
+    S = 14, one round per block; its 7-warp blocks fit four to an SM).
+    Each was the fastest split of those timed on an H100 80GB HBM3 at
+    700 W."""
+    return max(1, min(n_tiles, waves * WAVE_WARPS
+                      // (max(n_rep, 1) * pair_warps(n_tiles))))
+
+
+def rows_in_shared(ld: int) -> bool:
+    """Whether a chain-kernel block's six partial force rows of ``ld``
+    floats fit in shared memory beside its warps' staged j atoms (24 bytes
+    each): up to ld = 8064.  If not they live in the partial-sum scratch
+    in device memory (pair_tiles.cuh smem_bytes)."""
+    staged = pair_warps(ld // PAIR_TILE) * PAIR_TILE * 24
+    return staged + 6 * ld * 4 <= SMEM_LIMIT
+
+
+def tile_schedule(n_tiles: int, device) -> torch.Tensor:
+    """The round table of the pair walk for an even ``n_tiles``: (n_tiles,
+    n_tiles) int32, row 0 the diagonal tiles (t, t), row u >= 1 the
+    n_tiles / 2 disjoint tile pairs I < J of round u - 1 of the circle
+    method (pairs (n_tiles - 1, u) and ((u + k) % (n_tiles - 1),
+    (u - k) % (n_tiles - 1)) for k = 1 .. n_tiles / 2 - 1), then -1; an
+    entry packs I | J << 16.  Block s of a replica's S runs rows s, s + S,
+    ...  Built once per (n_tiles, device) from device operations, so a
+    first call inside a ``run_fused`` chunk copies nothing from the
+    host."""
+    key = (n_tiles, str(device))
+    if key not in _SCHEDULES:
+        odd, half = n_tiles - 1, n_tiles // 2
+        u = torch.arange(odd, device=device)[:, None].expand(odd, half)
+        k = torch.arange(half, device=device)[None, :]
+        a = torch.remainder(u + k, odd)
+        b = torch.remainder(u - k, odd)
+        a[:, 0] = odd
+        b[:, 0] = u[:, 0]
+        table = torch.full((n_tiles, n_tiles), -1, dtype=torch.int32,
+                           device=device)
+        table[0] = (torch.arange(n_tiles, device=device) * 65537).to(
+            torch.int32)
+        table[1:, :half] = (torch.minimum(a, b)
+                            | (torch.maximum(a, b) << 16)).to(torch.int32)
+        _SCHEDULES[key] = table
+    return _SCHEDULES[key]
+
 
 # -- the LJ fluid -------------------------------------------------------------
 
@@ -54,8 +135,8 @@ LJ_FLUID_LIBRARY = KernelLibrary(
 
 _ENERGY_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
     [ctypes.c_float] * 3 + [ctypes.c_void_p]
-_FORCES_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
-    [ctypes.c_float] * 3 + [ctypes.c_void_p]
+_FORCES_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+    [ctypes.c_float] * 4 + [ctypes.c_void_p]
 
 
 def _check_stack(pos: torch.Tensor) -> None:
@@ -86,13 +167,22 @@ def lj_energy_batched(pos: torch.Tensor, sigma: float, eps: float,
 def lj_forces_batched(pos: torch.Tensor, sigma: float, eps: float,
                       box: float) -> torch.Tensor:
     """The forces kernel: a CUDA (R, N, 3) stack -> (R, N, 3) forces in
-    one launch; anything else raises."""
+    one launch (the pair walk, then the sum of its partial rows); anything
+    else raises."""
     _check_stack(pos)
     r, n, _ = pos.shape
     sig2, _, c24, box = ref.fluid_constants(sigma, eps, box)
+    inv_box = float(np.float32(1.0 / box)) if box > 0 else 0.0
     fn = LJ_FLUID_LIBRARY.function("lj_forces_launch", _FORCES_ARGTYPES)
+    ld = pad_to_block(n, TILE)
+    n_tiles = ld // PAIR_TILE
+    split = block_split(r, n_tiles, waves=2)
+    sched = tile_schedule(n_tiles, pos.device)
+    part = torch.empty((r, split, 3, ld), dtype=torch.float32,
+                       device=pos.device)
     forces = torch.empty_like(pos)
-    code = fn(pos.data_ptr(), forces.data_ptr(), r, n, box, sig2, c24,
+    code = fn(pos.data_ptr(), sched.data_ptr(), part.data_ptr(),
+              forces.data_ptr(), r, n, ld, split, box, inv_box, sig2, c24,
               stream_ptr())
     raise_on_error(code, "lj_forces")
     LJ_FLUID_LIBRARY.count("forces")
@@ -149,9 +239,6 @@ def lj_forces(pos, sigma: float, eps: float, box: float):
 
 LIBRARY = KernelLibrary(
     "nonbonded", Path(__file__).parent / "csrc" / "nonbonded.cu")
-
-TILE = 128          # atoms per tile; must match kTile in nonbonded.cu
-PAIR_TILE = 64      # atoms per tile of the fused kernel; kFT in fused_baoab.cu
 
 
 class NonbondedPack(NamedTuple):
@@ -228,34 +315,45 @@ def nonbonded_plain(pos: torch.Tensor, pack: NonbondedPack):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
 def nonbonded_batched(pos: torch.Tensor, pack: NonbondedPack):
     """The kernel: a CUDA (R, N, 3) stack -> (f_lj (R, N, 3),
-    f_el (R, N, 3), e_lj (R,), e_el (R,)) in one launch; anything else
-    raises."""
+    f_el (R, N, 3), e_lj (R,), e_el (R,)) in one launch (the pair walk,
+    then the sum of its partial rows); anything else raises.  Counted
+    under the variant "rows_shared", or "rows_l2" where the partial rows
+    live in device memory (N above 8064)."""
     r, n, _ = pos.shape
-    rows = (pack.lj_sigma, pack.sqrt_eps, pack.charges, pack.mask_u8)
+    rows = (pack.lj_sigma, pack.sqrt_eps, pack.charges, pack.mask_bits,
+            pack.tile_kept)
     check_cuda((pos,) + rows,
-               ("pos", "lj_sigma", "sqrt_eps", "charges", "mask_u8"))
+               ("pos", "lj_sigma", "sqrt_eps", "charges", "mask_bits",
+                "tile_kept"))
     if pos.dtype != torch.float32 or n != pack.lj_sigma.shape[0]:
         raise ValueError(f"pos must be float32 (R, {pack.lj_sigma.shape[0]},"
                          f" 3), got {pos.dtype} {tuple(pos.shape)}")
     fn = LIBRARY.function("nonbonded_launch", _ARGTYPES)
-    ld = pack.mask_u8.shape[1]
+    ld = pack.mask_bits.shape[0]
+    n_tiles = ld // PAIR_TILE
+    split = block_split(r, n_tiles)
+    shared = rows_in_shared(ld)
+    sched = tile_schedule(n_tiles, pos.device)
+    part = torch.empty((r, split, 6, ld), dtype=torch.float32,
+                       device=pos.device)
+    e_part = torch.empty((r, split, 2), dtype=torch.float32,
+                         device=pos.device)
     f_lj = torch.empty_like(pos)
     f_el = torch.empty_like(pos)
-    e_part = torch.empty((r, ld // TILE, 2), dtype=torch.float32,
-                         device=pos.device)
     e_lj = torch.empty(r, dtype=torch.float32, device=pos.device)
     e_el = torch.empty(r, dtype=torch.float32, device=pos.device)
     ptrs = [t.data_ptr() for t in (pos,) + rows
-            + (f_lj, f_el, e_part, e_lj, e_el)]
-    code = fn(*ptrs, r, n, ld, ref.COULOMB, stream_ptr())
+            + (sched, part, e_part, f_lj, f_el, e_lj, e_el)]
+    code = fn(*ptrs, r, n, ld, split, int(shared), ref.COULOMB,
+              stream_ptr())
     raise_on_error(code, "nonbonded")
-    LIBRARY.count()
+    LIBRARY.count("rows_shared" if shared else "rows_l2")
     return f_lj, f_el, e_lj, e_el
 
 

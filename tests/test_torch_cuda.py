@@ -69,8 +69,11 @@ def _state(n_atoms, n_rep, seed=0):
     return sysm, torch.from_numpy(pos).cuda()
 
 
-@pytest.mark.parametrize("n_atoms", [8, 130, 257])
-@pytest.mark.parametrize("n_rep", [1, 3])
+# the main path's shape, and one N whose nonbonded partial force rows no
+# longer fit in shared memory (they go to device memory: no ceiling on N)
+@pytest.mark.parametrize("n_atoms,n_rep", [
+    (8, 1), (8, 3), (130, 1), (130, 3), (257, 1), (257, 3), (2881, 64),
+    (10000, 1)])
 def test_kernels_match_plain_versions(n_atoms, n_rep):
     sysm, pos = _state(n_atoms, n_rep)
     cpack = chain_ops.build_pack(sysm)
@@ -420,22 +423,48 @@ def _fluid(n_atoms, n_rep, box=12.0, seed=0):
 LJ_ARGS = (3.4, 0.238, 12.0)
 
 
-@pytest.mark.parametrize("n_atoms", [27, 64, 130, 257])
-@pytest.mark.parametrize("n_rep", [1, 3])
+def _fluid_box(n_atoms):
+    """12 A for the small cases, else argon's density (Rahman's 864 atoms
+    in 34.8 A)."""
+    return 12.0 if n_atoms <= 257 else 34.8 * (n_atoms / 864) ** (1 / 3)
+
+
+# The small cases in a 12 A box, the main path's shape (R = 64, N = 864)
+# and a large N at R = 1 (no ceiling: the forces kernel's partial rows
+# live in device memory).  The energy kernel is held here up to N = 864;
+# at N = 17500 see the next test.
+@pytest.mark.parametrize("n_atoms,n_rep", [
+    (27, 1), (27, 3), (64, 1), (64, 3), (130, 1), (130, 3), (257, 1),
+    (257, 3), (864, 64), (17500, 1)])
 def test_lj_fluid_kernels_match_plain_versions(n_atoms, n_rep):
-    pos = _fluid(n_atoms, n_rep)
+    args = LJ_ARGS[:2] + (_fluid_box(n_atoms),)
+    pos = _fluid(n_atoms, n_rep, args[2])
     lib = nb_ops.LJ_FLUID_LIBRARY
     n0 = dict(lib.variants)
-    e = nb_ops.lj_energy_batched(pos, *LJ_ARGS)
-    f = nb_ops.lj_forces_batched(pos, *LJ_ARGS)
+    e = nb_ops.lj_energy_batched(pos, *args)
+    f = nb_ops.lj_forces_batched(pos, *args)
     assert lib.variants["energy"] == n0.get("energy", 0) + 1
     assert lib.variants["forces"] == n0.get("forces", 0) + 1
-    _close(e, nb_ops.ref.lj_energy(pos, *LJ_ARGS), energy=True)
-    _close(f, nb_ops.ref.lj_forces(pos, *LJ_ARGS))
-    assert torch.equal(nb_ops.lj_forces_batched(pos, *LJ_ARGS), f)
+    _close(f, nb_ops.ref.lj_forces(pos, *args))
+    assert torch.equal(nb_ops.lj_forces_batched(pos, *args), f)
     # the single-configuration entry points: one R = 1 launch each
-    _close(nb_ops.lj_forces(pos[0], *LJ_ARGS), f[0])
-    _close(nb_ops.lj_energy(pos[0], *LJ_ARGS)[None], e[:1], energy=True)
+    _close(nb_ops.lj_forces(pos[0], *args), f[0])
+    if n_atoms <= 864:
+        _close(e, nb_ops.ref.lj_energy(pos, *args), energy=True)
+        _close(nb_ops.lj_energy(pos[0], *args)[None], e[:1], energy=True)
+
+
+# ROADMAP P8, open: the energy kernel (not yet redesigned) sums every j of
+# an atom in one float32 register, and at N = 17500 lands 4.1e-5 to 7.7e-5
+# of the energy off its plain version, which is 2e-7 off float64.  Strict:
+# once a redesign closes P8 this passes, and the mark must go.
+@pytest.mark.xfail(strict=True, reason="ROADMAP P8: the LJ energy kernel's "
+                   "float32 sums drift at N = 17500")
+def test_lj_energy_kernel_holds_at_17500_atoms():
+    args = LJ_ARGS[:2] + (_fluid_box(17500),)
+    pos = _fluid(17500, 1, args[2])
+    _close(nb_ops.lj_energy_batched(pos, *args),
+           nb_ops.ref.lj_energy(pos, *args), energy=True)
 
 
 def test_lj_energy_gradient_is_the_forces_kernel_bitwise():

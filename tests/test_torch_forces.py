@@ -168,3 +168,123 @@ def test_kernels_take_no_cpu_tensor():
         chain_ops.chain_forces_batched(tpos, chain_ops.build_pack(tsys))
     with pytest.raises(ValueError, match="CUDA tensor"):
         nb_ops.nonbonded_batched(tpos, nb_ops.build_pack(tsys))
+
+
+# -- the all-pairs kernel's schedule and arithmetic (csrc/nonbonded.cu) ------
+#
+# The kernel runs only on the card; what can be checked here is the host's
+# schedule table it walks and its pair arithmetic, emulated in float32.
+# Tolerances as chip_smoke.py holds the kernel to its plain version:
+# forces max |diff| / max |want| <= 1e-4, energies relative <= 1e-5.
+TOL_NB_FORCE, TOL_NB_ENERGY = 1e-4, 1e-5
+
+
+def _decode(table):
+    """(round, I, J) of every entry of a round table."""
+    out = []
+    for u, row in enumerate(table.tolist()):
+        out += [(u, e & 0xFFFF, e >> 16) for e in row if e >= 0]
+    return out
+
+
+@pytest.mark.parametrize("n_atoms", [8, 130, 257, 864, 2881, 10000])
+def test_tile_schedule_visits_each_tile_pair_once(n_atoms):
+    """Every unordered tile pair, the diagonal included, is in exactly one
+    round; no tile is twice in a round; the blocks of any split run
+    disjoint sets of whole rounds that cover the table."""
+    ld = pad_to_block(n_atoms, nb_ops.TILE)
+    nt = ld // nb_ops.PAIR_TILE
+    table = nb_ops.tile_schedule(nt, "cpu")
+    assert table.dtype == torch.int32 and table.shape == (nt, nt)
+    entries = _decode(table)
+    pairs = sorted((i, j) for _, i, j in entries)
+    assert pairs == [(i, j) for i in range(nt) for j in range(i, nt)]
+    for u in range(nt):
+        tiles = [t for v, i, j in entries if v == u
+                 for t in ((i,) if i == j else (i, j))]
+        assert len(tiles) == len(set(tiles)) == nt
+    for n_rep, waves in ((1, 1), (4, 1), (64, 1), (64, 2), (384, 1)):
+        split = nb_ops.block_split(n_rep, nt, waves)
+        rounds = [u for s in range(split) for u in range(s, nt, split)]
+        assert sorted(rounds) == list(range(nt))
+    assert nb_ops.tile_schedule(nt, "cpu") is table       # built once
+
+
+def test_block_split_and_row_layout():
+    """One wave of blocks at about 24 warps per SM: the main paths' splits,
+    and where the chain kernel's partial rows live (no ceiling on N: above
+    the shared memory they go to device memory)."""
+    assert nb_ops.block_split(64, 2944 // 64) == 2       # chain, N = 2881
+    assert nb_ops.block_split(384, 2944 // 64) == 1
+    assert nb_ops.block_split(64, 896 // 64) == 7
+    assert nb_ops.block_split(64, 896 // 64, waves=2) == 14  # fluid, N = 864
+    assert nb_ops.block_split(1, 2) == 2
+    assert nb_ops.rows_in_shared(2944)
+    assert nb_ops.rows_in_shared(8064)
+    assert not nb_ops.rows_in_shared(8192)               # N = 10000
+
+
+def _each_pair_once(pos, pack, rinv_err=0.0):
+    """The kernel's arithmetic in float32, each unordered pair once:
+    rinv = rsqrt(r2) (times 1 + rinv_err), inv_r2 = rinv^2, tt = sig^2
+    inv_r2, s6 = tt^3, u = s6^2 - s6; eps and qq times the 0/1 mask m and
+    r2 + (1 - m); F_i += c d, F_j -= c d; the factors 24, 4 and COULOMB
+    applied to the finished sums."""
+    n = pos.shape[-2]
+    i, j = torch.triu_indices(n, n, 1)
+    d = pos[:, i] - pos[:, j]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    m = pack.nb_mask[i, j]
+    r2 = dx * dx + dy * dy + dz * dz + (1.0 - m)
+    ee = pack.sqrt_eps[i] * pack.sqrt_eps[j] * m
+    qq = pack.charges[i] * pack.charges[j] * m
+    rinv = torch.rsqrt(r2) * np.float32(1.0 + rinv_err)
+    inv_r2 = rinv * rinv
+    sig = 0.5 * pack.lj_sigma[i] + 0.5 * pack.lj_sigma[j]
+    tt = sig * sig * inv_r2
+    s6 = tt * (tt * tt)
+    u = s6 * s6 - s6
+    qr = qq * rinv
+    c_lj = ee * (u + s6 * s6) * inv_r2
+    c_el = qr * inv_r2
+
+    def rows(c):
+        f = torch.zeros_like(pos)
+        f.index_add_(1, i, c[..., None] * d)
+        f.index_add_(1, j, -c[..., None] * d)
+        return f
+
+    return (24.0 * rows(c_lj), nb_ref.COULOMB * rows(c_el),
+            4.0 * torch.sum(ee * u, -1), nb_ref.COULOMB * torch.sum(qr, -1))
+
+
+# rsqrt.approx is within 2^-22.9 of 1 / sqrt(x); with that error on every
+# pair and of one sign (the worst case for the sums) the energies stay
+# within TOL_NB_ENERGY.  Held against the JAX kernel, the kernel's plain
+# version (the direct pair sums chip_smoke.py holds the kernel to) and
+# that plain version in float64.  Not against the rowsum oracle
+# (ref.nonbonded): its rowsum(c) x - c @ x form cancels, 1.0e-4 of
+# max |F_el| from the float64 sums at N = 257, where this emulation is
+# 1.7e-6 from them.
+@pytest.mark.parametrize("rinv_err", [0.0, 2.0 ** -22.9, -2.0 ** -22.9])
+@pytest.mark.parametrize("n_atoms", [130, 257])
+def test_each_pair_once_arithmetic_matches_jax(n_atoms, rinv_err):
+    jsys, tsys, pos = _setup(n_atoms, seed=6)
+    pack = nb_ops.build_pack(tsys)
+    tpos = torch.from_numpy(pos)
+    got = _each_pair_once(tpos, pack, rinv_err)
+    pack64 = nb_ops.NonbondedPack(*[
+        t.double() if t.dtype == torch.float32 else t for t in pack])
+    wants = {"pallas": j_nb_ops.nonbonded_batched(
+                 jnp.asarray(pos), *_nb_args(jsys), interpret=True),
+             "plain": nb_ops.nonbonded_plain(tpos, pack),
+             "plain float64": nb_ops.nonbonded_plain(tpos.double(), pack64)}
+    for name, want in wants.items():
+        for field, a, b in zip(("f_lj", "f_el", "e_lj", "e_el"), got, want):
+            a, b = np.asarray(a), np.asarray(b)
+            if field.startswith("f"):
+                err = np.abs(a - b).max() / np.abs(b).max()
+                assert err <= TOL_NB_FORCE, (name, field, err)
+            else:
+                err = (np.abs(a - b) / np.abs(b)).max()
+                assert err <= TOL_NB_ENERGY, (name, field, err)

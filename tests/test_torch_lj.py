@@ -314,3 +314,82 @@ def test_failure_detectors_match_jax():
                                 for k, v in bad.items()})))
     assert t.is_failed(bad).tolist() == [False, True, True, False]
     assert LJEngine(device="cpu").failure_detectors == ("nonfinite",)
+
+
+# -- the forces kernel's arithmetic (csrc/lj_fluid.cu), emulated ------------
+#
+# The kernel runs only on the card.  Here: its minimum image by one
+# reciprocal and its division-free pair terms in float32, each unordered
+# pair once, against JAX's ref and Pallas kernel, within chip_smoke.py's
+# TOL_LJ_FORCE (max |diff| / max |want|).  The emulation's 1 / r2 is
+# IEEE, the kernel's rcp.approx within an ulp of it.
+TOL_LJ_FORCE = 1e-4
+MAGIC = np.float32(1.5 * 2 ** 23)
+
+
+def _rint(x):
+    """The kernel's rint: (x + 1.5 * 2^23) - 1.5 * 2^23, two float32
+    adds, half to even for |x| < 2^22."""
+    return (x + MAGIC) - MAGIC
+
+
+def _reciprocal_image_forces(pos, sigma, eps, box):
+    sig2, _, c24, box = t_ref.fluid_constants(sigma, eps, box)
+    inv_box = np.float32(1.0 / box)
+    n = pos.shape[-2]
+    i, j = torch.triu_indices(n, n, 1)
+    d = pos[:, i] - pos[:, j]
+    d = d - np.float32(box) * _rint(d * inv_box)
+    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    inv_r2 = 1.0 / r2
+    tt = np.float32(sig2) * inv_r2
+    s6 = tt * (tt * tt)
+    c = (s6 * (2.0 * s6 - 1.0) * inv_r2)[..., None]
+    f = torch.zeros_like(pos)
+    f.index_add_(1, i, c * d)
+    f.index_add_(1, j, -c * d)
+    return np.float32(c24) * f, d, (i, j)
+
+
+def test_kernel_rint_is_round_half_to_even():
+    x = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5, 0.49999997, -0.49999997,
+                      0.50000006, 1.0, -1.0, 0.0], dtype=torch.float32)
+    x = torch.cat([x, torch.from_numpy(np.random.default_rng(0).uniform(
+        -1.0, 1.0, 4096).astype(np.float32))])
+    assert torch.equal(_rint(x), torch.round(x))
+
+
+def _half_box_fluid():
+    """64 atoms on the 4^3 lattice (spacing box / 4) with jitter, three of
+    them put back on their sites so that pairs sit exactly +-box/2 apart:
+    atoms 0, 32 (= site (2, 0, 0)) and 42 (= site (2, 2, 2))."""
+    pos = _fluid(64)
+    site = (np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3) + 0.5) * np.float32(BOX / 4)
+    for a in (0, 32, 42):
+        pos[:, a] = site[a]
+    return pos
+
+
+@pytest.mark.parametrize("n_atoms", [27, 64])
+def test_reciprocal_image_forces_match_jax(n_atoms):
+    pos = _half_box_fluid() if n_atoms == 64 else _fluid(n_atoms)
+    f_t, d, (i, j) = _reciprocal_image_forces(torch.from_numpy(pos), SIGMA,
+                                              EPS, BOX)
+    jp = jnp.asarray(pos)
+    for f_j in (j_ref.lj_forces(jp, SIGMA, EPS, BOX),
+                j_ops.lj_forces_batched(jp, SIGMA, EPS, BOX, 32, True)):
+        f_j = np.asarray(f_j)
+        err = np.abs(f_t.numpy() - f_j).max() / np.abs(f_j).max()
+        assert err <= TOL_LJ_FORCE, err
+    # the image is odd in d, so F_ij = -F_ji; on the half-box pairs it is
+    # the division's image exactly (d * inv_box is 1/2 or just below)
+    raw = torch.from_numpy(pos)[:, i] - torch.from_numpy(pos)[:, j]
+    want = raw - np.float32(BOX) * torch.round(raw / np.float32(BOX))
+    assert torch.equal(d, want)
+    if n_atoms == 64:
+        half = (raw.abs() == np.float32(BOX / 2)).any(-1)
+        assert int(half.sum()) >= 3 * pos.shape[0]
+        neg = -raw
+        assert torch.equal(neg - np.float32(BOX) * _rint(
+            neg * np.float32(1.0 / BOX)), -d)
