@@ -18,9 +18,11 @@ printed on its own lines:
                   shape (R = 64, N = 2881): the kernel's device time from
                   CUDA-graph replays, its wrapper's host time beside it,
                   the plain version's synchronised wall time; the bound
-                  worked out for the function from this run's data; the
-                  nonbonded kernel beside its time before the each-pair-
-                  once design (BEFORE_MS), and at N = 10,000, R = 1
+                  worked out for the function from this run's data; each
+                  beside its time before its current design (BEFORE_MS),
+                  the nonbonded kernel also at N = 10,000, R = 1; the
+                  CUDA launches behind one count of the bonded wrapper and
+                  of the list build's, each flag (2 each, profiled)
   5. slice        the main path: T-REMD, 64 rungs, 2881 atoms,
                   ``run_fused(chunk_cycles=4)`` for 8 cycles, every chunk
                   under ``set_sync_debug_mode("error")``; each kernel must
@@ -35,8 +37,12 @@ printed on its own lines:
                   bonded kernel's bias variant and the exchange-matrix
                   kernel against their plain versions at N = 2881, R = 4
                   and R = 384; then each timed at R = 384 as in phase 4,
-                  the fused kernel beside its time before the Newton's
-                  third law design (BEFORE_MS) and its bound
+                  the fused and bonded kernels beside their times before
+                  their current designs (BEFORE_MS) and their bounds;
+                  then the fused kernel at R = 1 for N = 16,384 and
+                  20,000, where its force rows leave shared memory for
+                  device memory (variant "rows_l2"), against its plain
+                  version with the same tolerances, and its time
   8. TSU slice    the paper's grid, temperature x umbrella(phi) x
                   umbrella(psi) = 6 x 8 x 8 = 384 replicas at 2881 atoms,
                   ``force_path="fused"``, 10 MD steps per cycle,
@@ -59,9 +65,11 @@ printed on its own lines:
                   salt) against its plain version within a stated
                   tolerance, and the device-gated list build against the
                   plain build bitwise, with its flag 0, 1 and a per-replica
-                  row, and with a k_max that drops pairs
+                  row, with a k_max that drops pairs, and on a random gas
  12. timing       both at R = 384 as in phase 4, the build in both flag
-                  states, with the bounds of this run's list
+                  states, with the bounds of this run's list (the build's:
+                  the bytes of positions in and the list out; the O(N^2)
+                  distance tests of every pair printed as "all pairs")
  13. TSU sparse   the grid with ``nonbonded="sparse", bonded="sparse"``:
                   on ``force_path="fused"`` 6 neighbor and 3 matrix cycles,
                   on ``"pallas"`` 3 cycles.  Per cycle the bonded bias
@@ -82,10 +90,11 @@ printed on its own lines:
                   the single-configuration (R = 1) entry points; the same
                   at R = 1 and argon's density for N = 4,000 and N =
                   17,500 (no ceiling on N: the forces kernel's partial
-                  rows live in device memory)
- 16. timing       both at R = 64 as in phase 4, with their bounds, the
-                  forces kernel beside its time before the each-pair-once
-                  design (BEFORE_MS)
+                  rows live in device memory; the energy's sums are per
+                  tile entry and per block, in a fixed order)
+ 16. timing       both at R = 64 as in phase 4, with their bounds, each
+                  beside its time before the each-pair-once design
+                  (BEFORE_MS)
  17. LJ slice     64 rungs (94.4-150 K) x 864 atoms: ``run_fused(
                   chunk_cycles=4)``, 8 DEO cycles then 3 matrix cycles,
                   then 4 cycles of the per-cycle ``run`` from the same
@@ -270,13 +279,25 @@ FA_SOFTCAP, FA_SOFTCAP_Q = 30.0, 20.0
 # Kernel times before the current designs, at the same shapes: kernel 3
 # (fused BAOAB, R = 384, N = 2881; every ordered pair, divisions),
 # kernel 8 (flash attention, OLMo-1B prefill shape, bf16 on the CUDA
-# cores), kernel 2 (nonbonded, R = 64, N = 2881) and kernel 6 (LJ fluid
-# forces, R = 64, N = 864), the last two with every ordered pair and
-# divisions, measured by this script on an NVIDIA H100 80GB HBM3 at
-# 700 W as PERF.md section 6 records them; printed beside this run's
-# times.
+# cores), kernel 2 (nonbonded, R = 64, N = 2881), kernels 6 and 7 (LJ
+# fluid forces and energy, R = 64, N = 864), the last three with every
+# ordered pair and divisions; kernels 1 and 1b (bonded, R = 64 and 384,
+# N = 2881; an (R, 6W, 3) edge scratch between two launches) and the
+# list build (R = 384, N = 2881; every pair tested, flag 1, and the
+# kept list copied with 4-byte words, flag 0): measured by this script
+# on an NVIDIA H100 80GB HBM3 at 700 W as PERF.md section 6 records
+# them; printed beside this run's times.
 BEFORE_MS = {"fused_baoab": 9.3263, "flash_attention": 5.3706,
-             "nonbonded": 2.1584, "lj_forces": 0.2866}
+             "nonbonded": 2.1584, "lj_forces": 0.2866, "lj_energy": 0.2449,
+             "chain_forces": 0.0227, "chain_forces_bias": 0.1076,
+             "nlist_build": 5.2438, "nlist_build (flag 0)": 0.1435}
+# CUDA launches one call of a wrapper makes (its count goes up by one per
+# call): the bonded kernel's block pass and its energy sum; the list
+# build's box-or-copy pass and its build pass.
+LAUNCHES_PER_CALL = {"chain_forces": 2, "nlist_build": 2}
+# Kernel 3 past its shared-memory rows, R = 1: just above the last N whose
+# rows fit (16,256) and a larger chain.
+N_FUSED_BIG = (16384, 20000)
 # The "no ceiling" sizes, at R = 1: N where the nonbonded kernel's partial
 # force rows no longer fit in shared memory; two fluids far above the main
 # path's 864 atoms.
@@ -631,7 +652,7 @@ def breakdown(driver, ens, ms_cycle: float, smi: str) -> None:
     calls = 2 * n_it
     # kernel names as the trace gives them, mangled or not
     for name, pattern in (
-            ("chain_forces", r"(?<!non)bonded_(edges|gather|energy)_kernel"),
+            ("chain_forces", r"(?<!non)bonded_(block|energy)_kernel"),
             ("nonbonded", r"nonbonded_(pairs|combine)_kernel")):
         dev = sum(e.device_time_total for e in kernels
                   if re.search(pattern, e.name)) / 1e3
@@ -714,8 +735,8 @@ def second_slice_inputs(engine, grid, n_rep: int):
     c1, noise_scale = I.baoab_scales(engine.system.masses,
                                      ctrl["temperature"], engine.dt,
                                      engine.gamma)
-    nz = noise_scale * NZ.step_noise_unrolled(jr.split(key, n_rep), 1,
-                                              (N_ATOMS, 3))
+    nz = noise_scale * NZ.step_noise_unrolled(
+        jr.split(key, n_rep), 1, (engine.system.n_atoms, 3))
     n_steps = torch.full((n_rep,), 10, dtype=torch.int64, device="cuda")
     bias = chain_ops.pack_bias(ctrl["umbrella_center"], ctrl["umbrella_k"],
                                n_rep, "cuda")
@@ -823,6 +844,93 @@ def before_and_bound(name: str, k_ms: float, bound) -> None:
           f"x the bound")
 
 
+def cuda_launches(fn, pattern: str, calls: int = 3) -> float:
+    """CUDA kernels whose name matches ``pattern`` per call of ``fn`` (the
+    launches behind one count of its wrapper), from a profiled session of
+    ``calls`` calls after a warm-up session.  A short session has been
+    seen to report no device events at all late in a long process, so the
+    fullest of three sessions counts (the profiler can lose events, never
+    invent them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for n in (1,) + (calls,) * 3:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and re.search(pattern, e.name)))
+    return max(counts[1:]) / calls
+
+
+def launches_per_call(engine, pos) -> None:
+    """The CUDA launches behind one count of the bonded wrapper and of the
+    list build's (each flag state), profiled at R = 8 here, before any
+    long profiled run: LAUNCHES_PER_CALL."""
+    from repro_torch import random as jr
+    from repro_torch.kernels.chain_forces import ops as chain_ops
+    from repro_torch.kernels.nlist_build import ops as nl_ops
+    sp = sparse_engine("fused")
+    st = sp.init_state(jr.key(SEED, "cuda"), 8)
+    old = (st["nlist"]["idx"], st["nlist"]["valid"])
+    calls = {
+        "chain_forces": (lambda: chain_ops.chain_forces_batched(
+            pos, engine._pack), r"(?<!non)bonded_(block|energy)_kernel"),
+        "nlist_build": (lambda: nl_ops.nlist_build_batched(
+            st["pos"], torch.ones(1, dtype=torch.int32, device="cuda"), old,
+            sp._nb_pack.mask_bits, sp.r_list, sp.k_max),
+            r"nlist_(prep|build)_kernel"),
+        "nlist_build (flag 0)": (lambda: nl_ops.nlist_build_batched(
+            st["pos"], torch.zeros(1, dtype=torch.int32, device="cuda"),
+            old, sp._nb_pack.mask_bits, sp.r_list, sp.k_max),
+            r"nlist_(prep|build)_kernel")}
+    for name, (fn, pattern) in calls.items():
+        want = LAUNCHES_PER_CALL[name.split(" ")[0]]
+        n_k = cuda_launches(fn, pattern)
+        print(f"{name}: {n_k} CUDA launches per call, the wrapper's count "
+              f"+1 (want {want})")
+        check(n_k == want, f"{name}: CUDA launches per call")
+
+
+def no_ceiling_fused(smi: str) -> None:
+    """Kernel 3 at R = 1 for each N of N_FUSED_BIG, where its force rows
+    live in device memory (variant "rows_l2"): one fused iteration (bias
+    on, salt on) against its plain version with phase 7's tolerances,
+    then its device time."""
+    from repro_torch.kernels.fused_propagate import ops as fused_ops
+    grid = tsu_grid()
+    for n in N_FUSED_BIG:
+        engine = tsu_engine("fused", n)
+        d = second_slice_inputs(engine, grid, 1)
+        for name in ("bias on", "salt on"):
+            args = d["fused"][name]
+            v0 = dict(fused_ops.LIBRARY.variants)
+            got = fused_ops.fused_baoab_batched(*args)
+            moved = {k: v - v0.get(k, 0)
+                     for k, v in fused_ops.LIBRARY.variants.items()
+                     if v != v0.get(k, 0)}
+            want = fused_ops.fused_iteration_plain(*args)
+            ep, ev = rel(got[0], want[0]), rel(got[1], want[1])
+            print(f"N={n} R=1 fused iteration, {name}: pos {ep:.2e} (tol "
+                  f"{TOL_FUSED_POS}), vel {ev:.2e} (tol {TOL_FUSED_VEL}); "
+                  f"variant {moved}")
+            check(moved == {"rows_l2": 1}, f"N={n}: the force rows in "
+                                           f"device memory")
+            check(ep <= TOL_FUSED_POS and ev <= TOL_FUSED_VEL
+                  and bool(torch.isfinite(got[1]).all()),
+                  f"N={n}: fused kernel vs plain ({name})")
+            del want
+        k_ms = graph_ms(lambda: fused_ops.fused_baoab_batched(
+            *d["fused"]["bias on"]), calls=2, reps=3)
+        print(f"fused_baoab at N={n}, R=1 (rows in device memory): kernel "
+              f"{k_ms:.4f} ms device (graph replay) [{smi}]")
+        del engine, d
+
+
 def bounds_second(engine, n_rep: int):
     """(bound_ms, bound_by) of the second slice's kernels at R = C =
     ``n_rep``, from this run's data, as in ``bounds``."""
@@ -884,6 +992,8 @@ def run_tsu(libs, smi: str):
         ens = driver.run_fused(ens, chunk_cycles=3)
         wall = time.perf_counter() - t0
         launches = {lib.name: lib.launches for lib in libs}
+        rows = dict(next(lib for lib in libs
+                         if lib.name == "fused_baoab").variants)
         want = {"chain_forces": 0, "nonbonded": 0,
                 "fused_baoab": n_cycles * 11,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
@@ -899,9 +1009,13 @@ def run_tsu(libs, smi: str):
         print(f"{scheme}: replica-steps/s "
               f"{R_TSU * 10 / ms_cycle * 1e3:.0f}")
         print(f"{scheme}: acceptance by dimension {acc}")
-        print(f"{scheme}: launches {launches} (want {want})")
+        print(f"{scheme}: launches {launches} (want {want}); fused kernel "
+              f"variants {rows}")
         check(launches == want, f"{scheme}: fused kernel cycles x 11, no "
               f"per-pass kernel, exchange matrix once per matrix cycle")
+        check(rows == {"rows_shared": n_cycles * 11},
+              f"{scheme}: the fused kernel's rows in shared memory at "
+              f"N={N_ATOMS}")
         check(control_multiset_ok(ens), f"{scheme}: assignment is a "
                                         f"permutation")
         check(failed == 0, f"{scheme}: no replica failed")
@@ -1153,7 +1267,7 @@ def compare_third(engine, grid, n_rep: int, tag: str):
                  torch.int32)}
     build_err = 0
     for name, flag in flags.items():
-        got_b = nl_ops.nlist_build_batched(pos, flag, old, pk.mask_u8,
+        got_b = nl_ops.nlist_build_batched(pos, flag, old, pk.mask_bits,
                                            engine.r_list, engine.k_max)
         want_b = nl_ops.build_gated_plain(pos, flag, old, pk.nb_mask,
                                           engine.r_list, engine.k_max)
@@ -1168,7 +1282,7 @@ def compare_third(engine, grid, n_rep: int, tag: str):
                   and torch.equal(got_b[1], old[1])
                   and int(got_b[2].abs().sum()) == 0,
                   "flag 0 leaves the list unchanged")
-    got_b = nl_ops.nlist_build_batched(pos, None, None, pk.mask_u8,
+    got_b = nl_ops.nlist_build_batched(pos, None, None, pk.mask_bits,
                                        engine.r_list, K_LOW)
     want_b = nl_ops.build_gated_plain(pos, None, None, pk.nb_mask,
                                       engine.r_list, K_LOW)
@@ -1177,6 +1291,19 @@ def compare_third(engine, grid, n_rep: int, tag: str):
           f"{int(got_b[2].sum())} pairs")
     check(same and int(got_b[2].min()) > 0,
           f"build kernel vs plain with dropped pairs at R={n_rep}")
+    # a random gas in a 60 A box: no locality in the atom order, so the
+    # cull keeps many more tiles; the lists must not change
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gas = 60.0 * torch.rand(pos.shape, device="cuda", generator=gen)
+    for name, flag in flags.items():
+        got_b = nl_ops.nlist_build_batched(gas, flag, old, pk.mask_bits,
+                                           engine.r_list, engine.k_max)
+        want_b = nl_ops.build_gated_plain(gas, flag, old, pk.nb_mask,
+                                          engine.r_list, engine.k_max)
+        same = all(torch.equal(a, b) for a, b in zip(got_b, want_b))
+        print(f"{tag} build on a random gas (60 A box), {name}: bitwise "
+              f"equal {same}, dropped {int(got_b[2].sum())}")
+        check(same, f"build kernel vs plain on a gas ({name}) at R={n_rep}")
     out["nlist_build"] = float(build_err)
     return out, state, census
 
@@ -1198,11 +1325,12 @@ def timing_third(engine, state, smi: str):
             lambda: nb_ops.nonbonded_sparse_batched(*args),
             lambda: sparse_plain(*args), 10),
         "nlist_build": (
-            lambda: nl_ops.nlist_build_batched(pos, on, old, pk.mask_u8, *b),
+            lambda: nl_ops.nlist_build_batched(pos, on, old, pk.mask_bits,
+                                               *b),
             lambda: nl_ops.build_gated_plain(pos, on, old, pk.nb_mask, *b),
             3),
         "nlist_build (flag 0)": (
-            lambda: nl_ops.nlist_build_batched(pos, off, old, pk.mask_u8,
+            lambda: nl_ops.nlist_build_batched(pos, off, old, pk.mask_bits,
                                                *b),
             lambda: nl_ops.build_gated_plain(pos, off, old, pk.nb_mask, *b),
             3),
@@ -1220,11 +1348,14 @@ def timing_third(engine, state, smi: str):
 
 
 def bounds_third(engine, n_rep: int, census: dict):
-    """(bound_ms, bound_by) of the sparse kernel and the build kernel at
+    """(bound_ms, bound_by) of the sparse kernel and the build kernels at
     this run's list: the sparse pass needs each unordered pair within the
     cutoff once (PAIR_OPS) and a distance test of each listed pair past
-    it; the build a distance test of each unexcluded unordered pair; the
-    build with flag 0 only reads and writes the list."""
+    it; the build reads the positions and writes the list and dropped
+    (its bytes: a culled build does not test every pair, so the O(N^2)
+    figure of a distance test per unexcluded pair is printed as "all
+    pairs", not taken as the bound); the build with flag 0 only reads and
+    writes the list."""
     nb = engine._nb_pack
     n, k = engine.system.n_atoms, engine.k_max
     table = n_rep * n * k * (4 + 4)                 # idx int32 + valid f32
@@ -1236,9 +1367,8 @@ def bounds_third(engine, n_rep: int, census: dict):
             stack + 3 * n * 4 + table + 2 * stack + 2 * n_rep * 4,
             census["within"] // 2 * PAIR_OPS
             + (census["valid"] - census["within"]) // 2 * DIST_TEST_OPS),
-        # pos, mask and flag in; the list and dropped out
-        "nlist_build": (stack + nb.mask_u8.numel() + 4 + table + n_rep * 4,
-                        n_rep * n_pairs * DIST_TEST_OPS),
+        # positions in; the list and dropped out
+        "nlist_build": (stack + table + n_rep * 4, 0),
         "nlist_build (flag 0)": (4 + 2 * table + n_rep * 4, 0),
     }
     out = {}
@@ -1248,6 +1378,11 @@ def bounds_third(engine, n_rep: int, census: dict):
                      "bytes" if t_bytes >= t_ops else "operations")
         print(f"{name} bound: {nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP "
               f"-> {out[name][0]:.5f} ms ({out[name][1]})")
+    all_ops = n_rep * n_pairs * DIST_TEST_OPS
+    print(f"nlist_build, all pairs (a distance test of each of {n_pairs} "
+          f"unexcluded unordered pairs per replica, not the bound): "
+          f"{all_ops / 1e9:.4f} GFLOP -> "
+          f"{all_ops / FP32_FLOPS_PER_S * 1e3:.5f} ms")
     return out
 
 
@@ -1400,8 +1535,8 @@ def breakdown_sparse(runs, smi: str) -> None:
           f"busy share of the measured ms/cycle {busy / ms:.3f}")
     for name, pattern, calls in (
             ("nonbonded_sparse", r"nonbonded_sparse_kernel", 12),
-            ("nlist_build", r"nlist_build_kernel", 11),
-            ("chain_forces (bias)", r"bonded_(edges|gather|energy)_kernel",
+            ("nlist_build", r"nlist_(prep|build)_kernel", 11),
+            ("chain_forces (bias)", r"(?<!non)bonded_(block|energy)_kernel",
              11)):
         dev = sum(e.device_time_total for e in kernels
                   if re.search(pattern, e.name)) / 1e3
@@ -1563,10 +1698,12 @@ def compare_fourth(engine, n_rep: int, tag: str):
 
 
 def no_ceiling_lj() -> None:
-    """The forces kernel at R = 1 and argon's density (Rahman's 864
-    atoms in 34.8 A) for each N of LJ_BIG, after 10 MD steps, against its
-    plain version within TOL_LJ_FORCE (its partial rows live in device
-    memory at every N)."""
+    """The forces and energy kernels at R = 1 and argon's density
+    (Rahman's 864 atoms in 34.8 A) for each N of LJ_BIG, after 10 MD
+    steps, against their plain versions within TOL_LJ_FORCE and
+    TOL_LJ_ENERGY (the forces' partial rows live in device memory at
+    every N; the energy's sums are per tile entry, per block, then block
+    by block)."""
     from repro_torch.kernels.lj_forces import ops as nb_ops
     for n in LJ_BIG:
         engine = lj_engine(n, LJ_BOX * (n / LJ_ATOMS) ** (1 / 3))
@@ -1580,11 +1717,11 @@ def no_ceiling_lj() -> None:
         check(ef <= TOL_LJ_FORCE and bool(torch.isfinite(f_k).all()),
               f"N={n}: forces kernel vs plain")
         del f_p
-        # the energy kernel, not redesigned: printed only (ROADMAP P8)
-        ee = rel(nb_ops.lj_energy_batched(pos, *args),
-                 nb_ops.ref.lj_energy(pos, *args))
-        print(f"N={n} R=1: energy kernel vs plain {ee:.2e} (printed; "
-              f"TOL_LJ_ENERGY {TOL_LJ_ENERGY} holds at N={LJ_ATOMS})")
+        e_k = nb_ops.lj_energy_batched(pos, *args)
+        ee = rel(e_k, nb_ops.ref.lj_energy(pos, *args))
+        print(f"N={n} R=1: energy {ee:.2e} (tol {TOL_LJ_ENERGY})")
+        check(ee <= TOL_LJ_ENERGY and bool(torch.isfinite(e_k).all()),
+              f"N={n}: energy kernel vs plain")
 
 
 def timing_fourth(engine, pos, smi: str):
@@ -1786,7 +1923,7 @@ def breakdown_lj(runs, smi: str) -> None:
           f"busy share of the measured ms/cycle {busy / ms:.3f}")
     for name, pattern, calls in (
             ("lj_forces", r"lj_forces_(pairs|combine)_kernel", 22),
-            ("lj_energy", r"lj_energy_kernel|block_energy_kernel", 2)):
+            ("lj_energy", r"lj_energy_(pairs|combine)_kernel", 2)):
         dev = sum(e.device_time_total for e in kernels
                   if re.search(pattern, e.name)) / 1e3
         print(f"profiled DEO chunk: {name} {dev / calls:.4f} ms device per "
@@ -2277,6 +2414,8 @@ def main() -> int:
     times = timing(engine, pos, smi)
     bound = bounds(engine, R_MAIN)
     before_and_bound("nonbonded", times["nonbonded"][0], bound)
+    before_and_bound("chain_forces", times["chain_forces"][0], bound)
+    launches_per_call(engine, pos)
     no_ceiling_nonbonded(smi)
 
     launches, ms_cycle, driver, ens = run_slice(libs, smi)
@@ -2294,7 +2433,10 @@ def main() -> int:
     times.update(timing_second(tsu, inputs, smi))
     bound.update(bounds_second(tsu, R_TSU))
     before_and_bound("fused_baoab", times["fused_baoab"][0], bound)
+    before_and_bound("chain_forces_bias", times["chain_forces_bias"][0],
+                     bound)
     del inputs
+    no_ceiling_fused(smi)
 
     runs = run_tsu(libs, smi)
     breakdown_tsu(runs, smi)
@@ -2313,6 +2455,8 @@ def main() -> int:
     bound3 = bounds_third(sp, R_TSU, census)
     times.update(times3)
     bound.update(bound3)
+    for name in ("nlist_build", "nlist_build (flag 0)"):
+        before_and_bound(name, times[name][0], bound)
     del sp_state
     sparse_runs = run_tsu_sparse(libs, smi)
     breakdown_sparse(sparse_runs, smi)
@@ -2330,6 +2474,7 @@ def main() -> int:
     times.update(timing_fourth(lj, lj_pos, smi))
     bound.update(bounds_fourth(R_MAIN, LJ_ATOMS))
     before_and_bound("lj_forces", times["lj_forces"][0], bound)
+    before_and_bound("lj_energy", times["lj_energy"][0], bound)
     del lj_pos
     lj_runs = run_lj(libs, smi)
     breakdown_lj(lj_runs, smi)

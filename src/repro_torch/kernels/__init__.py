@@ -39,7 +39,7 @@ source, the shared headers of ``csrc/`` and the flags) at first use, and
 loads it with ``ctypes``.  Device code that two kernels share lives once
 in ``csrc/``: the bonded terms and the neighbor-list pair term in
 ``md_terms.cuh``, the all-pairs tile walk (each unordered pair once, for
-``nonbonded.cu`` and ``lj_fluid.cu``'s forces kernel) in
+``nonbonded.cu`` and ``lj_fluid.cu``'s forces and energy kernels) in
 ``pair_tiles.cuh``.
 """
 from __future__ import annotations

@@ -114,13 +114,16 @@ def _dot(a, b):
 
 def _edge_grads(pos, top: ChainTopology,
                 umbrella_center: Optional[torch.Tensor] = None,
-                umbrella_k: Optional[torch.Tensor] = None):
+                umbrella_k: Optional[torch.Tensor] = None,
+                per_term: bool = False):
     """Per-edge gradient tensors + bonded energy — the O(W) half both
     contractions share.  Returns (edges (..., 6, 3, W), e_bonded (...,)),
     one lane-padded gradient row per role; geometry runs on (..., 3, W)
     component tensors as in the JAX package.  ``umbrella_center`` /
     ``umbrella_k`` (..., U), U in {1, 2}, add the bias torque on the
-    appended phi (and psi) quads; the energy stays ctrl-independent."""
+    appended phi (and psi) quads; the energy stays ctrl-independent.
+    ``per_term``: the energy as (..., B + A + Q) term energies (bonds,
+    angles, torsions) instead of their sum."""
     nb, na, nq = (top.bonds.shape[0], top.angles.shape[0],
                   top.quads.shape[0])
     g = torch.index_select(pos, -2, top.gather_idx).transpose(-1, -2)
@@ -134,7 +137,8 @@ def _edge_grads(pos, top: ChainTopology,
     # bonds: dE/dr_i = 2k(r - r0) d/r
     d = seg(0, nb) - seg(nb, nb) + 1e-12
     r = torch.sqrt(_dot(d, d))
-    e_bond = torch.sum(top.bond_k * (r - top.bond_r0) ** 2, dim=-1)
+    t_bond = top.bond_k * (r - top.bond_r0) ** 2
+    e_bond = torch.sum(t_bond, dim=-1)
     cb = 2.0 * top.bond_k * (r - top.bond_r0) / r
 
     # angles
@@ -148,7 +152,8 @@ def _edge_grads(pos, top: ChainTopology,
     cosv = dot / den
     cc = torch.clamp(cosv, -1 + 1e-6, 1 - 1e-6)
     theta = torch.acos(cc)
-    e_angle = torch.sum(top.angle_k * (theta - top.angle_t0) ** 2, dim=-1)
+    t_angle = top.angle_k * (theta - top.angle_t0) ** 2
+    e_angle = torch.sum(t_angle, dim=-1)
     interior = ((cosv > -1 + 1e-6) & (cosv < 1 - 1e-6)).to(cosv.dtype)
     g_c = (2.0 * top.angle_k * (theta - top.angle_t0)
            * (-1.0 / torch.sqrt(1.0 - cc * cc)) * interior)
@@ -168,9 +173,9 @@ def _edge_grads(pos, top: ChainTopology,
     nb1 = torch.sqrt(_dot(b1, b1))
     m1 = torch.linalg.cross(n1v, b1 / ex(nb1 + 1e-9), dim=-2)
     phi = torch.atan2(_dot(m1, n2v), _dot(n1v, n2v))
-    e_dih = torch.sum(top.quad_k * (1.0 + torch.cos(top.quad_n * phi
-                                                    - top.quad_phase)),
-                      dim=-1)
+    t_dih = top.quad_k * (1.0 + torch.cos(top.quad_n * phi
+                                          - top.quad_phase))
+    e_dih = torch.sum(t_dih, dim=-1)
     torque = -top.quad_k * top.quad_n * torch.sin(top.quad_n * phi
                                                   - top.quad_phase)
     if umbrella_center is not None:
@@ -198,6 +203,8 @@ def _edge_grads(pos, top: ChainTopology,
                          pad_w(ex(c0) * n1v),
                          pad_w(ex(d1a) * n1v + ex(d1b) * n2v),
                          pad_w(ex(c2) * n2v)], dim=-3)     # (..., 6, 3, W)
+    if per_term:
+        return edges, torch.cat([t_bond, t_angle, t_dih], dim=-1)
     return edges, e_bond + e_angle + e_dih
 
 

@@ -1,8 +1,7 @@
 // Device code shared by the port's force kernels, written once: the bonded
 // term gradients (chain_forces.cu, fused_baoab.cu), the nonbonded pair term
-// of the neighbor-list kernel (nonbonded_sparse.cu) and the fixed-order
-// energy sums (nonbonded_sparse.cu, lj_fluid.cu's energy kernel).  The
-// all-pairs walk of nonbonded.cu and lj_fluid.cu's forces kernel is
+// of the neighbor-list kernel (nonbonded_sparse.cu) and its fixed-order
+// energy sums.  The all-pairs walk of nonbonded.cu and lj_fluid.cu is
 // pair_tiles.cuh.  The TPU kernels share
 // the same math the same way: fused_propagate/kernel.py calls
 // chain_forces/kernel.py:bonded_scatter_rows and

@@ -1,6 +1,7 @@
 // Every unordered pair of atoms once, with Newton's third law and without
-// float atomics: the tile-pair walk of the all-pairs force kernels
-// (lj_forces/csrc/nonbonded.cu, lj_forces/csrc/lj_fluid.cu).
+// float atomics: the tile-pair walk of the all-pairs kernels
+// (lj_forces/csrc/nonbonded.cu, lj_forces/csrc/lj_fluid.cu's forces and
+// energy kernels).
 //
 //   * The atoms are cut into n_t = ld / 64 tiles (ld a multiple of 128, so
 //     n_t is even).  The host's schedule table (lj_forces/ops.py
@@ -31,7 +32,8 @@
 //     (lj_forces/ops.py rows_in_shared), else in that scratch too.  So N
 //     has no ceiling.
 //
-// A policy P supplies the physics: kRows force sums per atom, kUnroll
+// A policy P supplies the physics: kRows force sums per atom (0 for the
+// fluid's energy kernel, whose walk carries no rows), kUnroll
 // (the unroll of the 32-step walk, timed per kernel on the card), the
 // i-atom constants (Atom, load_i), the staged j-atom (JAtom, stage,
 // load_j), the pair term (pair<kMasked>: F_i += c d, F_j -= c d, energies
@@ -51,9 +53,10 @@ constexpr int kPT = 64;          // atoms per tile; PAIR_TILE in lj_forces/ops.p
 constexpr int kMaxWarps = 24;    // MAX_WARPS in lj_forces/ops.py
 constexpr int kMaxSmem = 232448; // SMEM_LIMIT in lj_forces/ops.py
 
+// NR = 0 (a policy with energy sums only) keeps one unused float.
 template <int NR>
 struct Sums {
-  float v[NR];
+  float v[NR > 0 ? NR : 1];
   __device__ __forceinline__ Sums() {
 #pragma unroll
     for (int k = 0; k < NR; ++k) v[k] = 0.f;

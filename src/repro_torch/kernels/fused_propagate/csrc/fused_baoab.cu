@@ -15,8 +15,9 @@
 // velocities and noise in, positions and velocities out, the pack's
 // 1.1 MB exclusion bits) are a few tens of MB.
 //
-// Design.  One block per replica; the replica's nonbonded force rows live
-// in shared memory (ld x 3 floats), summed without atomics:
+// Design.  One block per replica; the replica's nonbonded force rows (ld x 3
+// floats) live in shared memory where they fit and in device memory above,
+// summed without atomics either way:
 //   * The atoms are cut into n_t = ld / 64 tiles.  Each unordered pair of
 //     tiles (I < J) is visited once, by one warp, which adds the pair
 //     forces to both tiles' rows (Newton's third law): lane l owns i-atoms
@@ -53,9 +54,13 @@
 //     pos/vel, write npos/nvel); noise comes in pre-scaled (noise_scale *
 //     xi, drawn by md/noise.py); energies are not an output.
 // The block is n_t / 2 warps (at most 24), so every warp of a round has a
-// tile pair; shared memory is ld x 12 bytes of force rows plus 1.5 KB of
-// staged j atoms per warp (70 KB at N = 2881), which bounds N at about
-// 15,000 atoms.
+// tile pair; shared memory is 1.5 KB of staged j atoms per warp plus, in
+// the kRowsShared layout, ld x 12 bytes of force rows (70 KB at N = 2881).
+// Past ld = 16,256 the rows do not fit beside 24 warps' staging, so the
+// wrapper (fused_propagate/ops.py rows_in_shared, by N alone) gives each
+// replica an ld x 3 float scratch in device memory instead, reached by the
+// same code through a global pointer (the L2 holds it; pair_tiles.cuh's
+// pattern): the same sums in the same order, and no ceiling on N.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -265,7 +270,9 @@ __device__ void tile_diag(const Ctx& c, int I, int lane) {
   add_row(c, i1, f1);
 }
 
-template <bool kBias>
+// kRowsShared: the force rows in shared memory after the staging buffers;
+// else rows_g[r] (3, ld) in device memory.
+template <bool kBias, bool kRowsShared>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1) fused_baoab_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ noise, const float* __restrict__ step_par,
@@ -274,8 +281,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) fused_baoab_kernel(
     const float* __restrict__ sigma, const float* __restrict__ sqrt_eps,
     const float* __restrict__ charge, const uint32_t* __restrict__ bits,
     const uint8_t* __restrict__ kept, const float* __restrict__ masses,
-    float* __restrict__ npos, float* __restrict__ nvel, int N, int ld, int W,
-    int S, float coulomb, float c1, float half_kick, float half_dt) {
+    float* __restrict__ rows_g, float* __restrict__ npos,
+    float* __restrict__ nvel, int N, int ld, int W, int S, float coulomb,
+    float c1, float half_kick, float half_dt) {
   extern __shared__ float4 smem4[];
   const int r = blockIdx.x, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, n_warps = blockDim.x / 32;
@@ -290,9 +298,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) fused_baoab_kernel(
   c.bits = bits;
   c.jxq = smem4 + warp * kFT;
   c.jse = reinterpret_cast<float2*>(smem4 + n_warps * kFT) + warp * kFT;
-  c.fx = reinterpret_cast<float*>(reinterpret_cast<float2*>(
-                                      smem4 + n_warps * kFT) +
-                                  n_warps * kFT);
+  if (kRowsShared)
+    c.fx = reinterpret_cast<float*>(reinterpret_cast<float2*>(
+                                        smem4 + n_warps * kFT) +
+                                    n_warps * kFT);
+  else
+    c.fx = rows_g + (size_t)r * 3 * ld;
   c.fy = c.fx + ld;
   c.fz = c.fy + ld;
   c.N = N;
@@ -357,40 +368,36 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) fused_baoab_kernel(
 }
 
 template <bool kBias>
-int launch(dim3 grid, int threads, int smem, cudaStream_t st,
+int launch(bool shared, dim3 grid, int threads, int smem, cudaStream_t st,
            const float* pos, const float* vel, const float* noise,
            const float* step_par, const float* bias,
            const md::BondedTables& tab, const int* slot_idx,
            const float* slot_sign, const float* sigma, const float* sqrt_eps,
            const float* charge, const uint32_t* bits, const uint8_t* kept,
-           const float* masses, float* npos, float* nvel, int N, int ld,
-           int W, int S, float coulomb, float c1, float half_kick,
-           float half_dt) {
-  static bool attr_set = false;   // before any graph capture: first call
-  if (!attr_set) {
+           const float* masses, float* rows_g, float* npos, float* nvel,
+           int N, int ld, int W, int S, float coulomb, float c1,
+           float half_kick, float half_dt) {
+  auto kernel = fused_baoab_kernel<kBias, true>;
+  if (!shared) kernel = fused_baoab_kernel<kBias, false>;
+  static bool attr_set[2] = {false, false};  // before any graph capture
+  if (!attr_set[shared]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_baoab_kernel<kBias>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    attr_set[shared] = true;
   }
-  fused_baoab_kernel<kBias><<<grid, threads, smem, st>>>(
+  kernel<<<grid, threads, smem, st>>>(
       pos, vel, noise, step_par, bias, tab, slot_idx, slot_sign, sigma,
-      sqrt_eps, charge, bits, kept, masses, npos, nvel, N, ld, W, S, coulomb,
-      c1, half_kick, half_dt);
+      sqrt_eps, charge, bits, kept, masses, rows_g, npos, nvel, N, ld, W, S,
+      coulomb, c1, half_kick, half_dt);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared memory one launch needs for ld padded atoms (0 if over the limit).
-extern "C" int fused_baoab_smem_bytes(int ld) {
-  const int n_warps = ld / kFT / 2 < kMaxWarps ? ld / kFT / 2 : kMaxWarps;
-  const int bytes = n_warps * kFT * (16 + 8) + ld * 3 * 4;
-  return bytes <= kMaxSmem ? bytes : 0;
-}
-
-// bias: the (R, 8) umbrella rows, or null for the bias=False variant.
+// bias: the (R, 8) umbrella rows, or null for the bias=False variant;
+// rows_g: an (R, 3, ld) scratch for the force rows, or null to keep them in
+// shared memory (they must fit: fused_propagate/ops.py rows_in_shared).
 extern "C" int fused_baoab_launch(
     const float* pos, const float* vel, const float* noise,
     const float* step_par, const float* bias, const int* bonds,
@@ -398,26 +405,28 @@ extern "C" int fused_baoab_launch(
     const int* quads, const float* quad_par, const int* slot_idx,
     const float* slot_sign, const float* sigma, const float* sqrt_eps,
     const float* charge, const uint32_t* bits, const uint8_t* kept,
-    const float* masses, float* npos, float* nvel, int R, int N, int ld,
-    int B, int A, int Q, int W, int S, float coulomb, float c1,
-    float half_kick, float half_dt, void* stream) {
+    const float* masses, float* rows_g, float* npos, float* nvel, int R,
+    int N, int ld, int B, int A, int Q, int W, int S, float coulomb,
+    float c1, float half_kick, float half_dt, void* stream) {
   if (R == 0) return 0;
-  const int smem = fused_baoab_smem_bytes(ld);
-  if (ld % (2 * kFT) != 0 || smem == 0)
+  const bool shared = rows_g == nullptr;
+  const int n_half = ld / kFT / 2;
+  const int n_warps = n_half < kMaxWarps ? n_half : kMaxWarps;
+  const int smem = n_warps * kFT * (16 + 8) + (shared ? ld * 3 * 4 : 0);
+  if (ld % (2 * kFT) != 0 || ld < N || smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const md::BondedTables tab{bonds, bond_par, angles, ang_par,
                              quads, quad_par, B, A, Q};
-  const int n_half = ld / kFT / 2;
-  const int threads = 32 * (n_half < kMaxWarps ? n_half : kMaxWarps);
   const dim3 grid(R);
   if (bias != nullptr)
-    return launch<true>(grid, threads, smem, st, pos, vel, noise, step_par,
-                        bias, tab, slot_idx, slot_sign, sigma, sqrt_eps,
-                        charge, bits, kept, masses, npos, nvel, N, ld, W, S,
-                        coulomb, c1, half_kick, half_dt);
-  return launch<false>(grid, threads, smem, st, pos, vel, noise, step_par,
-                       nullptr, tab, slot_idx, slot_sign, sigma, sqrt_eps,
-                       charge, bits, kept, masses, npos, nvel, N, ld, W, S,
-                       coulomb, c1, half_kick, half_dt);
+    return launch<true>(shared, grid, 32 * n_warps, smem, st, pos, vel,
+                        noise, step_par, bias, tab, slot_idx, slot_sign,
+                        sigma, sqrt_eps, charge, bits, kept, masses, rows_g,
+                        npos, nvel, N, ld, W, S, coulomb, c1, half_kick,
+                        half_dt);
+  return launch<false>(shared, grid, 32 * n_warps, smem, st, pos, vel, noise,
+                       step_par, nullptr, tab, slot_idx, slot_sign, sigma,
+                       sqrt_eps, charge, bits, kept, masses, rows_g, npos,
+                       nvel, N, ld, W, S, coulomb, c1, half_kick, half_dt);
 }

@@ -38,8 +38,21 @@ from repro_torch.md import noise as NZ
 LIBRARY = KernelLibrary(
     "fused_baoab", Path(__file__).parent / "csrc" / "fused_baoab.cu")
 
-_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+STAGE_BYTES = 24    # a staged j atom in the kernel: x, y, z, q, sigma / 2,
+                    # sqrt(eps)
+
+
+def rows_in_shared(ld: int) -> bool:
+    """Whether a replica's three force rows of ``ld`` floats fit in the
+    kernel's shared memory beside its warps' staged j atoms: up to
+    ld = 16,256 (so N <= 16,256).  Above, they live in an (R, 3, ld)
+    scratch in device memory (variant "rows_l2"), the same sums in the
+    same order."""
+    staged = (nb_ops.pair_warps(ld // nb_ops.PAIR_TILE) * nb_ops.PAIR_TILE
+              * STAGE_BYTES)
+    return staged + 3 * ld * 4 <= nb_ops.SMEM_LIMIT
 
 
 def step_par(i: int, n_steps: torch.Tensor, max_steps: int,
@@ -57,8 +70,9 @@ def fused_baoab_batched(pos, vel, noise, st, bias: Optional[torch.Tensor],
                         cpack, npack, masses, c1: float, dt: float):
     """The kernel: CUDA (R, N, 3) pos / vel / pre-scaled noise, (R, 8)
     step rows, (R, 8) bias rows or None -> (new pos, new vel) in one
-    launch (one block per replica, its force rows in shared memory: N up
-    to about 15,000 atoms); anything else raises."""
+    launch (one block per replica, its force rows in shared memory up to
+    N = 16,256 and in device memory above); anything else raises.
+    Counted under the variant "rows_shared" or "rows_l2"."""
     r, n, _ = pos.shape
     tables = (cpack.bonds, cpack.bond_par, cpack.angles, cpack.ang_par,
               cpack.quads, cpack.quad_par, cpack.slot_idx, cpack.slot_sign,
@@ -82,22 +96,23 @@ def fused_baoab_batched(pos, vel, noise, st, bias: Optional[torch.Tensor],
             raise ValueError(f"{name} must be float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     ld = npack.mask_bits.shape[0]
-    smem = LIBRARY.function("fused_baoab_smem_bytes", [ctypes.c_int])
-    if smem(ld) == 0:
-        raise ValueError(f"{n} atoms: the replica's force rows do not fit "
-                         f"in one block's shared memory")
+    shared = rows_in_shared(ld)
+    rows = (None if shared else
+            torch.empty((r, 3, ld), dtype=torch.float32, device=pos.device))
     fn = LIBRARY.function("fused_baoab_launch", _ARGTYPES)
     npos = torch.empty_like(pos)
     nvel = torch.empty_like(vel)
     ptrs = [t.data_ptr() for t in (pos, vel, noise, st)]
     ptrs += [None if bias is None else bias.data_ptr()]
-    ptrs += [t.data_ptr() for t in tables + (npos, nvel)]
+    ptrs += [t.data_ptr() for t in tables]
+    ptrs += [None if rows is None else rows.data_ptr()]
+    ptrs += [npos.data_ptr(), nvel.data_ptr()]
     code = fn(*ptrs, r, n, ld, cpack.bonds.shape[0],
               cpack.angles.shape[0], cpack.quads.shape[0],
               cpack.top.edge_width, cpack.slots.n_slots, nb_ref.COULOMB, c1,
               0.5 * dt * I.AKMA, 0.5 * dt, stream_ptr())
     raise_on_error(code, "fused_baoab")
-    LIBRARY.count()
+    LIBRARY.count("rows_shared" if shared else "rows_l2")
     return npos, nvel
 
 

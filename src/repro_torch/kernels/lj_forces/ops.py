@@ -14,12 +14,12 @@ The chain nonbonded kernels:
 
 ``build_pack(system)`` keeps the system's per-atom parameters and builds
 what the CUDA kernels read, once: the sqrt(eps) row, a uint8 copy of
-the 0/1 exclusion mask (the neighbor-list build reads it) and the same
-mask as 32-bit rows of bits with a flag per pair of 64-atom tiles that
-no exclusion touches (``tile_flags``; the all-pairs and fused kernels
-read these).
+the 0/1 exclusion mask and the same mask as 32-bit rows of bits with a
+flag per pair of 64-atom tiles that no exclusion touches
+(``tile_flags``; the all-pairs and fused kernels read these, the
+neighbor-list build the bits).
 
-The all-pairs kernels (``csrc/nonbonded.cu``, the forces kernel of
+The all-pairs kernels (``csrc/nonbonded.cu``, both kernels of
 ``csrc/lj_fluid.cu``) visit each unordered pair once through the walk
 of ``csrc/pair_tiles.cuh``; the host side of that walk is here:
 ``tile_schedule`` (the round table), ``block_split`` (blocks per
@@ -133,9 +133,7 @@ def tile_schedule(n_tiles: int, device) -> torch.Tensor:
 LJ_FLUID_LIBRARY = KernelLibrary(
     "lj_fluid", Path(__file__).parent / "csrc" / "lj_fluid.cu")
 
-_ENERGY_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
-    [ctypes.c_float] * 3 + [ctypes.c_void_p]
-_FORCES_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+_FLUID_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
     [ctypes.c_float] * 4 + [ctypes.c_void_p]
 
 
@@ -146,19 +144,34 @@ def _check_stack(pos: torch.Tensor) -> None:
                          f"{pos.dtype} {tuple(pos.shape)}")
 
 
+def _fluid_walk(pos: torch.Tensor, box: float):
+    """The walk's shapes for a fluid stack: (ld, split, schedule, the
+    float32 1 / box, 0 for no box).  Both fluid kernels take two waves
+    (``block_split``), so the energy's block sums, like the forces'
+    partial rows, are added in an order fixed by (R, N)."""
+    r, n, _ = pos.shape
+    ld = pad_to_block(n, TILE)
+    n_tiles = ld // PAIR_TILE
+    inv_box = float(np.float32(1.0 / box)) if box > 0 else 0.0
+    return (ld, block_split(r, n_tiles, waves=2),
+            tile_schedule(n_tiles, pos.device), inv_box)
+
+
 def lj_energy_batched(pos: torch.Tensor, sigma: float, eps: float,
                       box: float) -> torch.Tensor:
     """The energy kernel: a CUDA (R, N, 3) stack -> (R,) in one launch
-    (the block sums, then their in-order sum); anything else raises."""
+    (each pair once on the tile walk, per-block sums, then their in-order
+    sum); anything else raises."""
     _check_stack(pos)
     r, n, _ = pos.shape
     sig2, c4, _, box = ref.fluid_constants(sigma, eps, box)
-    fn = LJ_FLUID_LIBRARY.function("lj_energy_launch", _ENERGY_ARGTYPES)
-    e_part = torch.empty((r, (n + TILE - 1) // TILE), dtype=torch.float32,
-                         device=pos.device)
+    ld, split, sched, inv_box = _fluid_walk(pos, box)
+    fn = LJ_FLUID_LIBRARY.function("lj_energy_launch", _FLUID_ARGTYPES)
+    e_part = torch.empty((r, split), dtype=torch.float32, device=pos.device)
     energy = torch.empty(r, dtype=torch.float32, device=pos.device)
-    code = fn(pos.data_ptr(), e_part.data_ptr(), energy.data_ptr(), r, n,
-              box, sig2, c4, stream_ptr())
+    code = fn(pos.data_ptr(), sched.data_ptr(), e_part.data_ptr(),
+              energy.data_ptr(), r, n, ld, split, box, inv_box, sig2, c4,
+              stream_ptr())
     raise_on_error(code, "lj_energy")
     LJ_FLUID_LIBRARY.count("energy")
     return energy
@@ -172,12 +185,8 @@ def lj_forces_batched(pos: torch.Tensor, sigma: float, eps: float,
     _check_stack(pos)
     r, n, _ = pos.shape
     sig2, _, c24, box = ref.fluid_constants(sigma, eps, box)
-    inv_box = float(np.float32(1.0 / box)) if box > 0 else 0.0
-    fn = LJ_FLUID_LIBRARY.function("lj_forces_launch", _FORCES_ARGTYPES)
-    ld = pad_to_block(n, TILE)
-    n_tiles = ld // PAIR_TILE
-    split = block_split(r, n_tiles, waves=2)
-    sched = tile_schedule(n_tiles, pos.device)
+    ld, split, sched, inv_box = _fluid_walk(pos, box)
+    fn = LJ_FLUID_LIBRARY.function("lj_forces_launch", _FLUID_ARGTYPES)
     part = torch.empty((r, split, 3, ld), dtype=torch.float32,
                        device=pos.device)
     forces = torch.empty_like(pos)

@@ -13,8 +13,11 @@ Tolerance: forces within 1e-5 x max(max |F|, 1), energies 1e-5 relative
 1e-5 A and 1e-4 A/ps (its force, with those errors, enters the velocity
 through dt * AKMA / m); the exchange matrix bitwise (built without FMA
 contraction).  The sparse kernel is held to its plain version like the
-nonbonded kernel; the neighbor-list build kernel bitwise, in both states
-of its device flag (it forms r2 without FMA contraction).  The LJ fluid
+nonbonded kernel; the neighbor-list build kernels bitwise, in both states
+of its device flag (they form r2 without FMA contraction), on the chain
+and on a random gas.  The fused kernel past its shared-memory rows (N =
+16,384 and 20,000) within 1e-6 and 1e-4 of max |plain| in positions and
+velocities, as ``chip_smoke.py`` phase 7 holds it.  The LJ fluid
 kernels are held to their plain versions like the nonbonded kernel, the
 gradient of ``LJEnergy`` bitwise to minus the forces kernel.  The flash
 attention kernel per element within 5e-5 of max |out| of its plain
@@ -317,7 +320,7 @@ def test_sparse_kernel_matches_plain_version(n_atoms, n_rep):
 def test_build_kernel_equals_plain_build_bitwise(k_max):
     eng, pos, nl = _sparse_state(257, 3, k_max=k_max)
     old = (nl["idx"], nl["valid"])
-    mask = eng._nb_pack.mask_u8
+    mask = eng._nb_pack.mask_bits
     flags = {"off": torch.zeros(1, dtype=torch.int32, device="cuda"),
              "on": torch.ones(1, dtype=torch.int32, device="cuda"),
              "rows": torch.tensor([1, 0, 1], dtype=torch.int32,
@@ -337,6 +340,90 @@ def test_build_kernel_equals_plain_build_bitwise(k_max):
     built = nl_ops.nlist_build_batched(pos, flags["on"], old, mask,
                                        eng.r_list, eng.k_max)
     assert (int(built[2].sum()) > 0) == (k_max == 4)
+
+
+def _gas(n_atoms, n_rep, box, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(0, box, (n_rep, n_atoms, 3)).astype(
+        np.float32)).cuda()
+
+
+# The chain at the TSU grid's R = 384 and at R = 4, and a random gas (no
+# locality: many more candidate tiles), each with both flags and a flag
+# row; every call counted once.
+@pytest.mark.parametrize("kind,n_atoms,n_rep", [
+    ("chain", 2881, 4), ("chain", 2881, 384), ("gas", 2881, 4),
+    ("gas", 1000, 3)])
+def test_build_kernels_equal_plain_build_bitwise(kind, n_atoms, n_rep):
+    eng = _sparse_engine("cuda", n_atoms)
+    if kind == "chain":
+        pos = eng.init_state(jr.key(0, "cuda"), n_rep)["pos"]
+    else:
+        pos = _gas(n_atoms, n_rep, 60.0)
+    pk = eng._nb_pack
+    old = nl_ops.build_gated_plain(_gas(n_atoms, n_rep, 60.0, seed=1), None,
+                                   None, pk.nb_mask, eng.r_list,
+                                   eng.k_max)[:2]
+    flags = (torch.zeros(1, dtype=torch.int32, device="cuda"),
+             torch.ones(1, dtype=torch.int32, device="cuda"),
+             (torch.arange(n_rep, device="cuda") % 2).to(torch.int32))
+    for flag in flags:
+        n0 = nl_ops.LIBRARY.launches
+        got = nl_ops.build_gated(pos, flag, old, pk, eng.r_list, eng.k_max)
+        assert nl_ops.LIBRARY.launches == n0 + 1
+        want = nl_ops.build_gated_plain(pos, flag, old, pk.nb_mask,
+                                        eng.r_list, eng.k_max)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (kind, flag.tolist())
+    assert int(want[0].lt(n_atoms).sum()) > 0
+
+
+def _permuted_chain(n_atoms, seed=0):
+    """chain_molecule with its atoms relabelled at random: a topology with
+    no locality in the atom order."""
+    import dataclasses
+    sysm = chain_molecule(n_atoms)
+    perm = np.random.default_rng(seed).permutation(n_atoms)
+    new_of = torch.from_numpy(np.argsort(perm))     # old label -> new label
+    p = torch.from_numpy(perm)
+    return dataclasses.replace(
+        sysm, masses=sysm.masses[p], bonds=new_of[sysm.bonds],
+        angles=new_of[sysm.angles], dihedrals=new_of[sysm.dihedrals],
+        charges=sysm.charges[p], lj_sigma=sysm.lj_sigma[p],
+        lj_eps=sysm.lj_eps[p], nb_mask=sysm.nb_mask[p][:, p],
+        phi_quad=tuple(int(new_of[a]) for a in sysm.phi_quad),
+        psi_quad=tuple(int(new_of[a]) for a in sysm.psi_quad)), perm
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_bonded_kernel_on_a_permuted_topology(bias):
+    sysm, perm = _permuted_chain(700)
+    pos = _state(700, 3)[1][:, torch.from_numpy(perm).cuda()].contiguous()
+    cpack = chain_ops.build_pack(sysm.to("cuda"))
+    center, k = _bias(3, 2) if bias else (None, None)
+    b = chain_ops.pack_bias(center, k, 3, "cuda") if bias else None
+    got = chain_ops.chain_forces_batched(pos, cpack, b)
+    want = chain_ops.ref.bonded_forces_sparse(pos, cpack.top, cpack.slots,
+                                              center, k)
+    _close(got[0], want[0])
+    _close(got[1], want[1], energy=True)
+
+
+@pytest.mark.parametrize("n_atoms,variant", [(2881, "rows_shared"),
+                                             (16384, "rows_l2"),
+                                             (20000, "rows_l2")])
+def test_fused_kernel_past_its_shared_rows(n_atoms, variant):
+    pos, vel, noise, b, cp, npk, m, n_steps, salt_col = _fused_args(
+        n_atoms, 1, True, True)
+    st = fused_ops.step_par(1, n_steps, 2, salt_col)
+    args = (pos, vel, noise, st, b, cp, npk, m, 0.9975, 5e-4)
+    v0 = fused_ops.LIBRARY.variants.get(variant, 0)
+    got = fused_ops.fused_baoab_batched(*args)
+    assert fused_ops.LIBRARY.variants[variant] == v0 + 1
+    want = fused_ops.fused_iteration_plain(*args)
+    for g, w, tol in zip(got, want, (1e-6, 1e-4)):
+        assert float((g - w).abs().max() / w.abs().max()) <= tol
+    assert torch.equal(fused_ops.fused_baoab_batched(*args)[0], got[0])
 
 
 def test_sparse_path_runs_under_the_sync_guard_through_its_kernels(
@@ -431,8 +518,7 @@ def _fluid_box(n_atoms):
 
 # The small cases in a 12 A box, the main path's shape (R = 64, N = 864)
 # and a large N at R = 1 (no ceiling: the forces kernel's partial rows
-# live in device memory).  The energy kernel is held here up to N = 864;
-# at N = 17500 see the next test.
+# live in device memory).
 @pytest.mark.parametrize("n_atoms,n_rep", [
     (27, 1), (27, 3), (64, 1), (64, 3), (130, 1), (130, 3), (257, 1),
     (257, 3), (864, 64), (17500, 1)])
@@ -447,19 +533,17 @@ def test_lj_fluid_kernels_match_plain_versions(n_atoms, n_rep):
     assert lib.variants["forces"] == n0.get("forces", 0) + 1
     _close(f, nb_ops.ref.lj_forces(pos, *args))
     assert torch.equal(nb_ops.lj_forces_batched(pos, *args), f)
+    assert torch.equal(nb_ops.lj_energy_batched(pos, *args), e)
     # the single-configuration entry points: one R = 1 launch each
     _close(nb_ops.lj_forces(pos[0], *args), f[0])
-    if n_atoms <= 864:
-        _close(e, nb_ops.ref.lj_energy(pos, *args), energy=True)
-        _close(nb_ops.lj_energy(pos[0], *args)[None], e[:1], energy=True)
+    _close(e, nb_ops.ref.lj_energy(pos, *args), energy=True)
+    _close(nb_ops.lj_energy(pos[0], *args)[None], e[:1], energy=True)
 
 
-# ROADMAP P8, open: the energy kernel (not yet redesigned) sums every j of
-# an atom in one float32 register, and at N = 17500 lands 4.1e-5 to 7.7e-5
-# of the energy off its plain version, which is 2e-7 off float64.  Strict:
-# once a redesign closes P8 this passes, and the mark must go.
-@pytest.mark.xfail(strict=True, reason="ROADMAP P8: the LJ energy kernel's "
-                   "float32 sums drift at N = 17500")
+# ROADMAP P8 (fixed): an earlier energy kernel summed every j of an atom in
+# one float32 register and at N = 17500 landed 4.1e-5 to 7.7e-5 of the
+# energy off its plain version.  The tile walk's per-entry, per-block and
+# block-order sums hold it to the tolerance.
 def test_lj_energy_kernel_holds_at_17500_atoms():
     args = LJ_ARGS[:2] + (_fluid_box(17500),)
     pos = _fluid(17500, 1, args[2])

@@ -288,3 +288,164 @@ def test_each_pair_once_arithmetic_matches_jax(n_atoms, rinv_err):
             else:
                 err = (np.abs(a - b) / np.abs(b)).max()
                 assert err <= TOL_NB_ENERGY, (name, field, err)
+
+
+# -- the bonded kernel's per-block term tables (csrc/chain_forces.cu) --------
+#
+# The kernel computes, per block of BLOCK_ATOMS atoms, every term that
+# touches the block, keeps the edge vectors in shared memory and sums each
+# atom's slots from there; each term's energy is summed by one owner
+# block, the block sums then in block order.  What runs here: the host's
+# tables, and the block-local computation emulated in PyTorch.
+
+def _permuted(tsys, seed=0):
+    """The system with its atoms relabelled at random (no locality)."""
+    import dataclasses
+    n = tsys.n_atoms
+    perm = np.random.default_rng(seed).permutation(n)
+    new_of = torch.from_numpy(np.argsort(perm))
+    p = torch.from_numpy(perm)
+    return dataclasses.replace(
+        tsys, masses=tsys.masses[p], bonds=new_of[tsys.bonds],
+        angles=new_of[tsys.angles], dihedrals=new_of[tsys.dihedrals],
+        charges=tsys.charges[p], lj_sigma=tsys.lj_sigma[p],
+        lj_eps=tsys.lj_eps[p], nb_mask=tsys.nb_mask[p][:, p],
+        phi_quad=tuple(int(new_of[a]) for a in tsys.phi_quad),
+        psi_quad=tuple(int(new_of[a]) for a in tsys.psi_quad)), perm
+
+
+def _term_atoms(top):
+    """Each global term's atoms (bonds, angles, torsions), as lists."""
+    return ([list(t) for t in top.bonds.tolist()]
+            + [list(t) for t in top.angles.tolist()]
+            + [list(t) for t in top.quads.tolist()])
+
+
+def _local_flat(top, terms):
+    """Block-local edge index -> flat slot role * W + w, for a block's
+    listed terms in order (a bond 1 edge, an angle 2, a torsion 3)."""
+    w = top.edge_width
+    nb, na = top.bonds.shape[0], top.angles.shape[0]
+    out = []
+    for t in terms:
+        if t < nb:
+            out += [t]
+        elif t < nb + na:
+            out += [w + t - nb, 2 * w + t - nb]
+        else:
+            q = t - nb - na
+            out += [3 * w + q, 4 * w + q, 5 * w + q]
+    return out
+
+
+@pytest.mark.parametrize("n_atoms,block,permuted", [
+    (8, 256, False), (257, 256, False), (700, 256, False), (2881, 256, False),
+    (700, 64, True), (257, 32, False)])
+def test_block_tables_list_each_touching_term_with_one_owner(
+        n_atoms, block, permuted):
+    _, tsys, _ = _setup(n_atoms)
+    if permuted:
+        tsys, _ = _permuted(tsys)
+    top = chain_ref.chain_topology(tsys)
+    slots = chain_ref.bonded_slots(top)
+    bt = chain_ops.block_tables(top, slots, block)
+    atoms = _term_atoms(top)
+    n_blocks = -(-n_atoms // block)
+    assert len(bt.term_ptr) == n_blocks + 1 and bt.term_ptr[0] == 0
+    owners = np.zeros(len(atoms), np.int64)
+    flat = slots.idx.numpy()
+    for b in range(n_blocks):
+        lo, hi = bt.term_ptr[b], bt.term_ptr[b + 1]
+        listed = bt.terms[lo:hi] & (chain_ops.OWNER - 1)
+        own = (bt.terms[lo:hi] & chain_ops.OWNER) != 0
+        touching = [t for t, a in enumerate(atoms)
+                    if any(x // block == b for x in a)]
+        assert listed.tolist() == touching               # all, ascending
+        for t, o in zip(listed, own):
+            owners[t] += o
+            assert o == (atoms[t][0] // block == b)
+        local = _local_flat(top, listed)
+        edges = np.diff(np.append(bt.term_edge[lo:hi], len(local)))
+        assert bt.term_edge[lo] == 0 and (edges > 0).all()
+        assert max(len(local), 1) <= max(bt.max_edges, 1)
+        for a in range(b * block, min(n_atoms, (b + 1) * block)):
+            for s in range(slots.n_slots):
+                if float(slots.sign[a, s]) != 0.0:
+                    assert local[bt.slot_loc[a, s]] == flat[a, s]
+    assert (owners == 1).all()                           # one owner each
+
+
+def _blocked_forces(pos, top, slots, bt, block, center=None, k=None):
+    """The kernel's block-local computation in PyTorch: per block the
+    listed terms' edges (``ref._edge_grads``), each atom's slots summed
+    from the block's local edges, the owned terms' energies summed per
+    block, then the blocks in order."""
+    edges, terms_e = chain_ref._edge_grads(pos, top, center, k,
+                                           per_term=True)
+    w = top.edge_width
+    flat = edges.transpose(-3, -2).reshape(edges.shape[:-3] + (3, 6 * w))
+    n = pos.shape[-2]
+    force = torch.empty_like(pos)
+    energy = torch.zeros(pos.shape[0], dtype=pos.dtype)
+    for b in range(len(bt.term_ptr) - 1):
+        lo, hi = bt.term_ptr[b], bt.term_ptr[b + 1]
+        listed = bt.terms[lo:hi] & (chain_ops.OWNER - 1)
+        own = (bt.terms[lo:hi] & chain_ops.OWNER) != 0
+        local = flat[..., torch.as_tensor(_local_flat(top, listed))]
+        rows = np.arange(b * block, min(n, (b + 1) * block))
+        gathered = local[..., torch.from_numpy(bt.slot_loc[rows]).long()]
+        force[:, rows] = -torch.sum(slots.sign[rows] * gathered,
+                                    dim=-1).transpose(-1, -2)
+        energy = energy + terms_e[:, torch.from_numpy(listed[own]).long()
+                                  ].sum(-1)
+    return force, energy
+
+
+@pytest.mark.parametrize("n_u", [0, 1, 2])
+@pytest.mark.parametrize("n_atoms,block,permuted", [
+    (257, 256, False), (700, 256, False), (700, 64, True)])
+def test_block_local_computation_equals_the_plain_version(
+        n_atoms, block, permuted, n_u):
+    _, tsys, pos = _setup(n_atoms, seed=n_u)
+    perm = np.arange(n_atoms)
+    if permuted:
+        tsys, perm = _permuted(tsys)
+    tpos = torch.from_numpy(pos[:, perm].copy())
+    top = chain_ref.chain_topology(tsys)
+    slots = chain_ref.bonded_slots(top)
+    center, k = None, None
+    if n_u:
+        rng = np.random.default_rng(n_u)
+        center = torch.from_numpy(rng.uniform(0, 360, (N_REP, n_u)).astype(
+            np.float32))
+        k = torch.full((N_REP, n_u), 0.02)
+    bt = chain_ops.block_tables(top, slots, block)
+    got = _blocked_forces(tpos, top, slots, bt, block, center, k)
+    want = chain_ref.bonded_forces_sparse(tpos, top, slots, center, k)
+    assert torch.equal(got[0], want[0])                  # forces bitwise
+    _close(got[1].numpy(), want[1].numpy(), "energy", energy=True)
+    # the same system unpermuted: the same forces, relabelled
+    if permuted:
+        _, tsys0, _ = _setup(n_atoms)
+        top0 = chain_ref.chain_topology(tsys0)
+        f0, e0 = chain_ref.bonded_forces_sparse(
+            torch.from_numpy(pos), top0, chain_ref.bonded_slots(top0),
+            center, k)
+        _close(got[0].numpy(), f0[:, perm].numpy(), "relabelled forces")
+        _close(got[1].numpy(), e0.numpy(), "relabelled energy", energy=True)
+
+
+def test_bonded_pack_carries_the_block_tables():
+    _, tsys, _ = _setup(700)
+    pack = chain_ops.build_pack(tsys)
+    bt = pack.blocks
+    assert pack.terms.dtype == torch.int32
+    for name in ("term_ptr", "terms", "term_edge", "slot_code"):
+        np.testing.assert_array_equal(getattr(pack, name).numpy(),
+                                      getattr(bt, name))
+    sign = pack.slots.sign.numpy()
+    code = bt.slot_code.T
+    np.testing.assert_array_equal(code >> 2, bt.slot_loc)
+    np.testing.assert_array_equal(
+        np.where(code & 1, 1.0, np.where(code & 2, -1.0, 0.0)), sign)
+    assert bt.max_edges * 12 + 4 * chain_ops.BLOCK_ATOMS <= 232448

@@ -320,3 +320,24 @@ def test_fused_and_pallas_paths_draw_different_streams(driver_system):
             cfg, device="cpu")
         out[path] = drv.run_fused(drv.init(0), n_cycles=1).state["pos"]
     assert not torch.equal(out["fused"], out["pallas"])
+
+
+def test_fused_row_layout_by_atom_count():
+    """The fused kernel keeps a replica's force rows in shared memory
+    while they fit beside its warps' staged atoms (24 warps x 64 atoms x
+    24 bytes + ld x 12 bytes <= 232,448: N <= 16,256) and in device
+    memory above, chosen by N alone: the main path's 2881 atoms stay in
+    shared memory, 16,384 and 20,000 do not."""
+    from repro_torch.kernels import pad_to_block
+    from repro_torch.kernels.lj_forces import ops as tnops
+    cases = {130: True, 2881: True, 10000: True, 16256: True, 16257: False,
+             16384: False, 20000: False}
+    for n, shared in cases.items():
+        assert tfops.rows_in_shared(pad_to_block(n, tnops.TILE)) is shared
+    lds = range(128, 40960, 128)
+    flags = [tfops.rows_in_shared(ld) for ld in lds]
+    for ld, flag in zip(lds, flags):
+        warps = min(ld // 128, 24)
+        assert flag == (warps * 64 * 24 + 12 * ld <= 232448)
+    edge = flags.index(False)
+    assert all(flags[:edge]) and not any(flags[edge:])       # one edge

@@ -393,3 +393,153 @@ def test_reciprocal_image_forces_match_jax(n_atoms):
         neg = -raw
         assert torch.equal(neg - np.float32(BOX) * _rint(
             neg * np.float32(1.0 / BOX)), -d)
+
+
+# -- the energy kernel's summation order (csrc/lj_fluid.cu) ------------------
+#
+# At N = 17,500 an energy summed atom by atom in one float32 register (an
+# earlier kernel's order) loses the far pairs' terms, each under half an
+# ulp of the running sum.  The kernel now sums each lane's pairs of one
+# tile entry (at most 128), then its entries, the lanes of a warp in a
+# butterfly, the warps of a block in order, the blocks in order.  Both
+# orders are emulated here in float32 on the same float32 pair terms and
+# held to the float64 energy with TOL_LJ_ENERGY (chip_smoke.py's).
+TOL_LJ_ENERGY = 1e-5
+
+
+def _argon(n_atoms, seed=0):
+    """A lattice with 0.3 A jitter at argon's density (Rahman's 864 atoms
+    in 34.8 A), wrapped into the box: the card test's configuration."""
+    box = 34.8 * (n_atoms / 864) ** (1 / 3)
+    side = int(np.ceil(n_atoms ** (1 / 3) - 1e-9))
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)[:n_atoms]
+    rng = np.random.default_rng(seed)
+    pos = (g + 0.5) * (box / side) + 0.3 * rng.standard_normal((n_atoms, 3))
+    return torch.from_numpy(np.mod(pos, box).astype(np.float32)), box
+
+
+def _pair_u(pos, i, j, box, inv_box, sig2, m):
+    """float32 s6 (s6 - 1) m of the pairs (i, j) with their 0/1 masks m,
+    the minimum image by one reciprocal and r2 += 1 - m, as the kernel
+    forms them (1 / r^2 rounded once here, an ulp from the kernel's
+    rcp)."""
+    d = pos[i] - pos[j]
+    d = d - box * torch.round(d * inv_box)
+    r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    tt = sig2 * (1.0 / (r2 + (1.0 - m)))
+    s6 = tt * (tt * tt)
+    return s6 * (s6 - 1.0) * m
+
+
+def _tile_walk_energy(pos, box, sig2, c4):
+    """The kernel's order at R = 1: lanes' sums per tile entry, entries
+    per lane, the butterfly, warps, blocks (float32 throughout)."""
+    from repro_torch.kernels import pad_to_block
+    n = pos.shape[0]
+    ld = pad_to_block(n, t_ops.TILE)
+    n_t = ld // t_ops.PAIR_TILE
+    split = t_ops.block_split(1, n_t, waves=2)
+    n_warps = t_ops.pair_warps(n_t)
+    sched = t_ops.tile_schedule(n_t, "cpu")
+    inv_box = float(np.float32(1.0 / box))
+    padded = torch.cat([pos, torch.zeros(ld - n, 3)])
+    lane = torch.arange(32)
+    ent = torch.zeros(n_t, n_t, 32)              # (round, slot, lane)
+
+    def add(e, ia, ja, keep=True):              # one step of every lane
+        m = ((ia < n) & (ja < n) & keep).to(torch.float32)
+        return e + _pair_u(padded, ia, ja, box, inv_box, sig2, m)
+
+    u, k = torch.nonzero(sched >= 0, as_tuple=True)
+    tiles = sched[u, k]
+    ti, tj = tiles & 0xFFFF, tiles >> 16
+    off = ti != tj
+    ii, jj = (64 * ti[off])[:, None], (64 * tj[off])[:, None]
+    e = torch.zeros(int(off.sum()), 32)
+    for h in range(2):
+        for s in range(32):
+            j = jj + 32 * h + (lane + s) % 32
+            e = add(e, ii + lane, j)
+            e = add(e, ii + 32 + lane, j)
+    ent[u[off], k[off]] = e
+    dg = ~off
+    base = (64 * ti[dg])[:, None]
+    e = torch.zeros(int(dg.sum()), 32)
+    for s in range(32):                          # lower half x upper half
+        e = add(e, base + lane, base + 32 + (lane + s) % 32)
+    for h in range(2):                           # each half with itself
+        for s in range(1, 17):                   # (l, l + 16) once
+            keep = lane < 16 if s == 16 else torch.ones(32, dtype=torch.bool)
+            e = add(e, base + 32 * h + lane, base + 32 * h + (lane + s) % 32,
+                    keep)
+    ent[u[dg], k[dg]] = e
+    # each lane's entries in its block's order: rounds s, s + S, ...; the
+    # warp's slots w, w + n_warps, ... (a slot past the round's end adds 0)
+    t = torch.zeros(split, n_warps, 32)
+    for r0 in range(0, n_t, split):
+        for k0 in range(0, n_t, n_warps):
+            rr = torch.arange(r0, r0 + split)[:, None]
+            kk = torch.arange(k0, k0 + n_warps)[None, :]
+            ok = (rr < n_t) & (kk < n_t)
+            t = t + torch.where(ok[..., None], ent[rr.clamp(max=n_t - 1),
+                                                   kk.clamp(max=n_t - 1)], 0)
+    for o in (16, 8, 4, 2, 1):
+        t = t + t[..., lane ^ o]
+    blocks = torch.zeros(split)
+    for w in range(n_warps):
+        blocks = blocks + t[:, w, 0]
+    total = torch.zeros(())
+    for b in blocks:
+        total = total + b
+    return float(c4 * total)
+
+
+def _one_register_energy(pos, box, sig2, c4):
+    """The earlier order: each atom's sum over all j in one float32
+    register (c4 in every term, the diagonal masked), 128-thread blocks
+    in a tree, the blocks in order, halved."""
+    n = pos.shape[0]
+    inv_box = float(np.float32(1.0 / box))
+    i = torch.arange(n)
+    e = torch.zeros(n)
+    for j in range(n):
+        m = (i != j).to(torch.float32)
+        e = e + c4 * _pair_u(pos, i, torch.full_like(i, j), box, inv_box,
+                             sig2, m)
+    nb = -(-n // 128)
+    sh = torch.cat([e, torch.zeros(nb * 128 - n)]).reshape(nb, 128)
+    s = 64
+    while s:
+        sh = torch.cat([sh[:, :s] + sh[:, s:2 * s], sh[:, s:]], dim=1)
+        s //= 2
+    total = torch.zeros(())
+    for b in sh[:, 0]:
+        total = total + b
+    return float(0.5 * total)
+
+
+def _float64_energy(pos, box, sig2, c4):
+    p = pos.double()
+    out = 0.0
+    for i0 in range(0, p.shape[0], 2048):
+        d = p[i0:i0 + 2048, None, :] - p[None, :, :]
+        d = d - box * torch.round(d / box)
+        r2 = (d * d).sum(-1)
+        idx = torch.arange(i0, min(i0 + 2048, p.shape[0]))
+        r2[idx - i0, idx] = 1.0
+        s6 = (sig2 / r2) ** 3
+        u = s6 * (s6 - 1.0)
+        u[idx - i0, idx] = 0.0
+        out += float(u.sum())
+    return 0.5 * c4 * out
+
+
+def test_tile_walk_energy_order_holds_at_17500_atoms():
+    pos, box = _argon(17500)
+    sig2, c4, _, box = t_ref.fluid_constants(SIGMA, EPS, box)
+    want = _float64_energy(pos, box, sig2, c4)
+    new = _tile_walk_energy(pos, box, sig2, c4)
+    old = _one_register_energy(pos, box, sig2, c4)
+    assert abs(new - want) <= TOL_LJ_ENERGY * abs(want), (new, want)
+    assert abs(old - want) > TOL_LJ_ENERGY * abs(want), (old, want)

@@ -9,6 +9,11 @@
   * the gated build's plain version: flag 0 keeps the old rows, flag 1
     is a fresh build, a flag row mixes them;
   * the host-side ``suggest_*`` heuristics equal;
+  * the card build's tile cull in PyTorch (``ref.build_culled``: 32-atom
+    bounding boxes, the 2^-16 margin, candidate tiles in ascending
+    order): lists bitwise equal to ``build_dense`` and to JAX's, on the
+    chain, on a random gas, and on pairs at r_list and one float32 ulp on
+    either side of it, placed so that tile boxes meet the cull's edge;
   * the engine's sparse constants, its first list, and the nested state
     through failure recovery: a replica that fails (a low ``max_energy``)
     gets its ``nlist`` rows back from the backup exactly as the JAX
@@ -36,6 +41,7 @@ from repro_torch.config import RepExConfig
 from repro_torch.core import REMDDriver
 from repro_torch.kernels.lj_forces import ops as nb_ops
 from repro_torch.kernels.nlist_build import ops as nl_ops
+from repro_torch.kernels.nlist_build import ref as nl_ref
 from repro_torch.md import MDEngine
 from repro_torch.md import neighbors as NB
 
@@ -280,3 +286,84 @@ def test_failed_replica_gets_its_list_back_as_jax_restores_it():
     assert np.array_equal(np.stack([h["assignment"] for h in tdrv.history]),
                           np.stack([np.asarray(h["assignment"])
                                     for h in jdrv.history]))
+
+
+# -- the card build's tile cull (kernels/nlist_build/csrc/nlist_build.cu) --
+
+def _culled_vs_dense_and_jax(jsys, tsys, npack, pos, k_max):
+    want = JNB.build_dense(jnp.asarray(pos), jsys.nb_mask, R_LIST, k_max)
+    tpos = torch.from_numpy(pos)
+    dense = NB.build_dense(tpos, tsys.nb_mask, R_LIST, k_max)
+    got = nl_ref.build_culled(tpos, npack.mask_bits, R_LIST, k_max)
+    for g, d, w in zip(got, dense, want):
+        _same(g.numpy(), d.numpy())
+        _same(g.numpy(), w)
+    return got
+
+
+@pytest.mark.parametrize("kind,n_atoms,n_rep,k_max", [
+    ("chain", 300, 3, 16), ("chain", 130, 2, 4), ("gas", 300, 2, 24),
+    ("gas", 257, 2, 6)])
+def test_tile_cull_build_equals_dense_and_jax(kind, n_atoms, n_rep, k_max):
+    jsys, tsys, npack = _system(n_atoms)
+    if kind == "chain":
+        pos = _stack(jsys, n_rep)
+    else:   # no locality in the atom order: 40 A box, ~17 neighbors each
+        pos = np.random.default_rng(1).uniform(
+            0, 40.0, (n_rep, n_atoms, 3)).astype(np.float32)
+    got = _culled_vs_dense_and_jax(jsys, tsys, npack, pos, k_max)
+    near = nl_ref.near_tiles(nl_ref.tile_boxes(torch.from_numpy(pos)),
+                             nl_ops.f32_square(R_LIST))
+    assert bool(near.transpose(1, 2).eq(near).all())       # symmetric
+    if kind == "chain":
+        assert not bool(near.all())                    # some tiles culled
+    assert (int(got[2].min()) > 0) == (k_max <= 6)
+
+
+def _boundary_stack():
+    """160 atoms (five 32-atom tiles) on the x axis: tile 0 at x <= 0
+    (atom 0 at the origin), tiles 1-4 starting exactly at r_list, one
+    float32 ulp above and below it, and 2^-14 above it (past the cull's
+    margin), so that pairs with atom 0 sit at r2 = r_list^2 and one ulp of
+    x on either side, and tile boxes sit on, inside and just past the
+    cull's edge."""
+    r = np.float32(R_LIST)
+    starts = [r, np.nextafter(r, np.float32(np.inf)),
+              np.nextafter(r, np.float32(0)), np.float32(r * (1 + 2.0 ** -14))]
+    x = [-0.25 * np.arange(32, dtype=np.float32)]
+    x += [s + np.float32(0.125) * np.arange(32, dtype=np.float32)
+          for s in starts]
+    pos = np.zeros((1, 160, 3), np.float32)
+    pos[0, :, 0] = np.concatenate(x)
+    return pos
+
+
+def test_tile_cull_keeps_pairs_at_the_list_radius():
+    jsys, tsys, npack = _system(160)
+    pos = _boundary_stack()
+    r2 = nl_ops.f32_square(R_LIST)
+    x = pos[0, :, 0]
+    assert np.float32(x[32] * x[32]) == r2             # on r_list
+    assert np.float32(x[64] * x[64]) > r2              # one ulp above
+    assert np.float32(x[96] * x[96]) < r2              # one ulp below
+    got = _culled_vs_dense_and_jax(jsys, tsys, npack, pos, 64)
+    row0 = set(got[0][0, 0][got[1][0, 0] > 0].tolist())
+    assert 32 in row0 and 96 in row0 and 64 not in row0
+    near = nl_ref.near_tiles(nl_ref.tile_boxes(torch.from_numpy(pos)), r2)
+    # gap^2 on r_list, one ulp past it (inside the margin) and below it:
+    # kept; 2^-13 past it: culled
+    assert near[0, 0, 1:4].all() and not near[0, 0, 4]
+
+
+def test_tile_boxes_hold_their_atoms():
+    jsys, tsys, npack = _system(130)
+    pos = torch.from_numpy(_stack(jsys, 2))
+    boxes = nl_ref.tile_boxes(pos)
+    assert boxes.shape == (2, 5, 6)
+    for t in range(5):
+        atoms = pos[:, 32 * t:min(130, 32 * (t + 1))]
+        assert torch.equal(boxes[:, t, :3], atoms.amin(1))
+        assert torch.equal(boxes[:, t, 3:], atoms.amax(1))
+    r2 = nl_ops.f32_square(R_LIST)
+    assert nl_ref.cull_threshold(r2) == np.float32(r2 * (1 + 2.0 ** -16))
+    assert nl_ref.cull_threshold(r2) > r2
