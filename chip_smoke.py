@@ -22,7 +22,9 @@ printed on its own lines:
                   beside its time before its current design (BEFORE_MS),
                   the nonbonded kernel also at N = 10,000, R = 1; the
                   CUDA launches behind one count of the bonded wrapper and
-                  of the list build's, each flag (2 each, profiled)
+                  of the list build's, each flag (2 each, profiled);
+                  the launch floor: an empty kernel on the exchange-matrix
+                  kernel's grid at R = C = 384, timed the same way
   5. slice        the main path: T-REMD, 64 rungs, 2881 atoms,
                   ``run_fused(chunk_cycles=4)`` for 8 cycles, every chunk
                   under ``set_sync_debug_mode("error")``; each kernel must
@@ -131,6 +133,32 @@ printed on its own lines:
                   against prefill(2049); 21b: where a prefill's time goes
  22. card vs CPU  the olmo and phi3 smoke configs at float32 dtypes served
                   on the card and on the CPU: identical tokens
+ 23. oracles      the sixth slice, the driver's patterns, modes and fault
+                  tolerance: ``MDEngine``'s oracle force paths
+                  (``force_path="batched"``, autograd of the replica-major
+                  potential, and ``"vmap"``, each replica's own program)
+                  at R = 4, N = 2881: one propagate of 10 steps of each
+                  against ``"pallas"`` from the same state and keys, within
+                  TOL_ORACLE; time and peak memory of each
+ 24. async+faults T-REMD 64 x 2881 on ``"pallas"`` under the asynchronous
+                  pattern (window 5 steps, at most 10), failure_rate 0.05,
+                  relaunch_budget 2, ``run_fused(chunk_cycles=4)`` for 8
+                  cycles with a checkpoint each chunk: launch counts (8 x
+                  11), stragglers, failures detected; then a new driver
+                  resumes from the checkpoint after cycle 4 and must give
+                  the last 4 history rows and the final state bitwise;
+                  ms/cycle, mean ready_frac, failures and escalations,
+                  save and load ms, bytes per checkpoint, the busy share
+ 25. Mode II      T-REMD 64 x 2881 ("pallas", slots 24), TSU 384 x 2881
+                  ("fused", slots 128) and LJ 64 x 864 (slots 24): three
+                  waves each, 4 cycles, history rows and positions and
+                  velocities bitwise Mode I's; each wave launches the
+                  path's kernels; ms/cycle of both modes and the device
+                  kernel time of one profiled cycle of each
+ 26. card vs CPU  R = 8, N = 2881, asynchronous, faults with escalation,
+                  Mode II with 3 waves, 6 cycles: the card makes the CPU's
+                  decisions, failures and escalations (margins printed for
+                  a Metropolis flip)
 
 Any failed check raises and the script exits non-zero.  The next to last
 line is the kernels' JSON record, the last line the device record.
@@ -143,6 +171,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -328,6 +357,35 @@ def check(ok: bool, what: str) -> None:
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max())
+
+
+def metropolis_spy():
+    """(seen, restore): records (delta, u) of every sweep the port draws
+    until ``restore()`` puts ``metropolis`` back."""
+    from repro_torch.core import exchange as X
+    orig, seen = X.metropolis, []
+
+    def spy(delta, rng):
+        seen.append((delta.clone(), X.jr.uniform(rng, tuple(delta.shape))))
+        return orig(delta, rng)
+
+    X.metropolis = spy
+    return seen, lambda: setattr(X, "metropolis", orig)
+
+
+def print_margins(runs, rows_at: int, seen_at: int) -> None:
+    """At the first cycle whose rows differ, each device's Metropolis
+    margins |u - exp(min(-delta, 0))|: a rounding flip shows a tiny one."""
+    for c, (a, b) in enumerate(zip(runs["cuda"][rows_at],
+                                   runs["cpu"][rows_at])):
+        if a != b:
+            for dev in ("cuda", "cpu"):
+                delta, u = runs[dev][seen_at][c]
+                margin = (u - torch.exp(torch.clamp_max(-delta, 0.0))
+                          ).abs().cpu()
+                print(f"cycle {c} {dev}: Metropolis margins "
+                      f"{margin.tolist()}")
+            return
 
 
 def graph_ms(fn, calls: int = 20, reps: int = 9) -> float:
@@ -524,6 +582,11 @@ def timing(engine, pos, smi: str):
         print(f"{name}: kernel {k_ms:.4f} ms device (graph replay), "
               f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms "
               f"[{smi}]")
+    from repro_torch.kernels.exchange_matrix import ops as x_ops
+    floor = graph_ms(lambda: x_ops.empty_launch(R_TSU, R_TSU))
+    print(f"launch floor: an empty kernel on the exchange-matrix kernel's "
+          f"grid at R = C = {R_TSU}: {floor:.4f} ms device (graph replay) "
+          f"[{smi}]")
     return res
 
 
@@ -1549,7 +1612,6 @@ def invariance_sparse():
           f"N={N_ATOMS}) and card vs CPU")
     from repro_torch.config import RepExConfig
     from repro_torch.core import REMDDriver
-    from repro_torch.core import exchange as X
     dims = (("temperature", 2), ("umbrella", 2), ("umbrella", 2))
     # a skin of 0.5 A trips within the 3 cycles, so a rebuild falls inside
     # the chunk of 3
@@ -1575,15 +1637,8 @@ def invariance_sparse():
                                     "size")
 
     runs = {}
-    orig = X.metropolis
     for dev in ("cuda", "cpu"):
-        seen = []
-
-        def spy(delta, rng):
-            seen.append((delta.clone(), X.jr.uniform(rng, tuple(delta.shape))))
-            return orig(delta, rng)
-
-        X.metropolis = spy
+        seen, restore = metropolis_spy()
         try:
             from repro_torch.md import MDEngine
             from repro_torch.md.system import chain_molecule
@@ -1595,7 +1650,7 @@ def invariance_sparse():
             driver = REMDDriver(eng, cfg, device=dev)
             ens = driver.run_fused(driver.init(SEED), chunk_cycles=2)
         finally:
-            X.metropolis = orig
+            restore()
         runs[dev] = ([h["assignment"].tolist() for h in driver.history],
                      driver.acceptance_ratios(),
                      [h["nb_rebuilds"] for h in driver.history],
@@ -1607,15 +1662,7 @@ def invariance_sparse():
           f"{runs['cuda'][2]}), max |dpos| {dpos:.2e} A (tol "
           f"{TOL_SMALL_POS})")
     if not same:
-        for c, (a, b) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
-            if a != b:
-                for dev in ("cuda", "cpu"):
-                    delta, u = runs[dev][4][c]
-                    margin = (u - torch.exp(torch.clamp_max(-delta, 0.0))
-                              ).abs().cpu()
-                    print(f"cycle {c} {dev}: Metropolis margins "
-                          f"{margin.tolist()}")
-                break
+        print_margins(runs, 0, 4)
     check(same and dpos <= TOL_SMALL_POS, "sparse cuda run makes the CPU "
                                           "run's decisions")
 
@@ -1954,13 +2001,14 @@ def harmonic_probe(smi: str):
     # what the no-sync guard of run_fused costs: one chunk of 16 cycles
     # queued with and without it (the chunk alone, no stats fetch)
     chunk_ms = {}
+    backup, fail_key = driver._start_carry(ens)
     for guarded in (True, False, True, False):
         guard = (driver._no_host_sync() if guarded
                  else contextlib.nullcontext())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with guard:
-            driver._chunk(ens, ens.state, 16)
+            driver._chunk(ens, backup, fail_key, 16)
         torch.cuda.synchronize()
         chunk_ms.setdefault(guarded, []).append(
             (time.perf_counter() - t0) / 16 * 1e3)
@@ -1977,7 +2025,6 @@ def invariance_lj():
     phase(f"18 LJ: chunk-size invariance (R=8, N={LJ_ATOMS}) and card vs "
           f"CPU")
     from repro_torch.core import REMDDriver
-    from repro_torch.core import exchange as X
     engine = lj_engine()
     out = {}
     for k in (1, 4):
@@ -1993,21 +2040,14 @@ def invariance_lj():
     check(same_rows and same_state, "LJ decisions independent of chunk "
                                     "size")
     runs = {}
-    orig = X.metropolis
     for dev in ("cuda", "cpu"):
-        seen = []
-
-        def spy(delta, rng):
-            seen.append((delta.clone(), X.jr.uniform(rng, tuple(delta.shape))))
-            return orig(delta, rng)
-
-        X.metropolis = spy
+        seen, restore = metropolis_spy()
         try:
             small = lj_engine(64, 12.0, dev)
             driver = REMDDriver(small, lj_cfg(8, 4), device=dev)
             ens = driver.run_fused(driver.init(SEED), chunk_cycles=2)
         finally:
-            X.metropolis = orig
+            restore()
         runs[dev] = ([h["assignment"].tolist() for h in driver.history],
                      driver.acceptance_ratios(), ens.state["pos"].cpu(),
                      seen)
@@ -2017,15 +2057,7 @@ def invariance_lj():
           f"decisions identical {same}, max |dpos| {dpos:.2e} A (tol "
           f"{TOL_SMALL_POS})")
     if not same:
-        for c, (a, b) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
-            if a != b:
-                for dev in ("cuda", "cpu"):
-                    delta, u = runs[dev][3][c]
-                    margin = (u - torch.exp(torch.clamp_max(-delta, 0.0))
-                              ).abs().cpu()
-                    print(f"cycle {c} {dev}: Metropolis margins "
-                          f"{margin.tolist()}")
-                break
+        print_margins(runs, 0, 3)
     check(same and dpos <= TOL_SMALL_POS, "LJ cuda run makes the CPU run's "
                                           "decisions")
 
@@ -2379,6 +2411,283 @@ def serve_against_cpu():
                                         f"CPU's tokens")
 
 
+# The sixth slice: the driver's asynchronous pattern, Mode II and fault
+# tolerance at full width.  Phase 23: the oracle force paths against the
+# analytic one after one propagate of 10 steps from the same state and
+# keys — the same float32 forces through autograd instead of the analytic
+# passes, about 1e-6 of max |F| apart per evaluation (3e-5 A and 7.5e-4
+# A/ps after 10 steps on the CPU at N = 512).
+TOL_ORACLE = {"pos": 1e-3, "vel": 1e-2}
+# Phase 24: T-REMD 64 under the asynchronous pattern (the paper's Fig 1b
+# straggler scenario): a window of 0.5 x 10 steps, at most 10, so every
+# cycle is 11 force evaluations, as phase 5's; faults at 5 % a replica a
+# cycle, escalation budget 2; a checkpoint each chunk of 4.
+ASYNC = dict(pattern="asynchronous", async_window=0.5, relaunch_budget=2)
+FAIL_RATE = 0.05
+
+
+def oracle_paths(smi: str) -> None:
+    phase(f"23 oracle force paths: batched and vmap vs pallas at R=4, "
+          f"N={N_ATOMS}")
+    from repro_torch import random as jr
+    from repro_torch.config import RepExConfig
+    from repro_torch.core.controls import build_grid, ctrl_for_assignment
+    from repro_torch.core.modes import per_replica_keys
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    system = chain_molecule(N_ATOMS)
+    engines = {"pallas": MDEngine(system, device="cuda"),
+               "batched": MDEngine(system, force_path="batched",
+                                   device="cuda"),
+               "vmap": MDEngine(system, batched=False, device="cuda")}
+    grid = build_grid(RepExConfig(dimensions=(("temperature", 4),)), "cuda")
+    state = engines["pallas"].init_state(jr.key(SEED, "cuda"), 4)
+    ctrl = ctrl_for_assignment(grid, torch.arange(4, device="cuda"))
+    keys = per_replica_keys(jr.key(SEED + 1, "cuda"), 4)
+    n_steps = torch.full((4,), 10, dtype=torch.int64, device="cuda")
+    out = {}
+    for name, eng in engines.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[name] = eng.propagate(state, ctrl, n_steps, keys, max_steps=10)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f"{name}: one propagate of 10 steps {ms:.1f} ms (first call), "
+              f"peak memory above the state {peak:.3f} GiB [{smi}]")
+    for name in ("batched", "vmap"):
+        d = {k: float((out[name][k] - out["pallas"][k]).abs().max())
+             for k in ("pos", "vel")}
+        print(f"{name} vs pallas: max |dpos| {d['pos']:.2e} A, max |dvel| "
+              f"{d['vel']:.2e} A/ps (tol {TOL_ORACLE})")
+        check(all(d[k] <= TOL_ORACLE[k] for k in d),
+              f"the {name} oracle agrees with the analytic path")
+        check(bool(torch.isfinite(out[name]["pos"]).all()),
+              f"{name}: finite positions")
+
+
+def async_faults(libs, smi: str) -> None:
+    """Phase 24: T-REMD 64 x 2881 under the asynchronous pattern with
+    failure injection and escalation, a checkpoint each chunk; then kill
+    and resume bitwise."""
+    phase(f"24 async + faults + checkpoint: T-REMD {R_MAIN} x {N_ATOMS}, "
+          f"{ASYNC}, failure_rate {FAIL_RATE}")
+    import tempfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.core.ensemble import control_multiset_ok
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    cfg = RepExConfig(dimensions=(("temperature", R_MAIN),),
+                      md_steps_per_cycle=10, n_cycles=8, **ASYNC)
+    engine = MDEngine(chain_molecule(N_ATOMS), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        def driver_():
+            return REMDDriver(engine, cfg, ckpt_dir=tmp, ckpt_every=4,
+                              failure_rate=FAIL_RATE, device="cuda")
+        driver = driver_()
+        ens = driver.init(SEED)
+        torch.cuda.synchronize()
+        reset(libs)
+        ens = driver.run_fused(ens, chunk_cycles=4)
+        launches = {lib.name: lib.launches for lib in libs}
+        hist = driver.history
+        ms_cycle = hist[-1]["t_step"] * 1e3
+        ready = [h["ready_frac"] for h in hist]
+        esc = {k: sum(h[k] for h in hist)
+               for k in ("failed", "esc_relaunch", "esc_reinit", "esc_dead")}
+        print(f"ms/cycle {ms_cycle:.2f} (last chunk of 4) [{smi}]")
+        print(f"ready_frac by cycle {[round(r, 4) for r in ready]}, mean "
+              f"{statistics.mean(ready):.4f}")
+        print(f"failures and escalations over 8 cycles {esc}; alive "
+              f"{int(ens.alive.sum())}/{R_MAIN}")
+        want = dict.fromkeys(launches, 0)
+        want.update(chain_forces=cfg.n_cycles * 11,
+                    nonbonded=cfg.n_cycles * 11)
+        print(f"launches {launches} (want {want})")
+        check(launches == want, "each per-pass kernel 8 cycles x 11")
+        check(min(ready) < 1.0, "stragglers: some cycles not all ready")
+        check(esc["failed"] > 0, "failures were injected and detected")
+        check(control_multiset_ok(ens), "assignment is a permutation")
+        alive = ens.alive
+        check(bool(torch.isfinite(ens.state["pos"][alive]).all()),
+              "every live replica finite after recovery")
+        steps = sorted(os.listdir(tmp))
+        print(f"checkpoints {steps}")
+        check("step-00000003" in steps and "step-00000007" in steps,
+              "a checkpoint after each chunk")
+        step_dir = os.path.join(tmp, "step-00000003")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+
+        resumed = driver_()
+        out = resumed.resume(via="fused", chunk_cycles=4, step=3)
+        same_rows = all(
+            a["assignment"].tolist() == b["assignment"].tolist()
+            and all(a[k] == b[k] for k in ("accept", "failed", "ready_frac",
+                                           "esc_relaunch", "esc_reinit",
+                                           "esc_dead"))
+            for a, b in zip(resumed.history[4:], hist[4:]))
+        same_state = all(torch.equal(out.state[k][alive], ens.state[k][alive])
+                         for k in ("pos", "vel")) and all(
+            torch.equal(getattr(out, k), getattr(ens, k))
+            for k in ("debt", "alive", "relaunches", "failures", "rng"))
+        print(f"resume from the checkpoint after cycle 4 (step 3): last 4 "
+              f"rows identical {same_rows}, final state bitwise equal "
+              f"{same_state}")
+        check(len(resumed.history) == 8 and same_rows and same_state,
+              "kill then resume is bitwise")
+
+        payload = driver._ckpt_payload(ens, ens.state, ens.rng)
+        like = resumed._ckpt_payload(out, out.state, out.rng)
+        save_ms, load_ms = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(os.path.join(tmp, "timing"), i, payload,
+                            driver._ckpt_extra())
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            load_checkpoint(tmp, like, step=3)
+            torch.cuda.synchronize()
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"checkpoint: save {statistics.median(save_ms):.1f} ms, load "
+              f"{statistics.median(load_ms):.1f} ms (medians of 3), "
+              f"{nbytes} bytes on disk per checkpoint [{smi}]")
+
+    # the busy share, from a driver without checkpoints (the same chunk)
+    probe = REMDDriver(engine, cfg, failure_rate=FAIL_RATE, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        probe.run_fused(ens, n_cycles=2, chunk_cycles=2)
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / 2
+    print(f"profiled chunk: device kernel time {busy:.2f} ms/cycle, busy "
+          f"share of the measured ms/cycle {busy / ms_cycle:.3f}")
+
+
+def mode2_runs(libs, smi: str) -> None:
+    """Phase 25: Mode II (waves) against Mode I, bitwise, on the three
+    full-width paths."""
+    phase("25 Mode II vs Mode I at full width, 4 cycles each")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    cases = (
+        (f"T-REMD {R_MAIN} x {N_ATOMS} pallas",
+         MDEngine(chain_molecule(N_ATOMS), device="cuda"),
+         RepExConfig(dimensions=(("temperature", R_MAIN),),
+                     md_steps_per_cycle=10, n_cycles=4), 24,
+         (("chain_forces", None), ("nonbonded", None))),
+        (f"TSU {R_TSU} x {N_ATOMS} fused", tsu_engine("fused"),
+         RepExConfig(dimensions=TSU_DIMS, md_steps_per_cycle=10,
+                     n_cycles=4), 128, (("fused_baoab", None),)),
+        (f"LJ {R_MAIN} x {LJ_ATOMS}", lj_engine(), lj_cfg(R_MAIN, 4), 24,
+         (("lj_fluid", "forces"),)))
+
+    def counts(kernels):
+        """Launches of the propagate kernels (a library, or one of its
+        variants): a wave launches them once per force evaluation."""
+        by = {lib.name: lib for lib in libs}
+        return {f"{n}:{v}" if v else n: (by[n].launches if v is None
+                                          else by[n].variants.get(v, 0))
+                for n, v in kernels}
+
+    for tag, engine, cfg, slots, kernels in cases:
+        res, dev_ms = {}, {}
+        for mode, sl in (("mode1", None), ("mode2", slots)):
+            driver = REMDDriver(engine, cfg, slots=sl, device="cuda")
+            ens = driver.init(SEED)
+            torch.cuda.synchronize()
+            reset(libs)
+            ens = driver.run_fused(ens, chunk_cycles=2)
+            res[mode] = (driver, ens, counts(kernels),
+                         driver.history[-1]["t_step"] * 1e3)
+            # device time of one more cycle, from a driver of its own
+            probe = REMDDriver(engine, cfg, slots=sl, device="cuda")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                probe.run_fused(ens, n_cycles=1, chunk_cycles=1)
+            dev_ms[mode] = sum(e.device_time_total for e in prof.events()
+                               if e.device_type == DeviceType.CUDA) / 1e3
+        (d1, e1, l1, ms1), (d2, e2, l2, ms2) = res["mode1"], res["mode2"]
+        waves = d2.execution["n_waves"]
+        same_rows = ([h["assignment"].tolist() for h in d1.history]
+                     == [h["assignment"].tolist() for h in d2.history])
+        same_state = all(torch.equal(e1.state[k], e2.state[k])
+                         for k in ("pos", "vel"))
+        want2 = {k: v * waves for k, v in l1.items()}
+        print(f"{tag}: slots {slots} -> {d2.execution}; rows identical "
+              f"{same_rows}, positions and velocities bitwise equal "
+              f"{same_state}")
+        print(f"{tag}: ms/cycle Mode I {ms1:.2f}, Mode II {ms2:.2f} (last "
+              f"chunk of 2); device kernel time of a profiled cycle Mode I "
+              f"{dev_ms['mode1']:.2f}, Mode II {dev_ms['mode2']:.2f} ms "
+              f"[{smi}]; propagate launches Mode I {l1}, Mode II {l2} "
+              f"(want {want2})")
+        check(d2.execution["mode"] == "mode2" and waves == 3,
+              f"{tag}: three waves")
+        check(all(l2[k] == want2[k] > 0 for k in l1),
+              f"{tag}: each wave launches the path's kernels")
+        check(same_rows and same_state, f"{tag}: Mode II bitwise Mode I")
+
+
+def async_against_cpu() -> None:
+    """Phase 26: async + faults + escalation under Mode II (3 waves) on
+    the card and on the CPU: the same decisions."""
+    phase(f"26 card vs CPU: R=8, N={N_ATOMS}, asynchronous, faults, "
+          f"escalation, Mode II with 3 waves, 6 cycles")
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    # a 1-step window (at most 2): three force evaluations per cycle keep
+    # the CPU's all-pairs oracle at N = 2881 to seconds per cycle
+    cfg = RepExConfig(dimensions=(("temperature", 8),), md_steps_per_cycle=2,
+                      n_cycles=6, pattern="asynchronous", async_window=0.5,
+                      relaunch_budget=1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        seen, restore = metropolis_spy()
+        try:
+            driver = REMDDriver(MDEngine(chain_molecule(N_ATOMS), device=dev),
+                                cfg, slots=3, failure_rate=0.15, device=dev)
+            t0 = time.perf_counter()
+            ens = driver.run_fused(driver.init(SEED), chunk_cycles=3)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        hist = driver.history
+        runs[dev] = ([h["assignment"].tolist() for h in hist],
+                     [(h["failed"], h["esc_relaunch"], h["esc_reinit"],
+                       h["esc_dead"], h["ready_frac"]) for h in hist],
+                     driver.acceptance_ratios(), ens, seen)
+        print(f"{dev}: {driver.execution}, {wall:.1f} s; per cycle (failed, "
+              f"relaunch, reinit, dead, ready_frac) {runs[dev][1]}")
+    same = runs["cuda"][:3] == runs["cpu"][:3]
+    e_gpu, e_cpu = runs["cuda"][3], runs["cpu"][3]
+    alive = e_cpu.alive
+    dpos = float((e_gpu.state["pos"].cpu()[alive]
+                  - e_cpu.state["pos"][alive]).abs().max())
+    print(f"decisions, failures and escalations identical {same}, max |dpos| "
+          f"over live replicas {dpos:.2e} A (tol {TOL_SMALL_POS})")
+    if not same:
+        print_margins(runs, 0, 4)
+    check(sum(f[0] for f in runs["cpu"][1]) > 0, "failures were injected")
+    check(same and dpos <= TOL_SMALL_POS, "the card makes the CPU's "
+                                          "decisions")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2494,6 +2803,11 @@ def main() -> int:
     breakdown_serve(serve_rep, smi)
     del serve_rep
     serve_against_cpu()
+
+    oracle_paths(smi)
+    async_faults(libs, smi)
+    mode2_runs(libs, smi)
+    async_against_cpu()
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",

@@ -2,10 +2,13 @@
 math, ladder bookkeeping, fault handling) and the engines.
 
 An engine provides ``init_state(rng, n_replicas)``, ``propagate(state,
-ctrl, n_steps, rngs, max_steps)``, ``energy(state, ctrl)`` and
-``is_failed(state)``, each stacked over replicas (leading axis R) on the
-engine's device; ``max_steps`` is a Python int so that the step loop
-needs no host read.  Optional extensions (``energy_pair``, the split
+ctrl, n_steps, rngs, max_steps, stack=None)``, ``energy(state, ctrl)``
+and ``is_failed(state)``, each stacked over replicas (leading axis R) on
+the engine's device; ``max_steps`` is a Python int so that the step loop
+needs no host read, and ``stack`` is the ensemble's replica count when
+the state is one Mode II wave of it (kernels whose sums are split by the
+replica count size the split by it, so a replica's bits do not depend on
+its wave).  Optional extensions (``energy_pair``, the split
 feature API, ``force_paths``, ``failure_detectors``) are duck-typed and
 reported by :func:`engine_capabilities`.
 """

@@ -1,5 +1,9 @@
-"""Replica-level fault tolerance: detect and recover, on the device.
+"""Replica-level fault tolerance: inject, detect, recover, escalate, on
+the device.
 
+  * inject   — ``inject_failures``: NaN in every floating state leaf of a
+               random subset of replicas (a hardware fault or an MD
+               blow-up), drawn as JAX's ``bernoulli`` draws it.
   * detect   — ``engine.is_failed`` (non-finite state or an engine's
                declared thresholds), masked by ``alive``.
   * recover  — policy 'relaunch': failed replicas are reset to their
@@ -7,21 +11,46 @@
                'continue': failed replicas are marked dead and masked out
                of all later exchanges.
 
-The escalation ladder (``relaunch_budget`` B > 0: relaunch, then reinit
-from the next rung's backup, then degrade) is not ported yet; the
-default B = 0 is the unlimited-relaunch behaviour.
+Escalation ladder (``relaunch_budget`` B > 0): a replica's consecutive
+failure streak rides the ensemble as ``ens.relaunches`` (reset on any
+clean cycle).  Streak <= B relaunches from the replica's own backup;
+B < streak <= 2B re-initialises from the next ladder rung's backup
+(``_peer_backup``); streak > 2B marks the replica dead and the ladder
+continues degraded.  B = 0 (the default) is unlimited relaunching.
+Every mask is a device tensor: nothing here reads the device from the
+host.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import random as jr
 from repro_torch.core.ensemble import Ensemble
 from repro_torch.tree import tree_map
 
 # the per-cycle escalation counters every detect/recover path emits
 ESC_STAT_KEYS = ("failed", "esc_relaunch", "esc_reinit", "esc_dead")
+
+
+def inject_failures(ens: Ensemble, rng: torch.Tensor,
+                    rate: float) -> Ensemble:
+    """Corrupt each replica's state with probability ``rate``: the (R,)
+    hit mask is ``uniform(rng, (R,)) < rate`` in float32, as JAX's
+    ``bernoulli`` draws it, and a hit row of every floating leaf (the
+    sparse path's list planes included) becomes NaN."""
+    r = ens.assignment.shape[0]
+    hit = jr.uniform(rng, (r,)) < float(np.float32(rate))
+
+    def corrupt(x):
+        if x.ndim < 1 or x.shape[0] != r or not x.is_floating_point():
+            return x
+        return torch.where(hit.reshape((r,) + (1,) * (x.ndim - 1)),
+                           float("nan"), x)
+
+    return ens._replace(state=tree_map(corrupt, ens.state))
 
 
 def detect(engine, ens: Ensemble) -> torch.Tensor:
@@ -36,6 +65,13 @@ def _mend(state, donor_state, mask_rows: torch.Tensor):
         shape = (mask_rows.shape[0],) + (1,) * (cur.ndim - 1)
         return torch.where(mask_rows.reshape(shape), don, cur)
     return tree_map(one, state, donor_state)
+
+
+def _peer_backup(backup_state):
+    """The tier-2 donor: replica i's donor is the next ladder rung's
+    backup, peer(i) = backup[(i + 1) mod R], exact copies of its rows."""
+    return tree_map(lambda b: torch.roll(b, -1, dims=0) if b.ndim >= 1
+                    else b, backup_state)
 
 
 def _escalate_masks(failed: torch.Tensor, streak: torch.Tensor, budget: int):
@@ -58,7 +94,8 @@ def _esc_stats(failed, relaunch, reinit, dead) -> Dict[str, torch.Tensor]:
 
 def recover(engine, ens: Ensemble, failed: torch.Tensor, policy: str,
             backup_state: Any) -> Tuple[Ensemble, torch.Tensor]:
-    """Apply the recovery policy.  Returns (ensemble, n_failed)."""
+    """Apply the recovery policy (the tier-1-only entry point).  Returns
+    (ensemble, n_failed)."""
     n_failed = torch.sum(failed.to(torch.int64))
     streak = torch.where(failed, ens.relaunches + 1, 0)
     if policy == "continue":
@@ -73,13 +110,11 @@ def recover(engine, ens: Ensemble, failed: torch.Tensor, policy: str,
 def detect_recover(engine, ens: Ensemble, policy: str, backup_state: Any,
                    relaunch_budget: int = 0
                    ) -> Tuple[Ensemble, Any, Dict[str, torch.Tensor]]:
-    """Device-side detect + recover + backup carry, with no host read:
-    recovery on an all-False mask is the identity, so it always runs;
-    the backup advances to the post-cycle state only on clean cycles.
-    Returns (ensemble, new_backup_state, stats of ``ESC_STAT_KEYS``)."""
-    if relaunch_budget != 0:
-        raise NotImplementedError(
-            "relaunch_budget > 0 (the escalation ladder) is not ported yet")
+    """Device-side detect + escalate + recover + backup carry, with no
+    host read: recovery on an all-False mask is the identity, so it
+    always runs; the backup advances to the post-cycle state only on
+    clean cycles.  Returns (ensemble, new_backup_state, stats of
+    ``ESC_STAT_KEYS``)."""
     failed = detect(engine, ens)
     any_failed = torch.any(failed)
     n_failed = torch.sum(failed.to(torch.int64))
@@ -94,8 +129,12 @@ def detect_recover(engine, ens: Ensemble, policy: str, backup_state: Any,
     else:
         relaunch, reinit, dead = _escalate_masks(failed, streak,
                                                  relaunch_budget)
-        new_ens = ens._replace(state=_mend(ens.state, backup_state,
-                                           relaunch),
+        state = _mend(ens.state, backup_state, relaunch)
+        alive = ens.alive
+        if relaunch_budget > 0:
+            state = _mend(state, _peer_backup(backup_state), reinit)
+            alive = alive & ~dead
+        new_ens = ens._replace(state=state, alive=alive,
                                failures=ens.failures + n_failed,
                                relaunches=streak)
         stats = _esc_stats(failed, relaunch, reinit, dead)

@@ -2,11 +2,16 @@
 
   Mode I  (R <= slots): all replicas propagate concurrently, in one
           engine call on the replica stack.
-  Mode II (R > slots):  replicas time-multiplexed in waves (not ported
-          yet).
+  Mode II (R > slots):  replicas are time-multiplexed in waves of
+          ``W = ceil(R / n_waves)``, one engine call per wave in a host
+          loop over the static ``n_waves`` (the pilot executing a task
+          queue in batches; the JAX package's ``lax.map``).
 
-Keys are replica-indexed (``per_replica_keys``), so every mode consumes
-the same per-replica noise streams.
+Both modes wrap the SAME engine call, and keys are replica-indexed
+(``per_replica_keys``), so every mode consumes the same per-replica
+noise streams.  Each wave is told the ensemble's replica count
+(``stack=R``), from which the all-pairs kernels size their per-replica
+split: a replica's output bits do not depend on its wave.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import random as jr
+from repro_torch.tree import tree_map
 
 
 def per_replica_keys(rng: torch.Tensor, n_replicas: int) -> torch.Tensor:
@@ -27,6 +33,37 @@ def propagate_mode1(engine, state, ctrl, n_steps, rng, *, max_steps: int):
     Per-replica: nothing crosses replica rows."""
     keys = per_replica_keys(rng, n_steps.shape[0])
     return engine.propagate(state, ctrl, n_steps, keys, max_steps=max_steps)
+
+
+def propagate_mode2(engine, state, ctrl, n_steps, rng, n_waves: int, *,
+                    max_steps: int):
+    """Mode II: ``n_waves`` sequential engine calls of ``W = ceil(R /
+    n_waves)`` replicas each.  Waves never exchange data.  When
+    ``n_waves`` does not divide R the last wave is padded with copies of
+    replica 0 (state, ctrl row and key) at ``n_steps = 0``: every engine
+    keeps a zero-step lane bitwise frozen, and the pad rows are dropped."""
+    r = n_steps.shape[0]
+    w = -(-r // n_waves)
+    pad = n_waves * w - r
+    keys = per_replica_keys(rng, r)
+
+    def pad_rep(x):
+        if pad == 0 or x.ndim < 1 or x.shape[0] != r:
+            return x
+        return torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+
+    state_p = tree_map(pad_rep, state)
+    ctrl_p = tree_map(pad_rep, ctrl)
+    steps_p = torch.cat([n_steps, n_steps.new_zeros(pad)]) if pad else n_steps
+    keys_p = pad_rep(keys)
+    outs = []
+    for i in range(n_waves):
+        def rows(x, i=i):
+            return x[i * w:(i + 1) * w]
+        outs.append(engine.propagate(
+            tree_map(rows, state_p), tree_map(rows, ctrl_p), rows(steps_p),
+            rows(keys_p), max_steps=max_steps, stack=r))
+    return tree_map(lambda *xs: torch.cat(xs)[:r], *outs)
 
 
 def auto_mode(n_replicas: int, slots: int) -> Dict[str, Any]:

@@ -1,12 +1,21 @@
-"""Replica-exchange patterns: the synchronous cycle.
+"""Replica-exchange patterns: synchronous vs asynchronous cycles.
 
 Synchronous (paper Fig 1a): every replica propagates exactly
 ``md_steps`` and then one exchange sweep runs — the exchange IS the
-barrier.  ``fused_cycle`` derives the sweep's (dim, parity) from
-``ens.cycle`` on the device, so a chunk of cycles runs with no host
-read.  The exchange is the DEO neighbor sweep of that (dim, parity), or
-with ``scheme="matrix"`` the Gibbs exchange over the whole grid.  The
-asynchronous pattern is not ported.
+barrier.
+
+Asynchronous (paper Fig 1b): replica i advances ``round(window *
+speed_i)`` steps per window (clipped to [1, 2 window]), banks its
+progress in ``debt``, and only replicas whose debt reaches ``md_steps``
+are *ready*; a pair with an un-ready member auto-rejects and the
+un-ready replica keeps simulating.  A straggler delays only its ladder
+neighbours, never the ensemble.
+
+``fused_cycle`` derives the sweep's (dim, parity) from ``ens.cycle`` on
+the device, so a chunk of cycles runs with no host read; every mask of
+either pattern is a device tensor.  The exchange is the DEO neighbor
+sweep of that (dim, parity), or with ``scheme="matrix"`` the Gibbs
+exchange over the whole grid.
 """
 from __future__ import annotations
 
@@ -24,10 +33,11 @@ from repro_torch.core.exchange import matrix_exchange, neighbor_exchange
 
 def _propagate(engine, ens: Ensemble, grid: ControlGrid, n_steps, rng,
                execution: Dict[str, Any], max_steps: int):
-    if execution["mode"] != "mode1":
-        raise NotImplementedError("execution mode2 is not ported yet")
     ctrl = ctrl_for_assignment(grid, ens.assignment,
                                getattr(engine, "ctrl_keys", None))
+    if execution["mode"] == "mode2":
+        return M.propagate_mode2(engine, ens.state, ctrl, n_steps, rng,
+                                 execution["n_waves"], max_steps=max_steps)
     return M.propagate_mode1(engine, ens.state, ctrl, n_steps, rng,
                              max_steps=max_steps)
 
@@ -41,17 +51,29 @@ def _exchange(engine, state, grid, assignment, dim_index, parity, rng,
 
 
 def _cycle_core(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
-                md_steps: int, dim_index, parity, scheme: str, execution
+                md_steps: int, window_steps: int, dim_index, parity,
+                scheme: str, execution
                 ) -> Tuple[Ensemble, Dict[str, Any], torch.Tensor]:
-    """The cycle body: split the driver key, propagate every replica,
-    then one exchange sweep.  Returns (new_ens, exchange_stats, ready)."""
-    if pattern != "synchronous":
-        raise NotImplementedError(f"pattern {pattern!r} is not ported yet")
+    """The cycle body of both patterns: split the driver key, propagate
+    every replica, then one exchange sweep (masked by readiness under the
+    asynchronous pattern).  Returns (new_ens, exchange_stats, ready)."""
     k_md, k_ex, k_next = jr.split(ens.rng, 3)
-    n_steps = torch.full(ens.assignment.shape, md_steps, dtype=torch.int64,
-                         device=ens.assignment.device)
-    state = _propagate(engine, ens, grid, n_steps, k_md, execution, md_steps)
-    ready = ens.alive
+    if pattern == "asynchronous":
+        max_steps = 2 * window_steps
+        n_steps = torch.clamp(torch.round(window_steps * ens.speed)
+                              .to(torch.int64), 1, max_steps)
+    else:
+        max_steps = md_steps
+        n_steps = torch.full(ens.assignment.shape, md_steps,
+                             dtype=torch.int64, device=ens.assignment.device)
+    state = _propagate(engine, ens, grid, n_steps, k_md, execution,
+                       max_steps)
+    if pattern == "asynchronous":
+        debt = ens.debt + n_steps.to(torch.float32)
+        ready = (debt >= md_steps) & ens.alive
+        ens = ens._replace(debt=torch.where(ready, debt - md_steps, debt))
+    else:
+        ready = ens.alive
     assignment, stats = _exchange(engine, state, grid, ens.assignment,
                                   dim_index, parity, k_ex, scheme,
                                   ready=ready)
@@ -61,7 +83,8 @@ def _cycle_core(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
 
 
 def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
-                md_steps: int, scheme: str = "neighbor", execution=None
+                md_steps: int, window_steps: int = 0,
+                scheme: str = "neighbor", execution=None
                 ) -> Tuple[Ensemble, Dict[str, torch.Tensor]]:
     """One cycle with dim/parity derived ON DEVICE from ``ens.cycle``.
 
@@ -76,8 +99,8 @@ def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
                                        rounding_mode="floor"), 2)
     new_ens, stats, ready = _cycle_core(
         engine, grid, ens, pattern=pattern, md_steps=md_steps,
-        dim_index=dim_index, parity=parity, scheme=scheme,
-        execution=execution)
+        window_steps=window_steps, dim_index=dim_index, parity=parity,
+        scheme=scheme, execution=execution)
     return new_ens, {
         "dim": dim_index,
         "accepted": stats["accepted"],

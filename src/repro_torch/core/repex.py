@@ -24,19 +24,33 @@ timed as in the JAX package (``t_prep``, ``t_step``, ``t_recover``,
 outside the no-sync guard; its cycles are the same launches as
 ``run_fused``'s, so its history rows equal ``run_fused``'s.
 
-Telemetry, checkpoints, failure injection and ``run_sharded`` are not
-ported yet; asking for them raises ``NotImplementedError``.
-``last_report`` stays ``None``.
+Both patterns (``cfg.pattern``: synchronous, asynchronous) and both
+execution modes (Mode II by ``slots`` or ``cfg.execution_mode``) run on
+either path.  ``failure_rate > 0`` corrupts replicas before each cycle
+(the failure key rides the carry beside the recovery backup);
+``cfg.relaunch_budget`` sets the escalation ladder.  With ``ckpt_dir``
+the driver checkpoints the ensemble, the carry and its host bookkeeping
+(``run`` by ``CheckpointManager`` cadence, ``run_fused`` at the chunk
+that crosses a multiple of ``ckpt_every``), in the JAX package's format;
+``restore`` and ``resume`` continue a killed run bit-exactly.
+
+Telemetry, meshes and ``run_sharded`` are not ported yet; asking for
+them raises ``NotImplementedError``.  ``last_report`` stays ``None``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch.ckpt import (CheckpointError, CheckpointManager, PRNGKey,
+                              load_checkpoint)
 from repro_torch.config import RepExConfig
 from repro_torch.core import failures as F
 from repro_torch.core import patterns
@@ -52,17 +66,22 @@ _FIELDS = ("cycle", "dim", "accepted", "attempted",
            "ready_frac") + F.ESC_STAT_KEYS + NB_STAT_KEYS
 _INT_FIELDS = ("cycle", "dim") + F.ESC_STAT_KEYS
 
+# checkpoint 'extra' schema carried alongside the ensemble payload (the
+# host-side driver state resume() restores), the JAX package's
+CKPT_DRIVER_SCHEMA = 1
+
+# config fields that do not affect the per-cycle trajectory: a resume may
+# differ in these without invalidating the bitwise-resume contract
+_CFG_RESUME_EXEMPT = ("n_cycles",)
+
 
 class REMDDriver:
     def __init__(self, engine, cfg: RepExConfig, mesh=None,
                  slots: Optional[int] = None, ckpt_dir: Optional[str] = None,
-                 failure_rate: float = 0.0,
+                 ckpt_every: int = 0, failure_rate: float = 0.0,
                  telemetry=None, device="cuda"):
-        unported = {"mesh": mesh is not None, "ckpt_dir": bool(ckpt_dir),
-                    "failure_rate": failure_rate > 0,
-                    "telemetry": telemetry is not None,
-                    "cfg.pattern": cfg.pattern != "synchronous",
-                    "cfg.relaunch_budget": cfg.relaunch_budget != 0}
+        unported = {"mesh": mesh is not None,
+                    "telemetry": telemetry is not None}
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(f"not ported yet: {asked}")
@@ -84,32 +103,47 @@ class REMDDriver:
         eff_slots = max(slots // max(cfg.cores_per_replica, 1), 1)
         if cfg.execution_mode == "mode1":
             self.execution = {"mode": "mode1", "n_waves": 1}
+        elif cfg.execution_mode == "mode2":
+            self.execution = auto_mode(n, eff_slots)
+            if self.execution["mode"] != "mode2":      # at least 2 waves
+                self.execution = {"mode": "mode2", "n_waves": min(2, n)}
         else:
             self.execution = auto_mode(n, eff_slots)
-        if cfg.execution_mode == "mode2" or self.execution["mode"] != "mode1":
-            raise NotImplementedError("execution mode2 is not ported yet")
+        self.failure_rate = failure_rate
+        self.ckpt = (CheckpointManager(ckpt_dir, every=ckpt_every)
+                     if ckpt_dir else None)
         self.history: List[Dict] = []
         self.acceptance = {f"dim{d.index}": [0.0, 0.0]
                            for d in self.grid.dims}
         self.last_report = None
+        # (backup, fail_key) restored by resume()/restore(), consumed by
+        # the next run*() call so the carry continues bit-exactly
+        self._resume_carry = None
+
+    @property
+    def _window_steps(self) -> int:
+        """The asynchronous pattern's real-time window in MD steps."""
+        cfg = self.cfg
+        return max(int(cfg.md_steps_per_cycle * cfg.async_window), 1)
 
     # -- public API --------------------------------------------------------
 
     def init(self, seed: Optional[int] = None) -> Ensemble:
         rng = jr.key(self.cfg.seed if seed is None else seed, self.device)
         return make_ensemble(self.engine, rng, self.grid.n_ctrl,
-                             hetero_speed=False)
+                             hetero_speed=self.cfg.pattern == "asynchronous")
 
     def run(self, ens: Ensemble, n_cycles: Optional[int] = None,
             verbose: bool = False) -> Ensemble:
         """The per-cycle path: one cycle per iteration, with the host
         reading the cycle count (T_RepEx_over), waiting for the cycle
         (T_MD + T_EX), for detect + recover, and fetching the stats
-        (T_data), every cycle."""
+        (T_data), every cycle.  Failures are injected between cycles;
+        checkpoints follow the manager's cadence, cycle by cycle."""
         cfg = self.cfg
         policy = "relaunch" if cfg.relaunch_failed else "continue"
         n_dims = len(self.grid.dims)
-        backup = self._start_carry(ens)
+        backup, fail_key = self._start_carry(ens)
         for _ in range(n_cycles or cfg.n_cycles):
             t0 = time.perf_counter()
             cyc = int(ens.cycle)
@@ -118,10 +152,14 @@ class REMDDriver:
             dev = ens.cycle.device
             t_prep = time.perf_counter() - t0            # T_RepEx_over
 
+            if self.failure_rate > 0:
+                fail_key, ens = self._inject(fail_key, ens)
+
             t1 = time.perf_counter()
             new_ens, stats, ready = patterns._cycle_core(
                 self.engine, self.grid, ens, pattern=cfg.pattern,
                 md_steps=cfg.md_steps_per_cycle,
+                window_steps=self._window_steps,
                 dim_index=torch.tensor(dim_index, device=dev),
                 parity=torch.tensor(parity, device=dev),
                 scheme=cfg.exchange_scheme, execution=self.execution)
@@ -168,6 +206,8 @@ class REMDDriver:
                 "nb_rebuilds": nb["nb_rebuilds"],
             })
             ens = new_ens
+            if self.ckpt is not None:
+                self._save_ckpt(cyc, ens, backup, fail_key)
             if verbose:
                 print(f"cycle {cyc:4d} dim {dim_index} "
                       f"acc {accepted / max(attempted, 1.0) * 100:5.1f}%  "
@@ -180,7 +220,8 @@ class REMDDriver:
         Same ``history`` / ``acceptance`` bookkeeping as the JAX driver."""
         if chunk_cycles < 1:
             raise ValueError(f"chunk_cycles must be >= 1, got {chunk_cycles}")
-        return self._chunk_loop(ens, self._start_carry(ens),
+        backup, fail_key = self._start_carry(ens)
+        return self._chunk_loop(ens, backup, fail_key,
                                 n_cycles or self.cfg.n_cycles, chunk_cycles,
                                 verbose)
 
@@ -210,19 +251,27 @@ class REMDDriver:
                 torch.cuda.set_sync_debug_mode(prev)
         return guard()
 
-    def _chunk(self, ens: Ensemble, backup, k: int):
-        """``k`` complete cycles, queued on the device with no host read.
-        Returns (ens, backup, rows) with rows a (k, F) float64
-        device tensor of per-cycle stats (``_FIELDS``, then the
-        assignment row)."""
+    def _inject(self, fail_key, ens: Ensemble):
+        """Advance the failure key and corrupt this cycle's hits."""
+        fail_key, k = jr.split(fail_key, 2)
+        return fail_key, F.inject_failures(ens, k, self.failure_rate)
+
+    def _chunk(self, ens: Ensemble, backup, fail_key, k: int):
+        """``k`` complete inject -> cycle -> detect/recover steps, queued
+        on the device with no host read.  Returns (ens, backup, fail_key,
+        rows) with rows a (k, F) float64 device tensor of per-cycle stats
+        (``_FIELDS``, then the assignment row)."""
         cfg = self.cfg
         policy = "relaunch" if cfg.relaunch_failed else "continue"
         rows = []
         for _ in range(k):
+            if self.failure_rate > 0:
+                fail_key, ens = self._inject(fail_key, ens)
             cyc = ens.cycle
             ens, stats = patterns.fused_cycle(
                 self.engine, self.grid, ens, pattern=cfg.pattern,
-                md_steps=cfg.md_steps_per_cycle, scheme=cfg.exchange_scheme,
+                md_steps=cfg.md_steps_per_cycle,
+                window_steps=self._window_steps, scheme=cfg.exchange_scheme,
                 execution=self.execution)
             ens, backup, esc = F.detect_recover(
                 self.engine, ens, policy, backup,
@@ -232,9 +281,9 @@ class REMDDriver:
                                    for f in _FIELDS])
             rows.append(torch.cat([scalars,
                                    stats["assignment"].to(torch.float64)]))
-        return ens, backup, torch.stack(rows)
+        return ens, backup, fail_key, torch.stack(rows)
 
-    def _chunk_loop(self, ens: Ensemble, backup, n_cycles: int,
+    def _chunk_loop(self, ens: Ensemble, backup, fail_key, n_cycles: int,
                     chunk_cycles: int, verbose: bool) -> Ensemble:
         c0 = int(ens.cycle)
         done = 0
@@ -242,7 +291,8 @@ class REMDDriver:
             k = min(chunk_cycles, n_cycles - done)
             t0 = time.perf_counter()
             with self._no_host_sync():
-                ens, backup, rows = self._chunk(ens, backup, k)
+                ens, backup, fail_key, rows = self._chunk(ens, backup,
+                                                          fail_key, k)
             self._sync()
             t_chunk = time.perf_counter() - t0      # K x (T_MD + T_EX)
 
@@ -275,6 +325,10 @@ class REMDDriver:
                     "nb_rebuilds": cols["nb_rebuilds"][i],
                 })
             done += k
+            if self.ckpt is not None and self.ckpt.every > 0:
+                lo, hi = c0 + done - k, c0 + done - 1
+                if hi // self.ckpt.every > (lo - 1) // self.ckpt.every:
+                    self._save_ckpt(hi, ens, backup, fail_key, force=True)
             if verbose:
                 acc = sum(cols["accepted"])
                 att = max(sum(cols["attempted"]), 1.0)
@@ -284,6 +338,130 @@ class REMDDriver:
         return ens
 
     def _start_carry(self, ens: Ensemble):
-        """The recovery backup a fresh run starts from: the ensemble's own
-        state.  (The failure-injection key joins the carry with injection.)"""
-        return ens.state
+        """The carry's (backup, fail_key) start values: the pair that
+        resume()/restore() loaded from a checkpoint (consumed exactly
+        once), or a fresh run's: the ensemble's own state and the key of
+        ``seed + 999``."""
+        carry, self._resume_carry = self._resume_carry, None
+        if carry is not None:
+            return carry
+        return ens.state, jr.key(self.cfg.seed + 999, self.device)
+
+    # -- checkpoint payload / driver-state extra ---------------------------
+
+    def _ckpt_payload(self, ens: Ensemble, backup, fail_key):
+        """The full device-side restart state, keyed as the JAX driver
+        keys it: the ensemble plus the carry (the recovery backup, which
+        lags the ensemble whenever a failure froze it, and the failure
+        key chain)."""
+        e = ens._asdict()
+        e["rng"] = PRNGKey(ens.rng)
+        return {"ensemble": e, "backup": backup,
+                "fail_key": PRNGKey(fail_key)}
+
+    def _cfg_fingerprint(self) -> Dict[str, Any]:
+        """The config as the JAX driver fingerprints it (JSON round trip,
+        ``n_cycles`` exempt, the failure rate added), so that either
+        package resumes the other's checkpoint of the same run."""
+        d = dataclasses.asdict(self.cfg)
+        for k in _CFG_RESUME_EXEMPT:
+            d.pop(k, None)
+        d["_failure_rate"] = float(self.failure_rate)
+        return json.loads(json.dumps(d))
+
+    def _ckpt_extra(self) -> Dict[str, Any]:
+        """Host-side driver state riding the manifest: cycle history
+        (with assignment rows), per-dim acceptance and the config
+        fingerprint resume() validates."""
+        hist = []
+        for h in self.history:
+            h2 = dict(h)
+            if h2.get("assignment") is not None:
+                h2["assignment"] = np.asarray(h2["assignment"]).tolist()
+            hist.append(h2)
+        return {"repex": {
+            "schema": CKPT_DRIVER_SCHEMA,
+            "config": self._cfg_fingerprint(),
+            "acceptance": {k: [float(v[0]), float(v[1])]
+                           for k, v in self.acceptance.items()},
+            "history": hist,
+            "telemetry": None,
+        }}
+
+    def _save_ckpt(self, step: int, ens: Ensemble, backup, fail_key,
+                   force: bool = False):
+        self.ckpt.maybe_save(step, self._ckpt_payload(ens, backup, fail_key),
+                             extra=self._ckpt_extra(), force=force)
+
+    # -- restart paths -----------------------------------------------------
+
+    def _load_ckpt(self, step: Optional[int] = None):
+        """The newest intact checkpoint (or ``step``), in a template
+        payload on this driver's device; returns (ensemble, carry,
+        step, extra)."""
+        ens_like = self.init()
+        like = self._ckpt_payload(ens_like, ens_like.state, ens_like.rng)
+        tree, step_no, extra = load_checkpoint(self.ckpt.directory, like,
+                                               step=step)
+        e = dict(tree["ensemble"], rng=tree["ensemble"]["rng"].data)
+        carry = (tree["backup"], tree["fail_key"].data)
+        return Ensemble(**e), carry, step_no, extra
+
+    def restore(self, ens_like: Ensemble) -> Optional[Ensemble]:
+        """Restart from the latest checkpoint (the node-failure path).
+        Returns just the ensemble; the recovery backup and the failure
+        key are staged so that the next ``run*`` call continues
+        bit-exactly.  :meth:`resume` also restores the history."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return None
+        ens, self._resume_carry, _, _ = self._load_ckpt()
+        return ens
+
+    def resume(self, via: str = "fused", n_cycles: Optional[int] = None,
+               chunk_cycles: int = 16, mesh=None,
+               step: Optional[int] = None,
+               verbose: bool = False) -> Ensemble:
+        """Continue a killed run from its newest intact checkpoint (or
+        ``step``): the ensemble, the carry (backup + failure key) and the
+        host bookkeeping (history, acceptance), then the remaining
+        ``n_cycles - cycle`` cycles via ``run`` or ``run_fused``.  The
+        stitched run equals an uninterrupted one bitwise.  The
+        checkpoint's config fingerprint must match this driver's
+        (``n_cycles`` exempt), else :class:`CheckpointError`.
+        ``via="sharded"`` and ``mesh`` are not ported yet."""
+        if self.ckpt is None:
+            raise ValueError("resume() needs a driver constructed with "
+                             "ckpt_dir")
+        if via == "sharded" or mesh is not None:
+            raise NotImplementedError("run_sharded is not ported yet")
+        if via not in ("run", "fused"):
+            raise ValueError(f"via must be run|fused|sharded, got {via!r}")
+        ens, carry, step_no, extra = self._load_ckpt(step=step)
+        meta = (extra or {}).get("repex")
+        if not meta:
+            raise CheckpointError(
+                f"checkpoint step {step_no} carries no driver state "
+                f"('repex' extra missing); use restore()")
+        saved_cfg = meta.get("config", {})
+        cur_cfg = self._cfg_fingerprint()
+        if saved_cfg != cur_cfg:
+            diff = sorted(k for k in set(saved_cfg) | set(cur_cfg)
+                          if saved_cfg.get(k) != cur_cfg.get(k))
+            raise CheckpointError(
+                f"checkpoint config does not match this driver "
+                f"(differing fields: {diff}) — resume with the original "
+                f"configuration")
+        self.history = [
+            dict(h, assignment=np.asarray(h["assignment"], np.int64))
+            if h.get("assignment") is not None else dict(h)
+            for h in meta.get("history", [])]
+        self.acceptance = {k: [float(v[0]), float(v[1])]
+                           for k, v in meta.get("acceptance", {}).items()}
+        remaining = (n_cycles or self.cfg.n_cycles) - int(ens.cycle)
+        if remaining <= 0:
+            return ens
+        self._resume_carry = carry
+        if via == "run":
+            return self.run(ens, n_cycles=remaining, verbose=verbose)
+        return self.run_fused(ens, n_cycles=remaining,
+                              chunk_cycles=chunk_cycles, verbose=verbose)

@@ -216,11 +216,14 @@ def bonded_forces(pos, top: ChainTopology,
 
     pos: (..., N, 3); umbrella rows (..., U) or None.  Returns (force
     (..., N, 3), e_bonded (...,)), the energy without the bias.  One
-    role-batched contraction against ``top.inc_stack``, then a sum over
-    the six roles, as in the JAX package."""
+    contraction against ``top.inc_stack`` per replica and role, then a
+    sum over the six roles, as in the JAX package.  The contraction is a
+    batched matmul, one product per replica and role: a replica's sums do
+    not depend on how many replicas the stack holds (a Mode II wave
+    gives each replica the bits of Mode I)."""
     edges, e = _edge_grads(pos, top, umbrella_center, umbrella_k)
-    out = torch.einsum("...rcw,rwn->r...cn", edges, top.inc_stack)
-    force = -torch.sum(out, dim=0).transpose(-1, -2)         # (..., N, 3)
+    out = torch.matmul(edges, top.inc_stack)                 # (..., 6, 3, N)
+    force = -torch.sum(out, dim=-3).transpose(-1, -2)        # (..., N, 3)
     return force, e
 
 

@@ -8,6 +8,9 @@ PyTorch oracle ``ref.exchange_matrix``, which is also the kernel's plain
 version.  The kernel reads packed rows: features (4, R) [u_base, u_elec,
 phi_deg, psi_deg] and controls (6, C) [beta, salt, c0, c1, k0, k1], an
 absent field packed as zeros (inert in the formula).
+``empty_launch(r, c)`` launches an empty kernel on the same grid: the
+launch floor the kernel's time is measured against, on no path and not
+counted.
 """
 from __future__ import annotations
 
@@ -69,6 +72,14 @@ def exchange_matrix_batched(feat: torch.Tensor, ctrl_rows: torch.Tensor
     raise_on_error(code, "exchange_matrix")
     LIBRARY.count()
     return out
+
+
+def empty_launch(r: int, c: int) -> None:
+    """An empty kernel on ``exchange_matrix_kernel``'s grid for (R, C),
+    on the current stream: the launch floor.  Not counted."""
+    fn = LIBRARY.function("empty_launch", [ctypes.c_int] * 2
+                          + [ctypes.c_void_p])
+    raise_on_error(fn(r, c, stream_ptr()), "empty_launch")
 
 
 def exchange_matrix(features, ctrl) -> torch.Tensor:

@@ -144,16 +144,30 @@ def _check_stack(pos: torch.Tensor) -> None:
                          f"{pos.dtype} {tuple(pos.shape)}")
 
 
-def _fluid_walk(pos: torch.Tensor, box: float):
+def split_replicas(r: int, stack) -> int:
+    """The replica count a split is sized by: the call's own ``r``, or
+    ``stack``, the ensemble's count when the call holds one Mode II wave
+    of it — so that a replica's sums, and with them its bits, do not
+    depend on the wave it ran in."""
+    if stack is None:
+        return r
+    if stack < r:
+        raise ValueError(f"stack={stack} is smaller than the call's {r} "
+                         f"replicas")
+    return stack
+
+
+def _fluid_walk(pos: torch.Tensor, box: float, stack=None):
     """The walk's shapes for a fluid stack: (ld, split, schedule, the
     float32 1 / box, 0 for no box).  Both fluid kernels take two waves
     (``block_split``), so the energy's block sums, like the forces'
-    partial rows, are added in an order fixed by (R, N)."""
+    partial rows, are added in an order fixed by (R, N), R the ensemble's
+    count (``split_replicas``)."""
     r, n, _ = pos.shape
     ld = pad_to_block(n, TILE)
     n_tiles = ld // PAIR_TILE
     inv_box = float(np.float32(1.0 / box)) if box > 0 else 0.0
-    return (ld, block_split(r, n_tiles, waves=2),
+    return (ld, block_split(split_replicas(r, stack), n_tiles, waves=2),
             tile_schedule(n_tiles, pos.device), inv_box)
 
 
@@ -178,14 +192,14 @@ def lj_energy_batched(pos: torch.Tensor, sigma: float, eps: float,
 
 
 def lj_forces_batched(pos: torch.Tensor, sigma: float, eps: float,
-                      box: float) -> torch.Tensor:
+                      box: float, stack=None) -> torch.Tensor:
     """The forces kernel: a CUDA (R, N, 3) stack -> (R, N, 3) forces in
-    one launch (the pair walk, then the sum of its partial rows); anything
-    else raises."""
+    one launch (the pair walk, then the sum of its partial rows; its
+    split sized by ``stack`` when given); anything else raises."""
     _check_stack(pos)
     r, n, _ = pos.shape
     sig2, _, c24, box = ref.fluid_constants(sigma, eps, box)
-    ld, split, sched, inv_box = _fluid_walk(pos, box)
+    ld, split, sched, inv_box = _fluid_walk(pos, box, stack)
     fn = LJ_FLUID_LIBRARY.function("lj_forces_launch", _FLUID_ARGTYPES)
     part = torch.empty((r, split, 3, ld), dtype=torch.float32,
                        device=pos.device)
@@ -206,11 +220,12 @@ def fluid_energy(pos, sigma: float, eps: float, box: float):
     return ref.lj_energy(pos, sigma, eps, box)
 
 
-def fluid_forces(pos, sigma: float, eps: float, box: float):
+def fluid_forces(pos, sigma: float, eps: float, box: float, stack=None):
     """(R, N, 3) -> (R, N, 3): the forces kernel on the card, the oracle
-    on the CPU."""
+    on the CPU.  ``stack``: the ensemble's replica count when ``pos`` is
+    one Mode II wave of it (``split_replicas``)."""
     if default_use_kernel(pos):
-        return lj_forces_batched(pos.contiguous(), sigma, eps, box)
+        return lj_forces_batched(pos.contiguous(), sigma, eps, box, stack)
     return ref.lj_forces(pos, sigma, eps, box)
 
 
@@ -328,12 +343,13 @@ _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
-def nonbonded_batched(pos: torch.Tensor, pack: NonbondedPack):
+def nonbonded_batched(pos: torch.Tensor, pack: NonbondedPack, stack=None):
     """The kernel: a CUDA (R, N, 3) stack -> (f_lj (R, N, 3),
     f_el (R, N, 3), e_lj (R,), e_el (R,)) in one launch (the pair walk,
-    then the sum of its partial rows); anything else raises.  Counted
-    under the variant "rows_shared", or "rows_l2" where the partial rows
-    live in device memory (N above 8064)."""
+    then the sum of its partial rows; its split sized by ``stack`` when
+    given, ``split_replicas``); anything else raises.  Counted under the
+    variant "rows_shared", or "rows_l2" where the partial rows live in
+    device memory (N above 8064)."""
     r, n, _ = pos.shape
     rows = (pack.lj_sigma, pack.sqrt_eps, pack.charges, pack.mask_bits,
             pack.tile_kept)
@@ -346,7 +362,7 @@ def nonbonded_batched(pos: torch.Tensor, pack: NonbondedPack):
     fn = LIBRARY.function("nonbonded_launch", _ARGTYPES)
     ld = pack.mask_bits.shape[0]
     n_tiles = ld // PAIR_TILE
-    split = block_split(r, n_tiles)
+    split = block_split(split_replicas(r, stack), n_tiles)
     shared = rows_in_shared(ld)
     sched = tile_schedule(n_tiles, pos.device)
     part = torch.empty((r, split, 6, ld), dtype=torch.float32,
@@ -367,14 +383,15 @@ def nonbonded_batched(pos: torch.Tensor, pack: NonbondedPack):
 
 
 def nonbonded_force(pos: torch.Tensor, pack: NonbondedPack,
-                    salt_scale=None):
+                    salt_scale=None, stack=None):
     """Combined (salt-scaled) nonbonded force for the propagate loop:
     (R, N, 3) -> (R, N, 3).  The kernel path combines the sweep's split
-    outputs; the CPU path folds the scaling into one coefficient pass."""
+    outputs (``stack`` as for ``nonbonded_batched``); the CPU path folds
+    the scaling into one coefficient pass."""
     if not default_use_kernel(pos):
         return ref.nonbonded_force(pos, pack.lj_sigma, pack.lj_eps,
                                    pack.charges, pack.nb_mask, salt_scale)
-    f_lj, f_el, _, _ = nonbonded_batched(pos.contiguous(), pack)
+    f_lj, f_el, _, _ = nonbonded_batched(pos.contiguous(), pack, stack)
     if salt_scale is not None:
         f_el = salt_scale[..., None, None] * f_el
     return f_lj + f_el

@@ -5,11 +5,14 @@
 
 The features (U_base, U_elec, phi, psi) are computed once per exchange
 and every ctrl assignment is an O(R) reduction over them.  This is the
-replica-major forward path of the JAX package's ``md/energy.py``
-(``batched_features``, ``sparse_features`` and the reductions).  The
-dense (R, N, N) pair pass is plain tensor code, chunked over replicas so
-that its planes stay near a GB at N = 2881; the sparse pair pass is one
-launch of the sparse nonbonded kernel on the card.
+JAX package's ``md/energy.py``: the per-replica functions (``features``,
+``potential_energy``: the ``"vmap"`` oracle's energy, one (N, 3)
+configuration), then the replica-major path (``batched_features``,
+``sparse_features``, ``batched_potential_energy`` — the ``"batched"``
+oracle differentiates it — and the reductions).  The dense (R, N, N)
+pair pass is plain tensor code, chunked over replicas so that its planes
+stay near a GB at N = 2881; the sparse pair pass is one launch of the
+sparse nonbonded kernel on the card.
 """
 from __future__ import annotations
 
@@ -38,6 +41,100 @@ def _torsion_from_gathered(p) -> torch.Tensor:
     y = torch.sum(m1 * n2, -1)
     return torch.atan2(y, x)
 
+
+# ---------------------------------------------------------------------------
+# One replica: pos (N, 3) -> scalars (the reference oracle)
+# ---------------------------------------------------------------------------
+
+def dihedral_angles(pos, quads) -> torch.Tensor:
+    """Signed dihedrals (radians) of one configuration: (D, 4) -> (D,)."""
+    return _torsion_from_gathered(pos[quads])
+
+
+def bonded_energy(pos, sys: MolecularSystem) -> torch.Tensor:
+    ri = pos[sys.bonds[:, 0]]
+    rj = pos[sys.bonds[:, 1]]
+    r = torch.linalg.vector_norm(ri - rj + 1e-12, dim=-1)
+    e_bond = torch.sum(sys.bond_k * (r - sys.bond_r0) ** 2)
+
+    v1 = pos[sys.angles[:, 0]] - pos[sys.angles[:, 1]]
+    v2 = pos[sys.angles[:, 2]] - pos[sys.angles[:, 1]]
+    cos = torch.sum(v1 * v2, -1) / (
+        torch.linalg.vector_norm(v1, dim=-1)
+        * torch.linalg.vector_norm(v2, dim=-1) + 1e-9)
+    theta = torch.acos(torch.clamp(cos, -1 + 1e-6, 1 - 1e-6))
+    e_angle = torch.sum(sys.angle_k * (theta - sys.angle_t0) ** 2)
+
+    phi = dihedral_angles(pos, sys.dihedrals)
+    e_dih = torch.sum(sys.dihedral_k
+                      * (1 + torch.cos(sys.dihedral_n * phi
+                                       - sys.dihedral_phase)))
+    return e_bond + e_angle + e_dih
+
+
+def _pair_r2(pos, n_atoms: int) -> torch.Tensor:
+    """Squared distances with 1 on the diagonal (masked out after)."""
+    disp = pos[:, None, :] - pos[None, :, :]
+    eye = torch.eye(n_atoms, dtype=pos.dtype, device=pos.device)
+    return torch.sum(disp * disp, -1) + eye
+
+
+def lj_energy(pos, sys: MolecularSystem) -> torch.Tensor:
+    r2 = _pair_r2(pos, sys.n_atoms)
+    sig = 0.5 * (sys.lj_sigma[:, None] + sys.lj_sigma[None, :])
+    eps = torch.sqrt(sys.lj_eps[:, None] * sys.lj_eps[None, :])
+    s6 = (sig * sig / r2) ** 3
+    return 0.5 * torch.sum(4.0 * eps * (s6 * s6 - s6) * sys.nb_mask)
+
+
+def elec_energy(pos, sys: MolecularSystem) -> torch.Tensor:
+    """Bare charge-charge term (scaled by the salt control outside)."""
+    r = torch.sqrt(_pair_r2(pos, sys.n_atoms))
+    qq = sys.charges[:, None] * sys.charges[None, :]
+    return 0.5 * torch.sum(COULOMB * qq / r * sys.nb_mask)
+
+
+def features(pos, sys: MolecularSystem) -> Dict[str, torch.Tensor]:
+    """Per-configuration features sufficient for any ctrl's energy."""
+    quads = torch.tensor([sys.phi_quad, sys.psi_quad], dtype=torch.int64,
+                         device=pos.device)
+    phi, psi = dihedral_angles(pos, quads)
+    return {"u_base": bonded_energy(pos, sys) + lj_energy(pos, sys),
+            "u_elec": elec_energy(pos, sys), "phi": phi, "psi": psi}
+
+
+def bias_energy(phi, psi, ctrl_center, ctrl_k) -> torch.Tensor:
+    """Umbrella restraints on (phi, psi) in degrees."""
+    angles = torch.stack([phi * _RAD2DEG, psi * _RAD2DEG])
+    n = ctrl_center.shape[-1]
+    d = wrap_deg(angles[:n] - ctrl_center)
+    return torch.sum(ctrl_k * d * d)
+
+
+def _ctrl_reduction(f: Dict, ctrl_row: Dict) -> torch.Tensor:
+    """U(x; ctrl) of one replica from its features."""
+    salt = ctrl_row.get("salt")
+    salt_scale = 1.0 if salt is None else 1.0 - 0.5 * salt
+    u = f["u_base"] + salt_scale * f["u_elec"]
+    zero = torch.zeros(1, dtype=u.dtype, device=u.device)
+    return u + bias_energy(f["phi"], f["psi"],
+                           ctrl_row.get("umbrella_center", zero),
+                           ctrl_row.get("umbrella_k", zero))
+
+
+def potential_energy(pos, sys: MolecularSystem, ctrl_row: Dict
+                     ) -> torch.Tensor:
+    """Full potential for one replica under one ctrl row."""
+    return _ctrl_reduction(features(pos, sys), ctrl_row)
+
+
+def reduced_energy_from_features(f: Dict, ctrl_row: Dict) -> torch.Tensor:
+    return ctrl_row["beta"] * _ctrl_reduction(f, ctrl_row)
+
+
+# ---------------------------------------------------------------------------
+# Replica-major batched path: pos (R, N, 3) -> (R,)
+# ---------------------------------------------------------------------------
 
 def feature_quads(sys: MolecularSystem) -> torch.Tensor:
     """The dihedrals with the phi/psi feature quads appended; engines
@@ -159,6 +256,12 @@ def _batched_ctrl_reduction(f: Dict, ctrl: Dict) -> torch.Tensor:
     return u + batched_bias_energy(
         f["phi"], f["psi"], ctrl.get("umbrella_center", zeros),
         ctrl.get("umbrella_k", zeros))
+
+
+def batched_potential_energy(pos, sys: MolecularSystem, ctrl: Dict,
+                             quads: torch.Tensor = None) -> torch.Tensor:
+    """Full potential for the stack: pos (R, N, 3), ctrl rows (R, ...)."""
+    return _batched_ctrl_reduction(batched_features(pos, sys, quads), ctrl)
 
 
 def batched_reduced_energy_from_features(f: Dict, ctrl: Dict

@@ -1,8 +1,8 @@
 """The MD engine of the port: the 'Amber' stand-in on the chain molecule.
 
 ``MDEngine`` implements the SimulationEngine protocol of the JAX
-package's ``md/engine.py`` on two force paths, with umbrella and salt
-controls on both, for dense or sparse bonded and nonbonded passes:
+package's ``md/engine.py`` on four force paths, with umbrella and salt
+controls on each, for dense or sparse bonded and nonbonded passes:
 
   ``"pallas"``  per-pass analytic forces: the bonded kernel
                 (``kernels.chain_forces``, its bias variant when the grid
@@ -12,20 +12,33 @@ controls on both, for dense or sparse bonded and nonbonded passes:
   ``"fused"``   one launch per BAOAB iteration on the card
                 (``kernels.fused_propagate``); on the CPU the fused loop of
                 ``integrators.propagate_replica_major_fused`` with the
-                oracles, as the JAX package runs it there.
+                oracles, as the JAX package runs it there;
+  ``"batched"`` the oracle: ``torch.autograd.grad`` of the replica-major
+                potential (``energy.batched_potential_energy``) around the
+                same loop, plain PyTorch on either device;
+  ``"vmap"``    the reference oracle (``batched=False``): the
+                single-replica program run once per replica — whole BAOAB
+                steps, the force from autograd of
+                ``energy.potential_energy`` — and per-replica exchange
+                energies.
 
 ``nonbonded="sparse"`` replaces the all-pairs sweep with a neighbor list
 (``md/neighbors.py``) that rides the state as ``state["nlist"]``: every
 force evaluation runs the skin check and the device-gated build
 (``kernels.nlist_build``), then the sparse nonbonded kernel
-(``kernels.lj_forces``, ``nonbonded_sparse.cu``), on both force paths;
-the fused path then runs the fused loop around them, as the JAX package
-does.  ``bonded="sparse"`` selects the slot-table bonded oracle on the
-CPU; the card keeps its bonded kernel either way.
+(``kernels.lj_forces``, ``nonbonded_sparse.cu``), on both analytic
+paths; the fused path then runs the fused loop around them, as the JAX
+package does.  ``bonded="sparse"`` selects the slot-table bonded oracle
+on the CPU; the card keeps its bonded kernel either way.  As in the JAX
+package, the sparse passes need an analytic path ("pallas", "fused").
 
 ``cross_energy`` builds the (R, C) matrix of the Gibbs exchange (the
-``kernels.exchange_matrix`` kernel on the card).  The other force paths
-and the cell-list build are not ported yet; asking for them raises.
+``kernels.exchange_matrix`` kernel on the card).  The cell-list build is
+not ported yet; asking for it raises.
+
+``propagate(..., stack=R)``: the replica count of the ensemble when the
+state is one wave of it (Mode II); the all-pairs kernels size their
+per-replica split by it, so a replica's bits do not depend on its wave.
 
 State is ``{"pos": (R, N, 3), "vel": (R, N, 3)}`` (plus ``"nlist"`` on
 the sparse path) on ``engine.device``.
@@ -61,7 +74,7 @@ from repro_torch.md.system import (MolecularSystem, base_positions,
                                    chain_molecule, initial_positions)
 from repro_torch.tree import tree_leaves
 
-FORCE_PATHS = ("pallas", "fused")
+FORCE_PATHS = ("pallas", "batched", "vmap", "fused")
 NONBONDED_PATHS = ("dense", "sparse")
 BONDED_PATHS = ("dense", "sparse")
 
@@ -88,14 +101,23 @@ def _bond_overstretch(pos, bonds, r0, max_stretch: float) -> torch.Tensor:
     return torch.any(r > max_stretch * r0[None, :], dim=1)
 
 
+def _autograd_force(potential, pos) -> torch.Tensor:
+    """-dU/dx of a differentiable potential (summed over any replica
+    axis: replicas are independent, so its gradient is the stacked
+    per-replica force field)."""
+    with torch.enable_grad():
+        p = pos.detach().requires_grad_(True)
+        (f,) = torch.autograd.grad(-potential(p).sum(), p)
+    return f
+
+
 class MDEngine:
     force_paths = FORCE_PATHS
-    batched = True
 
     def __init__(self, system: Optional[MolecularSystem] = None,
                  dt: float = 5e-4, gamma: float = 5.0,
-                 init_temperature: float = 300.0,
-                 force_path: str = "pallas", nonbonded: str = "dense",
+                 init_temperature: float = 300.0, batched: bool = True,
+                 force_path: Optional[str] = None, nonbonded: str = "dense",
                  cutoff: float = 9.0, skin: float = 1.5,
                  k_max: Optional[int] = None,
                  nlist_build: Optional[str] = None,
@@ -108,6 +130,11 @@ class MDEngine:
         """``device``: where the state and the force passes live
         (default ``"cuda"``; raises if CUDA is missing — pass ``"cpu"``
         to run the PyTorch oracles on the CPU).
+
+        ``force_path``: "pallas" (the default), "batched", "vmap" or
+        "fused" (module docstring).  ``batched=False`` implies "vmap";
+        asking for another path with it raises ``ValueError``, as do the
+        sparse passes on the autograd oracles.
 
         ``nonbonded="sparse"``: the neighbor-list pass over the potential
         truncated at ``cutoff``, the list built to ``cutoff + skin`` and
@@ -123,12 +150,28 @@ class MDEngine:
         ``max_energy`` / ``max_bond_stretch``: opt-in failure detectors
         beyond the non-finite scan — kinetic energy above the threshold,
         or any bond stretched past that multiple of its rest length."""
+        if not batched:
+            if nonbonded == "sparse":
+                raise ValueError(
+                    "nonbonded='sparse' needs the batched analytic path; it "
+                    "cannot run batched=False (the vmap oracle)")
+            if force_path not in (None, "vmap"):
+                raise ValueError(f"batched=False is the vmap oracle; it "
+                                 f"cannot run force_path={force_path!r}")
+            force_path = "vmap"
+        elif force_path is None:
+            force_path = "pallas"
         for name, value, paths in (("force_path", force_path, FORCE_PATHS),
                                    ("nonbonded", nonbonded, NONBONDED_PATHS),
                                    ("bonded", bonded, BONDED_PATHS)):
             if value not in paths:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet (ported: {paths})")
+                raise ValueError(f"{name} must be one of {paths}, got "
+                                 f"{value!r}")
+        for name, value in (("nonbonded", nonbonded), ("bonded", bonded)):
+            if value == "sparse" and force_path not in ("pallas", "fused"):
+                raise ValueError(
+                    f"{name}='sparse' is an analytic-force feature; it "
+                    f"cannot run force_path={force_path!r}")
         if nb_pair_planes and nonbonded != "sparse":
             raise ValueError(
                 "nb_pair_planes=True needs nonbonded='sparse' (there is "
@@ -138,6 +181,7 @@ class MDEngine:
         self.dt = dt
         self.gamma = gamma
         self.init_temperature = init_temperature
+        self.batched = batched
         self.force_path = force_path
         self.nonbonded = nonbonded
         self.bonded = bonded
@@ -231,19 +275,55 @@ class MDEngine:
             state["nlist"] = self._build_nlist(pos)
         return state
 
-    def propagate(self, state, ctrl, n_steps, rngs, max_steps: int):
+    def propagate(self, state, ctrl, n_steps, rngs, max_steps: int,
+                  stack: Optional[int] = None):
         """``rngs``: per-replica keys (R, 2); ``max_steps``: the Python
-        int bound on ``n_steps`` (the loop length)."""
+        int bound on ``n_steps`` (the loop length); ``stack``: the
+        ensemble's replica count when ``state`` is one wave of it."""
+        if self.force_path == "vmap":
+            return self._propagate_vmap(state, ctrl, n_steps, rngs,
+                                        max_steps)
         if self.force_path == "fused":
             return self._propagate_fused(state, ctrl, n_steps, rngs,
                                          max_steps)
         if self.nonbonded == "sparse":
             return self._propagate_sparse(state, ctrl, n_steps, rngs,
                                           max_steps)
+        if self.force_path == "batched":
+            def force_fn(pos):
+                return _autograd_force(
+                    lambda p: E.batched_potential_energy(
+                        p, self.system, ctrl, self._feature_quads), pos)
+        else:
+            force_fn = self._analytic_force_fn(ctrl, stack)
         return I.propagate_replica_major(
-            state, self._analytic_force_fn(ctrl), self.system.masses,
-            ctrl["temperature"], n_steps, rngs, max_steps, self.dt,
-            self.gamma)
+            state, force_fn, self.system.masses, ctrl["temperature"],
+            n_steps, rngs, max_steps, self.dt, self.gamma)
+
+    def _propagate_vmap(self, state, ctrl, n_steps, rngs, max_steps: int):
+        """The reference oracle: each replica's own program, ``max_steps``
+        whole BAOAB steps (step t keyed ``fold_in(rngs[r], t)``), lanes
+        past their ``n_steps`` frozen."""
+        sys = self.system
+        out = {"pos": [], "vel": []}
+        for r in range(n_steps.shape[0]):
+            row = {k: v[r] for k, v in ctrl.items()}
+
+            def force_fn(pos, row=row):
+                return _autograd_force(
+                    lambda p: E.potential_energy(p, sys, row), pos)
+
+            pos, vel = state["pos"][r], state["vel"][r]
+            for t in range(max_steps):
+                npos, nvel = I.baoab_step(
+                    pos, vel, jr.fold_in(rngs[r], t), force_fn, sys.masses,
+                    row["temperature"], self.dt, self.gamma)
+                active = n_steps[r] > t
+                pos = torch.where(active, npos, pos)
+                vel = torch.where(active, nvel, vel)
+            out["pos"].append(pos)
+            out["vel"].append(vel)
+        return {k: torch.stack(v) for k, v in out.items()}
 
     def _sparse_force_aux(self, ctrl):
         """The sparse force field with its neighbor-list carry: every
@@ -302,10 +382,10 @@ class MDEngine:
             self.gamma)
         return out
 
-    def _analytic_force_fn(self, ctrl):
+    def _analytic_force_fn(self, ctrl, stack: Optional[int] = None):
         """One bonded pass + one nonbonded pass, hand-derived gradients.
         The umbrella and salt terms apply only when the grid carries
-        them."""
+        them; ``stack`` as for :meth:`propagate`."""
         u_c, u_k = ctrl.get("umbrella_center"), ctrl.get("umbrella_k")
         salt = ctrl.get("salt")
         salt_scale = None if salt is None else 1.0 - 0.5 * salt
@@ -315,26 +395,40 @@ class MDEngine:
         def force_fn(pos):
             f, _ = chain_ops.bonded_forces(pos, self._pack, u_c, u_k,
                                            sparse=sparse_bonded)
-            return f + nb_ops.nonbonded_force(pos, self._nb_pack, salt_scale)
+            return f + nb_ops.nonbonded_force(pos, self._nb_pack, salt_scale,
+                                              stack)
 
         return force_fn
 
     def energy(self, state, ctrl):
-        return E.batched_reduced_energy_from_features(
-            self.replica_features(state), ctrl)
+        return self._reduce(self.replica_features(state), ctrl)
+
+    def _reduce(self, feats, ctrl):
+        """u(x; ctrl) from feature rows: the replica-major reduction, or
+        on the vmap oracle one replica at a time."""
+        if self.batched:
+            return E.batched_reduced_energy_from_features(feats, ctrl)
+        return torch.stack([E.reduced_energy_from_features(
+            {k: v[r] for k, v in feats.items()},
+            {k: v[r] for k, v in ctrl.items()})
+            for r in range(feats["u_base"].shape[0])])
 
     def replica_features(self, state):
         """(R,) feature rows; on the sparse path those of the truncated
         potential, through the list the propagate loop kept fresh (one
-        launch of the sparse kernel on the card)."""
+        launch of the sparse kernel on the card); on the vmap oracle each
+        replica's own features."""
         if self.nonbonded == "sparse":
             nl = state["nlist"]
             return E.sparse_features(state["pos"], self.system,
                                      self._feature_quads, self._nb_pack,
                                      nl["idx"], nl["valid"], self.cutoff,
                                      nl.get("pair"))
-        return E.batched_features(state["pos"], self.system,
-                                  self._feature_quads)
+        if self.batched:
+            return E.batched_features(state["pos"], self.system,
+                                      self._feature_quads)
+        rows = [E.features(p, self.system) for p in state["pos"]]
+        return {k: torch.stack([f[k] for f in rows]) for k in rows[0]}
 
     def energy_pair(self, state, ctrl_a, ctrl_b):
         """u(x; ctrl_a), u(x; ctrl_b) from ONE feature pass."""
@@ -342,8 +436,7 @@ class MDEngine:
                                               ctrl_a, ctrl_b)
 
     def energy_pair_from_features(self, feats, ctrl_a, ctrl_b):
-        return (E.batched_reduced_energy_from_features(feats, ctrl_a),
-                E.batched_reduced_energy_from_features(feats, ctrl_b))
+        return self._reduce(feats, ctrl_a), self._reduce(feats, ctrl_b)
 
     def cross_energy(self, state, ctrl_grid):
         """(R, C) matrix u_c(x_i): one feature pass, then the matrix."""
@@ -433,9 +526,12 @@ class HarmonicEngine(_TOnlyFeatureAPI):
         a32 = np.float32(a)
         return torch.sqrt(var * float(np.float32(1.0) - a32 * a32))
 
-    def propagate(self, state, ctrl, n_steps, rngs, max_steps: int):
+    def propagate(self, state, ctrl, n_steps, rngs, max_steps: int,
+                  stack: Optional[int] = None):
         """``rngs``: per-replica keys (R, 2); step t of replica r draws
-        ``normal(fold_in(rngs[r], t), (D,))``."""
+        ``normal(fold_in(rngs[r], t), (D,))``.  ``stack`` (the Mode II
+        wave's ensemble size) changes nothing here: every op is
+        per-replica."""
         a = I.decay(self.gamma, self.dt)
         x = state["x"]
         ts = torch.arange(max_steps, dtype=torch.int64, device=x.device)
@@ -556,14 +652,18 @@ class LJEngine(_TOnlyFeatureAPI):
                                   (self.n, 3))
         return {"pos": pos, "vel": vel}
 
-    def _force_stack(self, pos):
+    def _force_stack(self, pos, stack: Optional[int] = None):
         """Analytic forces for the stack: one launch of the forces kernel
-        on the card, the oracle's pairwise sweep on the CPU."""
-        return nb_ops.fluid_forces(pos, self.sigma, self.eps, self.box)
+        on the card (its split sized by ``stack``, the ensemble's replica
+        count, when given), the oracle's pairwise sweep on the CPU."""
+        return nb_ops.fluid_forces(pos, self.sigma, self.eps, self.box,
+                                   stack)
 
-    def propagate(self, state, ctrl, n_steps, rngs, max_steps: int):
+    def propagate(self, state, ctrl, n_steps, rngs, max_steps: int,
+                  stack: Optional[int] = None):
         """``rngs``: per-replica keys (R, 2); ``max_steps``: the Python
-        int bound on ``n_steps`` (the loop length)."""
+        int bound on ``n_steps`` (the loop length); ``stack``: the
+        ensemble's replica count when ``state`` is one wave of it."""
         if not self.batched:
             return self._propagate_vmap(state, ctrl, n_steps, rngs,
                                         max_steps)
@@ -572,17 +672,16 @@ class LJEngine(_TOnlyFeatureAPI):
         # which agrees up to fp rounding (the minimum-image force is
         # wrap-invariant).
         return I.propagate_replica_major(
-            state, self._force_stack, self.masses, ctrl["temperature"],
-            n_steps, rngs, max_steps, self.dt, self.gamma, box=self.box)
+            state, lambda pos: self._force_stack(pos, stack), self.masses,
+            ctrl["temperature"], n_steps, rngs, max_steps, self.dt,
+            self.gamma, box=self.box)
 
     def _autograd_force(self, pos):
         """-dU/dx of the stack through ``LJEnergy``'s backward (the forces
         pass): bitwise the forces pass itself."""
-        with torch.enable_grad():
-            p = pos.detach().requires_grad_(True)
-            u = nb_ops.LJEnergy.apply(p, self.sigma, self.eps, self.box)
-            (f,) = torch.autograd.grad(-u.sum(), p)
-        return f
+        return _autograd_force(
+            lambda p: nb_ops.LJEnergy.apply(p, self.sigma, self.eps,
+                                            self.box), pos)
 
     def _propagate_vmap(self, state, ctrl, n_steps, rngs, max_steps: int):
         """The reference oracle: ``max_steps`` whole BAOAB steps per

@@ -27,7 +27,11 @@ once), with and without the softcap; one launch per layer of a prefill
 and none in decode, on the "bf16_tc" variant for bfloat16 and "f32" for
 float32; a softcapped prefill on the card within 1e-4 of max |logit| of
 the CPU's plain attention (float32: the same formulas summed in another
-order).
+order).  The driver's sixth slice: Mode II (three waves, the last padded)
+bitwise Mode I on both patterns; an asynchronous run with injected
+failures resumed from a checkpoint bitwise; the same run's decisions and
+failures as the CPU's; the oracle force paths ("batched", "vmap") within
+1e-3 A of "pallas" after 5 steps.
 """
 import numpy as np
 import pytest
@@ -718,3 +722,73 @@ def test_softcap_prefill_runs_through_the_kernel(dtype):
             tree_map(lambda t: t.cpu(), params), {"tokens": tokens.cpu()})
         scale = float(cpu.abs().max())
         assert float((logits.cpu() - cpu).abs().max()) <= 1e-4 * scale
+
+
+# -- the driver's patterns, modes and fault tolerance on the card --------
+
+
+def _driver(device, slots=None, ckpt_dir=None, rate=0.0, n_atoms=200,
+            **cfg):
+    c = RepExConfig(**dict(dict(dimensions=(("temperature", 8),),
+                                md_steps_per_cycle=4, n_cycles=4), **cfg))
+    return REMDDriver(MDEngine(chain_molecule(n_atoms), device=device), c,
+                      slots=slots, ckpt_dir=ckpt_dir, ckpt_every=2,
+                      failure_rate=rate, device=device)
+
+
+@pytest.mark.parametrize("pattern", ["synchronous", "asynchronous"])
+def test_mode2_is_bitwise_mode1_on_the_card(pattern):
+    """Three waves (the last padded) give every replica Mode I's bits:
+    the kernels' split follows the ensemble's R, not the wave's."""
+    outs = []
+    for slots in (None, 3):
+        drv = _driver("cuda", slots=slots, pattern=pattern)
+        ens = drv.run_fused(drv.init(0), chunk_cycles=2)
+        outs.append(([h["assignment"].tolist() for h in drv.history], ens))
+    assert outs[0][0] == outs[1][0]
+    for k in ("pos", "vel"):
+        assert torch.equal(outs[0][1].state[k], outs[1][1].state[k])
+
+
+def test_async_faults_resume_bitwise_on_the_card(tmp_path):
+    kw = dict(rate=0.2, ckpt_dir=str(tmp_path), pattern="asynchronous",
+              relaunch_budget=1)
+    full = _driver("cuda", **kw)
+    out = full.run_fused(full.init(0), chunk_cycles=2)
+    assert sum(h["failed"] for h in full.history) > 0
+    again = _driver("cuda", **kw)
+    res = again.resume(via="fused", chunk_cycles=2, step=1)
+    assert [h["assignment"].tolist() for h in again.history] == \
+        [h["assignment"].tolist() for h in full.history]
+    alive = out.alive
+    for k in ("pos", "vel"):
+        assert torch.equal(res.state[k][alive], out.state[k][alive])
+
+
+def test_async_faults_match_the_cpu():
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        drv = _driver(dev, slots=3, rate=0.2, pattern="asynchronous",
+                      relaunch_budget=1)
+        drv.run_fused(drv.init(0), chunk_cycles=2)
+        rows[dev] = [(h["assignment"].tolist(), h["failed"],
+                      h["esc_reinit"], h["ready_frac"])
+                     for h in drv.history]
+    assert rows["cuda"] == rows["cpu"]
+
+
+def test_oracle_paths_on_the_card():
+    sysm = chain_molecule(300)
+    keys = jr.split(jr.key(1, "cuda"), 4)
+    ctrl = {"temperature": torch.full((4,), 300.0, device="cuda"),
+            "beta": torch.full((4,), 1.0, device="cuda")}
+    n_steps = torch.full((4,), 5, dtype=torch.int64, device="cuda")
+    out = {}
+    for name, kw in (("pallas", {}), ("batched", {"force_path": "batched"}),
+                     ("vmap", {"batched": False})):
+        eng = MDEngine(sysm, device="cuda", **kw)
+        state = eng.init_state(jr.key(0, "cuda"), 4)
+        out[name] = eng.propagate(state, ctrl, n_steps, keys, max_steps=5)
+    for name in ("batched", "vmap"):
+        assert float((out[name]["pos"] - out["pallas"]["pos"]).abs()
+                     .max()) < 1e-3

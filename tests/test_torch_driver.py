@@ -236,27 +236,41 @@ def test_device_defaults_to_cuda_and_never_falls_back(jax_system,
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(telemetry=object()), dict(failure_rate=0.1),
-    dict(ckpt_dir="ckpt"), dict(mesh=object()),
-    dict(cfg=dict(pattern="asynchronous")),
-    dict(slots=2),
-    dict(cfg=dict(relaunch_budget=2)),
-    dict(cfg=dict(execution_mode="mode2")),
-    dict(cfg=dict(dimensions=(("temperature", 2), ("umbrella", 2)),
-                  pattern="asynchronous")),
+    dict(telemetry=object()), dict(mesh=object()),
 ])
 def test_unported_options_raise(kwargs, jax_system):
-    cfg = RepExConfig(**dict(CFG, **kwargs.pop("cfg", {})))
+    cfg = RepExConfig(**CFG)
     eng = MDEngine(_cpu_system(jax_system), device="cpu")
     with pytest.raises(NotImplementedError):
         REMDDriver(eng, cfg, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [dict(force_path="vmap"),
-                                    dict(nonbonded="sparse",
-                                         nlist_build="cell"),
-                                    dict(force_path="batched",
-                                         bonded="sparse")])
+@pytest.mark.parametrize("kwargs", [
+    dict(failure_rate=0.1), dict(ckpt_dir="ckpt", ckpt_every=2),
+    dict(cfg=dict(pattern="asynchronous")), dict(slots=2),
+    dict(cfg=dict(relaunch_budget=2)),
+    dict(cfg=dict(execution_mode="mode2")),
+    dict(cfg=dict(dimensions=(("temperature", 2), ("umbrella", 2)),
+                  pattern="asynchronous")),
+])
+def test_ported_options_build_as_in_jax(kwargs, jax_system):
+    """The options that raised before this slice: the port's driver
+    builds with each and reads it as the JAX driver does."""
+    c = dict(CFG, **kwargs.pop("cfg", {}))
+    if "ckpt_dir" in kwargs:
+        kwargs["ckpt_dir"] = None          # nothing written here
+    tdrv = REMDDriver(MDEngine(_cpu_system(jax_system), device="cpu"),
+                      RepExConfig(**c), device="cpu", **kwargs)
+    jdrv = JDriver(JEngine(jax_system), JConfig(**c), **kwargs)
+    assert tdrv.execution == jdrv.execution
+    assert tdrv.failure_rate == jdrv.failure_rate
+    assert tdrv._cfg_fingerprint() == jdrv._cfg_fingerprint()
+    assert bool(tdrv.init(SEED).speed.ne(1.0).any()) == \
+        (c.get("pattern") == "asynchronous")
+
+
+@pytest.mark.parametrize("kwargs", [dict(nonbonded="sparse",
+                                         nlist_build="cell")])
 def test_unported_engine_paths_raise(kwargs, jax_system):
     with pytest.raises(NotImplementedError):
         MDEngine(_cpu_system(jax_system), device="cpu",

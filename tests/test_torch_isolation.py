@@ -24,8 +24,15 @@ spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
-print(len(names))
+print(" ".join(names))
 """
+
+# the modules of the driver's fault-tolerance slice: patterns, modes,
+# failures, the checkpoint package and the driver around them
+SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+                 "repro_torch.core.patterns", "repro_torch.core.modes",
+                 "repro_torch.core.failures", "repro_torch.core.repex",
+                 "repro_torch.md.engine", "repro_torch.md.energy")
 
 
 def _sources():
@@ -38,11 +45,15 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 17     # every module of the slice
+    names = out.stdout.split()
+    assert len(names) >= 17                  # every module of the port
+    missing = [m for m in SLICE_MODULES if m not in names]
+    assert not missing, f"not imported without jax: {missing}"
 
 
 def test_no_source_names_jax_or_repro():
     assert len(_sources()) > 17
+    assert PORT / "ckpt" / "checkpoint.py" in _sources()
     for path in _sources():
         hits = IMPORT_RE.findall(path.read_text())
         assert not hits, f"{path} imports {hits}"
