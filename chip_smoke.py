@@ -159,6 +159,34 @@ printed on its own lines:
                   Mode II with 3 waves, 6 cycles: the card makes the CPU's
                   decisions, failures and escalations (margins printed for
                   a Metropolis flip)
+ 27. telemetry    the seventh slice, the cell build, observability and the
+                  CLI: T-REMD 64 x 2881 (8 cycles, chunks of 4) and TSU 384
+                  fused with the matrix scheme (4 cycles, chunks of 2), each
+                  with ``Telemetry(phase_probe_every=1)`` and without:
+                  assignment rows and final state bitwise equal, the
+                  launches per chunk with telemetry off phase 5's (T-REMD)
+                  or 11 fused + 1 matrix a cycle (TSU), the launches the
+                  probes add printed, one fetch per chunk either way, the
+                  report valid (pair rows only on the neighbor scheme) and
+                  its Eq. (1) split printed beside the measured ms/cycle
+ 28. cell build   the cell-build kernels (``cell_build.cu``) against their
+                  plain version, bitwise, with flag 0, flag 1 and a flag
+                  row, on the chain at R = 384 (the TSU sparse positions)
+                  and on a random gas of 20,000 atoms at the LJ fluid's
+                  density (R = 4), where ``suggest_build_method`` picks
+                  "cell"; the lists as sets the dense build's; each timed
+                  beside the dense build and its bytes bound
+ 29. card vs CPU  R = 8, N = 2881, ``nonbonded="sparse",
+                  nlist_build="cell"``, skin 0.5 A (the lists rebuilt),
+                  telemetry's counters on: the card makes the CPU's
+                  decisions, rebuilds and per-pair counters; launches 11 a
+                  cycle of the cell build; before and after the card's run
+                  the cell-build kernels bitwise their plain version on its
+                  own positions, grid, capacity and k_max (flag 0, flag 1,
+                  a flag row), and timed there for the kernels' record
+ 30. CLI          ``python -m repro_torch.launch.repex_run`` on phase 27's
+                  T-REMD configuration as a subprocess: exit 0, its
+                  ``--report-out`` valid and its counters phase 27's
 
 Any failed check raises and the script exits non-zero.  The next to last
 line is the kernels' JSON record, the last line the device record.
@@ -322,8 +350,9 @@ BEFORE_MS = {"fused_baoab": 9.3263, "flash_attention": 5.3706,
              "nlist_build": 5.2438, "nlist_build (flag 0)": 0.1435}
 # CUDA launches one call of a wrapper makes (its count goes up by one per
 # call): the bonded kernel's block pass and its energy sum; the list
-# build's box-or-copy pass and its build pass.
-LAUNCHES_PER_CALL = {"chain_forces": 2, "nlist_build": 2}
+# build's box-or-copy pass and its build pass; the cell build's bin-or-copy
+# pass and its row pass.
+LAUNCHES_PER_CALL = {"chain_forces": 2, "nlist_build": 2, "cell_build": 2}
 # Kernel 3 past its shared-memory rows, R = 1: just above the last N whose
 # rows fit (16,256) and a larger chain.
 N_FUSED_BIG = (16384, 20000)
@@ -940,6 +969,7 @@ def launches_per_call(engine, pos) -> None:
     sp = sparse_engine("fused")
     st = sp.init_state(jr.key(SEED, "cuda"), 8)
     old = (st["nlist"]["idx"], st["nlist"]["valid"])
+    cells = (sp._grid_dims, sp._cell_capacity)
     calls = {
         "chain_forces": (lambda: chain_ops.chain_forces_batched(
             pos, engine._pack), r"(?<!non)bonded_(block|energy)_kernel"),
@@ -950,7 +980,15 @@ def launches_per_call(engine, pos) -> None:
         "nlist_build (flag 0)": (lambda: nl_ops.nlist_build_batched(
             st["pos"], torch.zeros(1, dtype=torch.int32, device="cuda"),
             old, sp._nb_pack.mask_bits, sp.r_list, sp.k_max),
-            r"nlist_(prep|build)_kernel")}
+            r"nlist_(prep|build)_kernel"),
+        "cell_build": (lambda: nl_ops.cell_build_batched(
+            st["pos"], torch.ones(1, dtype=torch.int32, device="cuda"), old,
+            sp._nb_pack.mask_bits, sp.r_list, sp.k_max, *cells),
+            r"cell_(bin|rows)_kernel"),
+        "cell_build (flag 0)": (lambda: nl_ops.cell_build_batched(
+            st["pos"], torch.zeros(1, dtype=torch.int32, device="cuda"),
+            old, sp._nb_pack.mask_bits, sp.r_list, sp.k_max, *cells),
+            r"cell_(bin|rows)_kernel")}
     for name, (fn, pattern) in calls.items():
         want = LAUNCHES_PER_CALL[name.split(" ")[0]]
         n_k = cuda_launches(fn, pattern)
@@ -1061,7 +1099,7 @@ def run_tsu(libs, smi: str):
                 "fused_baoab": n_cycles * 11,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
                 "nonbonded_sparse": 0, "nlist_build": 0, "lj_fluid": 0,
-                "flash_attention": 0}
+                "flash_attention": 0, "cell_build": 0}
         per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
         ms_cycle = per_chunk[-1]
         failed = sum(h["failed"] for h in driver.history)
@@ -1195,7 +1233,8 @@ def run_tsu_pallas(libs, smi: str) -> float:
     check(launches == {"chain_forces": 33, "nonbonded": 33,
                        "fused_baoab": 0, "exchange_matrix": 0,
                        "nonbonded_sparse": 0, "nlist_build": 0,
-                       "lj_fluid": 0, "flash_attention": 0}
+                       "lj_fluid": 0, "flash_attention": 0,
+                       "cell_build": 0}
           and variants == {"bias": 33},
           "per-pass TSU: bias variant and nonbonded 3 x 11, nothing else")
     check(control_multiset_ok(ens)
@@ -1484,7 +1523,7 @@ def run_tsu_sparse(libs, smi: str):
         want = {"chain_forces": evals, "nonbonded": 0, "fused_baoab": 0,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
                 "nonbonded_sparse": evals + n_cycles, "nlist_build": evals,
-                "lj_fluid": 0, "flash_attention": 0}
+                "lj_fluid": 0, "flash_attention": 0, "cell_build": 0}
         per_chunk = [h["t_step"] * 1e3 for h in driver.history[::3]]
         ms_cycle = per_chunk[-1]
         last = driver.history[-1]
@@ -2688,6 +2727,407 @@ def async_against_cpu() -> None:
                                           "decisions")
 
 
+# The seventh slice: the cell-list build, observability and the CLI.
+# The cell build's gas is a random gas at the LJ fluid's density (Rahman's
+# 864 atoms in a 34.8 A box, 0.0205 / A^3) of N_GAS atoms, where
+# suggest_build_method picks "cell" (cells at the engine's r_list of
+# 9 + 1.5 A); R_GAS replicas, which the plain version builds one at a time
+# (~4 GB of candidate planes each); k_max above the largest neighbor count
+# (~100 on average at this density).
+GAS_DENSITY = 864 / 34.8 ** 3
+N_GAS, R_GAS = 20000, 4
+GAS_R_LIST, GAS_K_MAX = 10.5, 160
+# The telemetry phase: the CUDA launches of the main path's chunk with
+# telemetry off must equal phase 5's (the same run), and the fetches per
+# chunk stay one with it on.
+OBS_CHUNK = 4
+
+
+@contextlib.contextmanager
+def counting_fetches():
+    """Counts ``Tensor.cpu`` calls (the driver's per-chunk fetch) while
+    the block runs."""
+    orig, box = torch.Tensor.cpu, [0]
+
+    def cpu(self, *args, **kwargs):
+        box[0] += 1
+        return orig(self, *args, **kwargs)
+
+    torch.Tensor.cpu = cpu
+    try:
+        yield box
+    finally:
+        torch.Tensor.cpu = orig
+
+
+def print_eq1(tag: str, report, ms_cycle: float, smi: str) -> None:
+    eq1 = report.phases["eq1"]
+    terms = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in eq1.items())
+    print(f"{tag}: Eq. (1) split, ms per cycle: {terms}; measured ms/cycle "
+          f"{ms_cycle:.2f} (last chunk), mean over the run "
+          f"{report.phases['t_cycle_mean'] * 1e3:.2f}; phase means "
+          + ", ".join(f"{k} {v * 1e3:.3f}"
+                      for k, v in report.phases["means"].items())
+          + f" ms ({report.phases['samples']} samples) [{smi}]")
+
+
+def observability(libs, launches5: dict, smi: str):
+    """Phase 27: telemetry on and off at full width, T-REMD 64 and TSU 384
+    fused with the matrix scheme: bitwise the same runs, the off run's
+    launches phase 5's, one fetch per chunk, a valid report and its
+    Eq. (1) split.  Returns the T-REMD report (phase 30's reference)."""
+    phase(f"27 observability: T-REMD {R_MAIN} x {N_ATOMS} and TSU {R_TSU} "
+          f"fused matrix, run_fused, telemetry on and off")
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    from repro_torch.obs import Telemetry, validate_report
+    cases = (
+        ("T-REMD 64", MDEngine(chain_molecule(N_ATOMS), device="cuda"),
+         RepExConfig(dimensions=(("temperature", R_MAIN),),
+                     md_steps_per_cycle=10, n_cycles=8), OBS_CHUNK),
+        ("TSU 384 fused matrix", tsu_engine("fused"),
+         RepExConfig(dimensions=TSU_DIMS, md_steps_per_cycle=10,
+                     n_cycles=4, exchange_scheme="matrix"), 2))
+    out = {}
+    for tag, engine, cfg, chunk in cases:
+        runs = {}
+        for mode, tel in (("off", None),
+                          ("on", Telemetry(phase_probe_every=1))):
+            driver = REMDDriver(engine, cfg, device="cuda", telemetry=tel)
+            ens = driver.init(SEED)
+            reset(libs)
+            with counting_fetches() as fetches:
+                ens = driver.run_fused(ens, chunk_cycles=chunk)
+            runs[mode] = dict(driver=driver, ens=ens, fetches=fetches[0],
+                              launches={lib.name: lib.launches
+                                        for lib in libs},
+                              ms=driver.history[-1]["t_step"] * 1e3)
+        n_chunks = cfg.n_cycles // chunk
+        on, off = runs["on"], runs["off"]
+        same_rows = ([h["assignment"].tolist() for h in on["driver"].history]
+                     == [h["assignment"].tolist()
+                         for h in off["driver"].history])
+        same_state = all(torch.equal(on["ens"].state[k], off["ens"].state[k])
+                         for k in ("pos", "vel"))
+        per_chunk = {k: v / n_chunks for k, v in off["launches"].items()}
+        added = {k: (on["launches"][k] - v) / n_chunks
+                 for k, v in off["launches"].items()
+                 if on["launches"][k] != v}
+        report = on["driver"].last_report
+        print(f"{tag}: rows identical {same_rows}, positions and velocities "
+              f"bitwise equal {same_state}")
+        print(f"{tag}: launches per chunk, telemetry off {per_chunk}; added "
+              f"by telemetry (the phase probes) {added}; fetches per chunk "
+              f"off {off['fetches'] / n_chunks}, on "
+              f"{on['fetches'] / n_chunks}; every chunk under "
+              f"set_sync_debug_mode('error')")
+        print_eq1(tag, report, on["ms"], smi)
+        print(f"{tag}: ms/cycle telemetry off {off['ms']:.2f}, on "
+              f"{on['ms']:.2f} (last chunk) [{smi}]")
+        if tag == "T-REMD 64":
+            want = {k: v / 2 for k, v in launches5.items()}
+        else:
+            want = dict.fromkeys(per_chunk, 0)
+            want.update(fused_baoab=11 * chunk, exchange_matrix=chunk)
+        check(same_rows and same_state, f"{tag}: telemetry on and off "
+                                        f"bitwise")
+        check(per_chunk == want, f"{tag}: telemetry off launches {want} per "
+                                 f"chunk")
+        check(on["fetches"] == off["fetches"] == n_chunks,
+              f"{tag}: one fetch per chunk with telemetry on and off")
+        validate_report(report.to_dict())
+        validate_report(off["driver"].last_report.to_dict())
+        has_rows = report.exchange["pair_attempt"] is not None
+        check(has_rows == (cfg.exchange_scheme == "neighbor")
+              and report.phases["samples"] == n_chunks
+              and report.cycles == {"total": cfg.n_cycles,
+                                    "counted": cfg.n_cycles}
+              and report.meta["backend"] == "cuda",
+              f"{tag}: the report's pair rows, samples and cycles")
+        out[tag] = report
+    return out["T-REMD 64"]
+
+
+def gas_mask(n_atoms: int):
+    """(mask bits, dense uint8 mask) of a gas: every pair but the
+    diagonal."""
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    mask = 1 - torch.eye(n_atoms, dtype=torch.uint8, device="cuda")
+    ld = nb_ops.pad_to_block(n_atoms, nb_ops.TILE)
+    u8 = torch.zeros((n_atoms, ld), dtype=torch.uint8, device="cuda")
+    u8[:, :n_atoms] = mask
+    return nb_ops.tile_flags(u8)[0], mask
+
+
+def kept_list(pos, bits, r_list, k_max, cells):
+    """A kept (idx, valid) for the gated builds: the cell build of
+    ``pos`` stretched by 5% about the origin, so its pairs and their order
+    differ from the list of ``pos`` (a shift would leave both the same)."""
+    from repro_torch.kernels.nlist_build import ops as nl_ops
+    return nl_ops.cell_build_batched(pos * 1.05, None, None, bits, r_list,
+                                     k_max, *cells)[:2]
+
+
+def cell_bitwise(tag, pos, bits, mask, r_list, k_max, cells) -> float:
+    """The cell-build kernels against their plain version on ``pos``, in
+    both flag states and a flag row (the kept list ``kept_list``'s, which
+    the check shows differs from the fresh one): check them bitwise, return
+    the largest difference."""
+    from repro_torch.kernels.nlist_build import ops as nl_ops
+    n_rep = pos.shape[0]
+    on = torch.ones(1, dtype=torch.int32, device="cuda")
+    off = torch.zeros(1, dtype=torch.int32, device="cuda")
+    row = (torch.arange(n_rep, device="cuda") % 2).to(torch.int32)
+    old = kept_list(pos, bits, r_list, k_max, cells)
+    check(not torch.equal(old[0], nl_ops.cell_build_batched(
+        pos, on, old, bits, r_list, k_max, *cells)[0]),
+        f"{tag}: the kept list differs from the fresh one")
+    err = 0.0
+    for name, flag in (("flag 0", off), ("flag 1", on), ("flag row", row)):
+        got = nl_ops.cell_build_batched(pos, flag, old, bits, r_list, k_max,
+                                        *cells)
+        want = nl_ops.build_gated_plain(pos, flag, old, mask, r_list, k_max,
+                                        cells)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        e = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(got, want))
+        err = max(err, e)
+        print(f"{tag} cell build, {name}: bitwise equal {same}, dropped "
+              f"{int(got[2].sum())}, valid slots {int(got[1].sum())}")
+        check(same, f"{tag}: cell build kernel vs plain ({name})")
+    return err
+
+
+def cell_times(tag, pos, bits, mask, r_list, k_max, cells, smi,
+               dense: bool = False):
+    """Device ms of the cell-build kernels on ``pos`` in both flag states
+    (and of the dense build beside them where ``dense``), each beside its
+    plain version and its bytes bound: positions in, list and dropped out.
+    Returns (times, bounds) keyed by kernel name."""
+    from repro_torch.kernels.nlist_build import ops as nl_ops
+    n_rep, n = pos.shape[:2]
+    on = torch.ones(1, dtype=torch.int32, device="cuda")
+    off = torch.zeros(1, dtype=torch.int32, device="cuda")
+    old = kept_list(pos, bits, r_list, k_max, cells)
+    kernels = {
+        "cell_build": lambda: nl_ops.cell_build_batched(
+            pos, on, old, bits, r_list, k_max, *cells),
+        "cell_build (flag 0)": lambda: nl_ops.cell_build_batched(
+            pos, off, old, bits, r_list, k_max, *cells)}
+    if dense:
+        kernels.update({
+            "dense build": lambda: nl_ops.nlist_build_batched(
+                pos, on, old, bits, r_list, k_max),
+            "dense build (flag 0)": lambda: nl_ops.nlist_build_batched(
+                pos, off, old, bits, r_list, k_max)})
+    table = n_rep * n * k_max * (4 + 4)
+    stack = n_rep * n * 3 * 4
+    need = {"cell_build": stack + table + n_rep * 4,
+            "cell_build (flag 0)": 4 + 2 * table + n_rep * 4}
+    plain = {
+        "cell_build": lambda: nl_ops.build_gated_plain(
+            pos, on, old, mask, r_list, k_max, cells),
+        "cell_build (flag 0)": lambda: nl_ops.build_gated_plain(
+            pos, off, old, mask, r_list, k_max, cells)}
+    times, bound = {}, {}
+    for name, fn in kernels.items():
+        k_ms = graph_ms(fn, calls=5)
+        line = (f"{tag} {name}: kernel {k_ms:.4f} ms device (graph "
+                f"replay), wrapper host {host_ms(fn, 10):.4f} ms/call")
+        if name in need:
+            p_ms = median_ms(plain[name], 1, 0)
+            b_ms = need[name] / HBM_BYTES_PER_S * 1e3
+            line += (f", plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+                     f"(bytes: {need[name] / 1e6:.3f} MB, positions in, "
+                     f"list and dropped out)")
+            times[name] = (k_ms, p_ms)
+            bound[name] = (b_ms, "bytes")
+        print(line + f" [{smi}]")
+    return times, bound
+
+
+def cell_build(smi: str):
+    """Phase 28: the cell-build kernels against their plain version,
+    bitwise, in both flag states and a flag row, on the chain at R = 384
+    (the TSU sparse positions) and on the gas; the lists as sets equal to
+    the dense build's; each timed beside the dense build on the same
+    positions and beside its bytes bound.  Returns the largest difference
+    from the plain version over both inputs."""
+    phase(f"28 the cell build vs its plain version: the chain N={N_ATOMS} "
+          f"at R={R_TSU}, a gas N={N_GAS} at R={R_GAS}")
+    from repro_torch.kernels.nlist_build import ops as nl_ops
+    from repro_torch.md import neighbors as NB
+    sp = sparse_engine("fused", nlist_build="cell")
+    state = sparse_state(sp, tsu_grid(), R_TSU)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    side = (N_GAS / GAS_DENSITY) ** (1.0 / 3.0)
+    gas = side * torch.rand((R_GAS, N_GAS, 3), device="cuda", generator=gen)
+    host = gas.double().cpu().numpy()
+    gdims = NB.suggest_grid_dims(host[0].max(0) - host[0].min(0)
+                                 + 2 * GAS_R_LIST, GAS_R_LIST)
+    gcap = NB.suggest_cell_capacity(host, GAS_R_LIST, gdims)
+    method = NB.suggest_build_method(N_GAS, gdims, gcap)
+    print(f"gas: box {side:.2f} A, density {GAS_DENSITY:.5f} / A^3, "
+          f"r_list {GAS_R_LIST}, grid {gdims}, cell capacity {gcap}, "
+          f"k_max {GAS_K_MAX}, R = {R_GAS} (the plain version builds one "
+          f"replica at a time), suggest_build_method -> {method!r}")
+    check(method == "cell", "the gas takes the cell build")
+    gbits, gmask = gas_mask(N_GAS)
+    pk = sp._nb_pack
+    cases = {
+        "chain": (state["pos"], pk.mask_bits, pk.nb_mask, sp.r_list,
+                  sp.k_max, (sp._grid_dims, sp._cell_capacity)),
+        "gas": (gas, gbits, gmask, GAS_R_LIST, GAS_K_MAX, (gdims, gcap))}
+    print(f"chain: grid {sp._grid_dims}, cell capacity {sp._cell_capacity}, "
+          f"k_max {sp.k_max}, r_list {sp.r_list}")
+    err = 0.0
+    for tag, (pos, bits, mask, r_list, k_max, cells) in cases.items():
+        err = max(err, cell_bitwise(tag, pos, bits, mask, r_list, k_max,
+                                    cells))
+        on = torch.ones(1, dtype=torch.int32, device="cuda")
+        old = kept_list(pos, bits, r_list, k_max, cells)
+        fresh = nl_ops.cell_build_batched(pos, on, old, bits, r_list, k_max,
+                                          *cells)
+        dense = nl_ops.nlist_build_batched(pos, on, old, bits, r_list, k_max)
+        as_sets = torch.equal(torch.sort(fresh[0], dim=-1).values, dense[0])
+        print(f"{tag}: cell lists as sets equal to the dense build's "
+              f"{as_sets}; dropped cell {int(fresh[2].sum())}, dense "
+              f"{int(dense[2].sum())}; valid slots "
+              f"{int(fresh[1].sum())} of {fresh[1].numel()}")
+        check(as_sets and int(fresh[2].sum()) == 0 == int(dense[2].sum()),
+              f"{tag}: the cell and dense builds list the same pairs")
+        cell_times(tag, pos, bits, mask, r_list, k_max, cells, smi,
+                   dense=True)
+    return err
+
+
+def cell_against_cpu(libs, smi: str):
+    """Phase 29: the cell path at R = 8, N = 2881 on the card and on the
+    CPU, with telemetry's counters on both: the same decisions, rebuilds
+    and per-pair counters.  On the card the cell-build kernels are held
+    bitwise against their plain version on the run's own inputs (its
+    first and last positions, its grid, capacity, r_list and k_max), and
+    timed on the first.  Returns (launches, err, times, bounds) of the
+    card run for the kernels' record."""
+    phase(f"29 card vs CPU: R=8, N={N_ATOMS}, nonbonded='sparse', "
+          f"nlist_build='cell', run_fused, telemetry counters")
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    from repro_torch.obs import Telemetry
+    # a skin of 0.5 A trips within the run, so the lists are rebuilt
+    cfg = RepExConfig(dimensions=(("temperature", 8),), md_steps_per_cycle=10,
+                      n_cycles=4)
+    runs, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        seen, restore = metropolis_spy()
+        try:
+            eng = MDEngine(chain_molecule(N_ATOMS), nonbonded="sparse",
+                           nlist_build="cell", skin=0.5, device=dev)
+            driver = REMDDriver(eng, cfg, device=dev,
+                                telemetry=Telemetry(phase_probe_every=0))
+            ens = driver.init(SEED)
+            if dev == "cuda":
+                inputs = (eng._nb_pack.mask_bits, eng._nb_pack.nb_mask,
+                          eng.r_list, eng.k_max,
+                          (eng._grid_dims, eng._cell_capacity))
+                pos0 = ens.state["pos"].contiguous()
+                err = cell_bitwise("R=8 chain, first positions", pos0,
+                                   *inputs)
+                times, bound = cell_times("R=8 chain", pos0, *inputs, smi)
+                reset(libs)
+            t0 = time.perf_counter()
+            ens = driver.run_fused(ens, chunk_cycles=2)
+            wall = time.perf_counter() - t0
+            if dev == "cuda":
+                launches = {lib.name: lib.launches for lib in libs}
+                err = max(err, cell_bitwise(
+                    "R=8 chain, last positions",
+                    ens.state["pos"].contiguous(), *inputs))
+        finally:
+            restore()
+        hist = driver.history
+        runs[dev] = ([h["assignment"].tolist() for h in hist],
+                     driver.acceptance_ratios(),
+                     [h["nb_rebuilds"] for h in hist],
+                     ens.state["pos"].cpu(), seen, driver.last_report)
+        print(f"{dev}: grid {eng._grid_dims}, capacity {eng._cell_capacity}, "
+              f"k_max {eng.k_max}; {wall:.1f} s; rebuilds by cycle "
+              f"{runs[dev][2]}, overflow {hist[-1]['nb_overflow']}")
+    same = runs["cuda"][:3] == runs["cpu"][:3]
+    dpos = float((runs["cuda"][3] - runs["cpu"][3]).abs().max())
+    print(f"decisions and rebuilds identical {same}, max |dpos| {dpos:.2e} A "
+          f"(tol {TOL_SMALL_POS})")
+    if not same:
+        print_margins(runs, 0, 4)
+    ex = {dev: runs[dev][5].exchange for dev in runs}
+    counters = all(np.array_equal(np.asarray(ex["cuda"][k]),
+                                  np.asarray(ex["cpu"][k]))
+                   for k in ("pair_attempt", "pair_accept", "occupancy",
+                             "round_trips"))
+    print(f"per-pair counters, occupancy and round trips identical "
+          f"{counters}; pair_accept by slot (dim 0, both parities) "
+          f"{np.asarray(ex['cuda']['pair_accept']).tolist()}")
+    evals = cfg.n_cycles * 11
+    want = dict.fromkeys(launches, 0)
+    want.update(chain_forces=evals, nonbonded_sparse=evals + cfg.n_cycles,
+                cell_build=evals)
+    print(f"card launches {launches} (want {want})")
+    check(runs["cpu"][2][-1] > 0, "the lists were rebuilt")
+    check(same and dpos <= TOL_SMALL_POS, "the card makes the CPU's "
+                                          "decisions on the cell path")
+    check(counters, "telemetry's counters on the card equal the CPU's")
+    check(launches == want, "the cell path's kernels, each force "
+                            "evaluation")
+    return launches, err, times, bound
+
+
+_COUNTER_KEYS = ("path", "chunk_cycles", "n_replicas", "cycles",
+                 "exchange", "failures", "neighbor")
+
+
+def cli_run(report, smi: str) -> None:
+    """Phase 30: ``python -m repro_torch.launch.repex_run`` as a
+    subprocess, the configuration of phase 27's T-REMD run: exit 0, a
+    valid report, phase 27's counters."""
+    phase("30 the repex_run CLI on the card (a subprocess)")
+    import tempfile
+    from repro_torch.obs import validate_report
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = Path(tmp) / "report.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.repex_run",
+               "--atoms", str(N_ATOMS), "--dims", f"temperature:{R_MAIN}",
+               "--md-steps", "10", "--cycles", "8", "--chunk",
+               str(OBS_CHUNK), "--report-out", str(out)]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                                   if os.environ.get("PYTHONPATH") else [])))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=600, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        print(f"$ {' '.join(cmd[1:])}  ->  exit {proc.returncode}, "
+              f"{wall:.1f} s")
+        for line in proc.stdout.splitlines()[-6:]:
+            print(f"  | {line}")
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:])
+        check(proc.returncode == 0, "the CLI exits 0")
+        with open(out) as f:
+            got = validate_report(json.load(f))
+    want = json.loads(json.dumps(report.to_dict()))
+    same = {k: got[k] == want[k] for k in _COUNTER_KEYS}
+    eq1 = {k: round(v * 1e3, 3) for k, v in got["phases"]["eq1"].items()}
+    print(f"CLI report vs phase 27's in-process run: {same}; Eq. (1) split "
+          f"ms {eq1} [{smi}]")
+    check(all(same.values()), "the CLI's counters equal the in-process "
+                              "run's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2713,7 +3153,7 @@ def main() -> int:
     smi = environment()
     libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
             x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY,
-            nb_ops.LJ_FLUID_LIBRARY, fa_ops.LIBRARY]
+            nb_ops.LJ_FLUID_LIBRARY, fa_ops.LIBRARY, nl_ops.CELL_LIBRARY]
     build(libs)
 
     phase(f"3 kernels vs plain versions at N={N_ATOMS}, R=4 and R={R_MAIN}")
@@ -2809,9 +3249,18 @@ def main() -> int:
     mode2_runs(libs, smi)
     async_against_cpu()
 
+    report27 = observability(libs, launches, smi)
+    err28 = cell_build(smi)
+    cell_launches, err29, times_cell, bound_cell = cell_against_cpu(libs,
+                                                                    smi)
+    err_cell = max(err28, err29)
+    times.update(times_cell)
+    bound.update(bound_cell)
+    cli_run(report27, smi)
+
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",
-             "lj_energy", "lj_forces", "flash_attention")
+             "lj_energy", "lj_forces", "flash_attention", "cell_build")
     src_of = {
         "chain_forces": "src/repro_torch/kernels/chain_forces/csrc/"
                         "chain_forces.cu",
@@ -2829,7 +3278,9 @@ def main() -> int:
         "lj_energy": "src/repro_torch/kernels/lj_forces/csrc/lj_fluid.cu",
         "lj_forces": "src/repro_torch/kernels/lj_forces/csrc/lj_fluid.cu",
         "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
-                           "flash_attention.cu"}
+                           "flash_attention.cu",
+        "cell_build": "src/repro_torch/kernels/nlist_build/csrc/"
+                      "cell_build.cu"}
     replaces = {
         "chain_forces": "src/repro/kernels/chain_forces/kernel.py:190",
         "chain_forces_bias": "src/repro/kernels/chain_forces/kernel.py:190",
@@ -2842,7 +3293,10 @@ def main() -> int:
         "nlist_build": "src/repro/md/neighbors.py:346",
         "lj_energy": "src/repro/kernels/lj_forces/kernel.py:94",
         "lj_forces": "src/repro/kernels/lj_forces/kernel.py:116",
-        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85"}
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
+        # not a TPU kernel: build_cells, the jnp cell-list build (under the
+        # same lax.cond)
+        "cell_build": "src/repro/md/neighbors.py:204"}
     counts = {"chain_forces": launches["chain_forces"],
               "nonbonded": launches["nonbonded"],
               "chain_forces_bias": bias_launches,
@@ -2857,9 +3311,10 @@ def main() -> int:
                                for r in lj_runs.values()),
               "lj_forces": sum(r["variants"]["forces"]
                                for r in lj_runs.values()),
-              "flash_attention": serve_launches["flash_attention"]}
+              "flash_attention": serve_launches["flash_attention"],
+              "cell_build": cell_launches["cell_build"]}
     errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3,
-                **errs4, flash_attention=err5)
+                **errs4, flash_attention=err5, cell_build=err_cell)
     library = {"flash_attention": lib_ms}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src_of[name],

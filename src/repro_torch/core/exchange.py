@@ -83,7 +83,9 @@ def _decide_sweep(assignment, u_self, u_swap, left, right, valid, ri, rj,
     """The Metropolis decision on the (R,) energy rows.  The delta keeps
     the association ``(u_swap[ri] + u_swap[rj]) - (u_self[ri] +
     u_self[rj])``.  Reads at the drop slot are clamped; their pairs are
-    invalid, so the clamped values never reach a decision."""
+    invalid, so the clamped values never reach a decision.  The stats
+    carry the per-pair rows ``_pair_attempt`` / ``_pair_accept`` (bool,
+    (W,)) for the telemetry."""
     last = assignment.shape[0] - 1
     ri_c, rj_c = ri.clamp(max=last), rj.clamp(max=last)
     delta = (u_swap[ri_c] + u_swap[rj_c]) - (u_self[ri_c] + u_self[rj_c])
@@ -101,6 +103,12 @@ def _decide_sweep(assignment, u_self, u_swap, left, right, valid, ri, rj,
         "accepted": torch.sum(accept.to(torch.float32)),
         "mean_delta": (torch.sum(torch.where(valid, delta, 0.0))
                        / torch.clamp_min(n_valid, 1.0)),
+        # the per-pair-slot telemetry rows (W,), slot w of the stacked
+        # pair table's sweep: the masks as they are, no operation; a
+        # caller that keeps them (``patterns._pop_pair_rows``) casts them,
+        # so with telemetry off they cost nothing
+        "_pair_attempt": valid,
+        "_pair_accept": accept,
     }
     return new_assignment, stats
 

@@ -82,16 +82,32 @@ def _cycle_core(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
     return new_ens, stats, ready
 
 
+def _pop_pair_rows(stats: Dict[str, Any], keep: bool):
+    """Remove the per-pair telemetry rows from an exchange stats dict and
+    return them as float32 (W,) rows when ``keep``, else (None, None): the
+    cast is the only operation they cost, and only when kept.  The matrix
+    (Gibbs) scheme redraws its pairs every sweep, so it has no static
+    pair-slot axis and no rows."""
+    pa = stats.pop("_pair_attempt", None)
+    pc = stats.pop("_pair_accept", None)
+    if keep and pa is not None:
+        return pa.to(torch.float32), pc.to(torch.float32)
+    return None, None
+
+
 def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
                 md_steps: int, window_steps: int = 0,
-                scheme: str = "neighbor", execution=None
+                scheme: str = "neighbor", execution=None,
+                telemetry_rows: bool = False
                 ) -> Tuple[Ensemble, Dict[str, torch.Tensor]]:
     """One cycle with dim/parity derived ON DEVICE from ``ens.cycle``.
 
     Returns (new_ens, stats): fixed-shape device tensors ``dim``,
     ``accepted``, ``attempted``, ``ready_frac``, the neighbor-list health
     scalars (:func:`nb_health`) and the post-cycle ``assignment`` row,
-    for the driver to stack per chunk."""
+    for the driver to stack per chunk.  ``telemetry_rows`` adds the
+    exchange's per-pair rows ``pair_attempt`` / ``pair_accept`` (float32,
+    the pair table's width W; the neighbor scheme only)."""
     execution = execution or {"mode": "mode1", "n_waves": 1}
     n_dims = len(grid.dims)
     dim_index = torch.remainder(ens.cycle, n_dims)
@@ -101,7 +117,8 @@ def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
         engine, grid, ens, pattern=pattern, md_steps=md_steps,
         window_steps=window_steps, dim_index=dim_index, parity=parity,
         scheme=scheme, execution=execution)
-    return new_ens, {
+    pa, pc = _pop_pair_rows(stats, telemetry_rows)
+    flat = {
         "dim": dim_index,
         "accepted": stats["accepted"],
         "attempted": stats["attempted"],
@@ -109,6 +126,9 @@ def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
         "assignment": new_ens.assignment,
         **nb_health(engine, new_ens.state, new_ens.assignment.device),
     }
+    if pa is not None:
+        flat["pair_attempt"], flat["pair_accept"] = pa, pc
+    return new_ens, flat
 
 
 def nb_health(engine, state, device) -> Dict[str, torch.Tensor]:

@@ -34,8 +34,20 @@ the driver checkpoints the ensemble, the carry and its host bookkeeping
 that crosses a multiple of ``ckpt_every``), in the JAX package's format;
 ``restore`` and ``resume`` continue a killed run bit-exactly.
 
-Telemetry, meshes and ``run_sharded`` are not ported yet; asking for
-them raises ``NotImplementedError``.  ``last_report`` stays ``None``.
+Every ``run``, ``run_fused`` and ``resume`` leaves a
+:class:`~repro_torch.obs.RunReport` in ``last_report``, with or without
+telemetry.  ``telemetry=Telemetry()`` (``repro_torch.obs``) adds the
+per-pair exchange counters as extra columns of the chunk's stats rows
+(still one fetch per chunk), rung occupancy and round trips folded on the
+host, and phase probes at chunk boundaries (each phase alone on the
+current ensemble, CUDA events on the card): the Eq. (1) split of the
+report.  Telemetry on leaves the trajectory bitwise unchanged; telemetry
+off (``None``) dispatches exactly the operations of a driver without it.
+Its accumulators ride the checkpoint, so a resumed run reports what an
+uninterrupted one does.
+
+Meshes and ``run_sharded`` are not ported yet; asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,6 +71,7 @@ from repro_torch.core.engine import NB_STAT_KEYS, engine_capabilities
 from repro_torch.core.ensemble import Ensemble, make_ensemble
 from repro_torch.core.modes import auto_mode
 from repro_torch.device import resolve_device
+from repro_torch.obs import build_report
 
 # the scalar fields of one cycle's stats row, in packing order; the
 # post-cycle assignment row follows them
@@ -80,11 +93,8 @@ class REMDDriver:
                  slots: Optional[int] = None, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 0, failure_rate: float = 0.0,
                  telemetry=None, device="cuda"):
-        unported = {"mesh": mesh is not None,
-                    "telemetry": telemetry is not None}
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(f"not ported yet: {asked}")
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: ['mesh']")
         self.device = resolve_device(device)
         if getattr(engine, "device", self.device) != self.device:
             raise ValueError(f"engine lives on {engine.device}, the driver "
@@ -115,10 +125,42 @@ class REMDDriver:
         self.history: List[Dict] = []
         self.acceptance = {f"dim{d.index}": [0.0, 0.0]
                            for d in self.grid.dims}
+        # observability (repro_torch.obs): an optional Telemetry
+        # accumulator; None changes no operation of a chunk
+        self.telemetry = telemetry
         self.last_report = None
+        self._phase_probes = None
+        self._probe_warmed: set = set()
         # (backup, fail_key) restored by resume()/restore(), consumed by
         # the next run*() call so the carry continues bit-exactly
         self._resume_carry = None
+
+    # -- telemetry plumbing ------------------------------------------------
+
+    @property
+    def _tel(self):
+        """The live telemetry accumulator, or None when observability is
+        off (absent or disabled)."""
+        t = self.telemetry
+        return t if (t is not None and t.enabled) else None
+
+    @property
+    def _obs_rows(self) -> bool:
+        """Carry the per-pair attempt/accept rows in the cycle stats?"""
+        t = self._tel
+        return bool(t is not None and t.exchange_counters)
+
+    def _maybe_phase_sample(self, ens: Ensemble, cyc: int) -> None:
+        """A phase probe at a chunk boundary: each cycle phase timed alone
+        on the current ensemble, which the probes read and never write."""
+        tel = self._tel
+        if tel is None or not tel.want_phase_sample():
+            return
+        from repro_torch.obs import make_phase_probes, sample_phases
+        if self._phase_probes is None:
+            self._phase_probes = make_phase_probes(self)
+        times = sample_phases(self._phase_probes, ens, self._probe_warmed)
+        tel.note_phase_sample(cyc, times)
 
     @property
     def _window_steps(self) -> int:
@@ -163,6 +205,7 @@ class REMDDriver:
                 dim_index=torch.tensor(dim_index, device=dev),
                 parity=torch.tensor(parity, device=dev),
                 scheme=cfg.exchange_scheme, execution=self.execution)
+            pa, pc = patterns._pop_pair_rows(stats, self._obs_rows)
             self._sync()
             t_step = time.perf_counter() - t1            # T_MD + T_EX
             # the health counters of the pre-recovery state, as the fused
@@ -186,6 +229,8 @@ class REMDDriver:
             else:
                 nb = dict.fromkeys(NB_STAT_KEYS, 0.0)
             assignment = new_ens.assignment.cpu().numpy()
+            pair_rows = ((pa.cpu().numpy(), pc.cpu().numpy())
+                         if pa is not None else (None, None))
             t_data = time.perf_counter() - t3            # T_data
 
             bucket = self.acceptance[f"dim{dim_index}"]
@@ -206,12 +251,22 @@ class REMDDriver:
                 "nb_rebuilds": nb["nb_rebuilds"],
             })
             ens = new_ens
+            tel = self._tel
+            if tel is not None:
+                self._maybe_phase_sample(ens, cyc)
+                tel.note_cycles(
+                    cycles=[cyc], dims=[dim_index],
+                    assignments=assignment[None], n_dims=n_dims,
+                    n_ctrl=self.grid.n_ctrl, pair_attempt=pair_rows[0],
+                    pair_accept=pair_rows[1], t_cycle=t_step,
+                    t_data=t_data, t_prep=t_prep)
             if self.ckpt is not None:
                 self._save_ckpt(cyc, ens, backup, fail_key)
             if verbose:
                 print(f"cycle {cyc:4d} dim {dim_index} "
                       f"acc {accepted / max(attempted, 1.0) * 100:5.1f}%  "
                       f"t {t_step * 1e3:7.1f} ms")
+        self.last_report = build_report(self, "run")
         return ens
 
     def run_fused(self, ens: Ensemble, n_cycles: Optional[int] = None,
@@ -221,9 +276,11 @@ class REMDDriver:
         if chunk_cycles < 1:
             raise ValueError(f"chunk_cycles must be >= 1, got {chunk_cycles}")
         backup, fail_key = self._start_carry(ens)
-        return self._chunk_loop(ens, backup, fail_key,
-                                n_cycles or self.cfg.n_cycles, chunk_cycles,
-                                verbose)
+        ens = self._chunk_loop(ens, backup, fail_key,
+                               n_cycles or self.cfg.n_cycles, chunk_cycles,
+                               verbose)
+        self.last_report = build_report(self, "fused", chunk_cycles)
+        return ens
 
     def acceptance_ratios(self) -> Dict[str, float]:
         return {k: (a / max(n, 1.0))
@@ -260,9 +317,11 @@ class REMDDriver:
         """``k`` complete inject -> cycle -> detect/recover steps, queued
         on the device with no host read.  Returns (ens, backup, fail_key,
         rows) with rows a (k, F) float64 device tensor of per-cycle stats
-        (``_FIELDS``, then the assignment row)."""
+        (``_FIELDS``, then the assignment row, then with telemetry's
+        counters the pair_attempt and pair_accept rows)."""
         cfg = self.cfg
         policy = "relaunch" if cfg.relaunch_failed else "continue"
+        obs_rows = self._obs_rows
         rows = []
         for _ in range(k):
             if self.failure_rate > 0:
@@ -272,15 +331,18 @@ class REMDDriver:
                 self.engine, self.grid, ens, pattern=cfg.pattern,
                 md_steps=cfg.md_steps_per_cycle,
                 window_steps=self._window_steps, scheme=cfg.exchange_scheme,
-                execution=self.execution)
+                execution=self.execution, telemetry_rows=obs_rows)
             ens, backup, esc = F.detect_recover(
                 self.engine, ens, policy, backup,
                 relaunch_budget=cfg.relaunch_budget)
             stats = dict(stats, cycle=cyc, **esc)
             scalars = torch.stack([stats[f].to(torch.float64)
                                    for f in _FIELDS])
-            rows.append(torch.cat([scalars,
-                                   stats["assignment"].to(torch.float64)]))
+            parts = [scalars, stats["assignment"].to(torch.float64)]
+            if "pair_attempt" in stats:
+                parts += [stats["pair_attempt"].to(torch.float64),
+                          stats["pair_accept"].to(torch.float64)]
+            rows.append(torch.cat(parts))
         return ens, backup, fail_key, torch.stack(rows)
 
     def _chunk_loop(self, ens: Ensemble, backup, fail_key, n_cycles: int,
@@ -303,7 +365,11 @@ class REMDDriver:
             cols = {f: host[:, j].tolist() for j, f in enumerate(_FIELDS)}
             for f in _INT_FIELDS:
                 cols[f] = [int(v) for v in cols[f]]
-            assignment = host[:, len(_FIELDS):].astype("int64")
+            a0 = len(_FIELDS)
+            a1 = a0 + self.grid.n_ctrl
+            assignment = host[:, a0:a1].astype("int64")
+            pair = host[:, a1:]                     # (k, 2 W) or (k, 0)
+            w = pair.shape[1] // 2
             t_step, t_d = t_chunk / k, t_data / k
             for i in range(k):
                 bucket = self.acceptance[f"dim{cols['dim'][i]}"]
@@ -325,6 +391,19 @@ class REMDDriver:
                     "nb_rebuilds": cols["nb_rebuilds"][i],
                 })
             done += k
+            tel = self._tel
+            if tel is not None:
+                # the probe first: want_phase_sample reads the chunk count
+                # before note_cycles advances it, so every Nth boundary
+                # (the first included) samples
+                self._maybe_phase_sample(ens, c0 + done - 1)
+                tel.note_cycles(
+                    cycles=cols["cycle"], dims=cols["dim"],
+                    assignments=assignment, n_dims=len(self.grid.dims),
+                    n_ctrl=self.grid.n_ctrl,
+                    pair_attempt=pair[:, :w] if w else None,
+                    pair_accept=pair[:, w:] if w else None,
+                    t_cycle=t_chunk, t_data=t_data)
             if self.ckpt is not None and self.ckpt.every > 0:
                 lo, hi = c0 + done - k, c0 + done - 1
                 if hi // self.ckpt.every > (lo - 1) // self.ckpt.every:
@@ -371,8 +450,9 @@ class REMDDriver:
 
     def _ckpt_extra(self) -> Dict[str, Any]:
         """Host-side driver state riding the manifest: cycle history
-        (with assignment rows), per-dim acceptance and the config
-        fingerprint resume() validates."""
+        (with assignment rows), per-dim acceptance, the telemetry
+        accumulators and the config fingerprint resume() validates."""
+        tel = self._tel
         hist = []
         for h in self.history:
             h2 = dict(h)
@@ -385,7 +465,7 @@ class REMDDriver:
             "acceptance": {k: [float(v[0]), float(v[1])]
                            for k, v in self.acceptance.items()},
             "history": hist,
-            "telemetry": None,
+            "telemetry": tel.state_dict() if tel is not None else None,
         }}
 
     def _save_ckpt(self, step: int, ens: Ensemble, backup, fail_key,
@@ -423,11 +503,11 @@ class REMDDriver:
                verbose: bool = False) -> Ensemble:
         """Continue a killed run from its newest intact checkpoint (or
         ``step``): the ensemble, the carry (backup + failure key) and the
-        host bookkeeping (history, acceptance), then the remaining
-        ``n_cycles - cycle`` cycles via ``run`` or ``run_fused``.  The
-        stitched run equals an uninterrupted one bitwise.  The
-        checkpoint's config fingerprint must match this driver's
-        (``n_cycles`` exempt), else :class:`CheckpointError`.
+        host bookkeeping (history, acceptance, telemetry), then the
+        remaining ``n_cycles - cycle`` cycles via ``run`` or
+        ``run_fused``.  The stitched run equals an uninterrupted one
+        bitwise.  The checkpoint's config fingerprint must match this
+        driver's (``n_cycles`` exempt), else :class:`CheckpointError`.
         ``via="sharded"`` and ``mesh`` are not ported yet."""
         if self.ckpt is None:
             raise ValueError("resume() needs a driver constructed with "
@@ -457,8 +537,12 @@ class REMDDriver:
             for h in meta.get("history", [])]
         self.acceptance = {k: [float(v[0]), float(v[1])]
                            for k, v in meta.get("acceptance", {}).items()}
+        if self.telemetry is not None and meta.get("telemetry") is not None:
+            self.telemetry.load_state_dict(meta["telemetry"])
         remaining = (n_cycles or self.cfg.n_cycles) - int(ens.cycle)
         if remaining <= 0:
+            self.last_report = build_report(
+                self, via, None if via == "run" else chunk_cycles)
             return ens
         self._resume_carry = carry
         if via == "run":

@@ -15,9 +15,11 @@
                     ``fused_baoab_kernel_batched``.
   exchange_matrix — the (R, C) replica x ctrl reduced-energy matrix of the
                     Gibbs exchange; replaces ``exchange_matrix_kernel``.
-  nlist_build     — the neighbor-list build, gated on a device flag; no
-                    TPU counterpart (the JAX package builds the list with
-                    jnp under ``lax.cond``), it is the port's form of that
+  nlist_build     — the neighbor-list builds, gated on a device flag:
+                    the masked dense build (``nlist_build.cu``) and the
+                    cell-list build (``cell_build.cu``); no TPU
+                    counterpart (the JAX package builds the list with jnp
+                    under ``lax.cond``), they are the port's form of that
                     cond.
   flash_attention — causal / sliding-window attention, forward only,
                     the model layout with grouped kv heads; replaces
@@ -40,7 +42,8 @@ loads it with ``ctypes``.  Device code that two kernels share lives once
 in ``csrc/``: the bonded terms and the neighbor-list pair term in
 ``md_terms.cuh``, the all-pairs tile walk (each unordered pair once, for
 ``nonbonded.cu`` and ``lj_fluid.cu``'s forces and energy kernels) in
-``pair_tiles.cuh``.
+``pair_tiles.cuh``, the two list builds' distance and list copy in
+``nlist_common.cuh``.
 """
 from __future__ import annotations
 

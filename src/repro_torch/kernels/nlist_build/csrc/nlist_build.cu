@@ -69,37 +69,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nlist_common.cuh"
+
 namespace {
 
 constexpr int kT = 32;              // atoms per tile: one word of mask bits
 constexpr int kPrepThreads = 256;
 constexpr int kBuildWarps = 4;      // i-tiles per block of the build
 constexpr int kMaxSmem = 232448;    // shared memory one block may use
-
-__device__ __forceinline__ float r2_unfused(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-// n 32-bit words src -> dst, threads tid, tid + stride, ...: 16-byte
-// vectors between a scalar head and a scalar tail (all scalar if src and
-// dst are not aligned alike).
-__device__ __forceinline__ void copy_words(const uint32_t* __restrict__ src,
-                                           uint32_t* __restrict__ dst,
-                                           size_t n, size_t tid,
-                                           size_t stride) {
-  size_t head = ((16u - (reinterpret_cast<uintptr_t>(dst) & 15u)) & 15u) / 4;
-  if ((reinterpret_cast<uintptr_t>(src) ^ reinterpret_cast<uintptr_t>(dst)) &
-      15u)
-    head = n;
-  if (head > n) head = n;
-  for (size_t k = tid; k < head; k += stride) dst[k] = src[k];
-  const size_t n4 = (n - head) / 4;
-  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
-  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
-  for (size_t k = tid; k < n4; k += stride) d4[k] = s4[k];
-  for (size_t k = head + 4 * n4 + tid; k < n; k += stride) dst[k] = src[k];
-}
 
 __global__ void __launch_bounds__(kPrepThreads) nlist_prep_kernel(
     const float* __restrict__ pos, const int* __restrict__ flag,

@@ -1,18 +1,25 @@
-"""Host-side dispatch for the device-gated neighbor-list build.
+"""Host-side dispatch for the device-gated neighbor-list builds.
 
-``build_gated(pos, take, old, nb_pack, r_list, k_max)`` is the one
-entry point: replica r's list is built where ``take`` is set and its old
-``idx`` / ``valid`` rows are kept elsewhere; ``take`` is a device tensor,
-one element (every replica) or (R,), and is never read on the host.  A
-CUDA stack goes through the kernels (``nlist_build_batched``, which
-launches ``csrc/nlist_build.cu``, two CUDA launches per call, and counts
-the call once), a CPU stack through the plain version,
-``build_gated_plain``: the whole build (``ref.build_dense``) and a
-per-replica select.  On the CPU that costs a build per call, which only
-the small CPU runs pay; on the card the kernels read the flag and build
-only where it is set, testing only the tile pairs whose bounding boxes
-lie within the list radius (``ref.build_culled`` is that algorithm in
-PyTorch).
+``build_gated(pos, take, old, nb_pack, r_list, k_max, cells)`` is the
+one entry point: replica r's list is built where ``take`` is set and its
+old ``idx`` / ``valid`` rows are kept elsewhere; ``take`` is a device
+tensor, one element (every replica) or (R,), and is never read on the
+card.  ``cells`` None is the dense build, ``(grid_dims, cell_capacity)``
+the cell-list build.  A CUDA stack goes through a kernel pair, which
+counts the call once: ``nlist_build_batched`` (``csrc/nlist_build.cu``,
+the dense build) or ``cell_build_batched`` (``csrc/cell_build.cu``, the
+cell build), two CUDA launches per call each.  A CPU stack goes through
+the plain version, ``build_gated_plain``: the whole build
+(``ref.build_dense`` / ``ref.build_cells``) and a per-replica select.
+On the CPU the dense build runs every call, which only the small CPU runs
+pay; the cell build, whose candidate planes are far wider (27 cells of
+``cell_capacity`` slots a row), runs there only when a flag is set (a
+host read costs the CPU nothing).  On the card the kernels read the flag
+and build only where it is set: the dense kernels test only the tile
+pairs whose bounding boxes lie within the list radius
+(``ref.build_culled`` is that algorithm in PyTorch), the cell kernels
+bin the atoms by a counting sort and walk each row's stencil cells
+(``ref.build_cells_counting``).
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import ctypes
 from pathlib import Path
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import (KernelLibrary, check_cuda,
@@ -29,10 +37,17 @@ from repro_torch.kernels.nlist_build import ref
 
 LIBRARY = KernelLibrary(
     "nlist_build", Path(__file__).parent / "csrc" / "nlist_build.cu")
+CELL_LIBRARY = KernelLibrary(
+    "cell_build", Path(__file__).parent / "csrc" / "cell_build.cu")
+MAX_CELLS = 4096          # kMaxCells in csrc/cell_build.cu (16^3)
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
              + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_CELL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9
+                  + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                  + [ctypes.c_void_p])
 
 
 def _rows(take: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -41,11 +56,16 @@ def _rows(take: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def build_gated_plain(pos, take, old: Optional[Tuple], nb_mask,
-                      r_list: float, k_max: int):
-    """The kernel's plain version: (idx, valid, dropped) with the fresh
+                      r_list: float, k_max: int, cells=None):
+    """The kernels' plain version: (idx, valid, dropped) with the fresh
     list where ``take`` is set, the ``old`` (idx, valid) rows elsewhere,
-    and ``dropped`` 0 for the kept replicas."""
-    idx, valid, dropped = ref.build_dense(pos, nb_mask, r_list, k_max)
+    and ``dropped`` 0 for the kept replicas.  ``cells``: None (the dense
+    build) or (grid_dims, cell_capacity) (the cell build)."""
+    if cells is None:
+        idx, valid, dropped = ref.build_dense(pos, nb_mask, r_list, k_max)
+    else:
+        idx, valid, dropped = ref.build_cells(pos, nb_mask, r_list, k_max,
+                                              *cells)
     if old is None:
         return idx, valid, dropped
     t = _rows(take, pos.shape[0])
@@ -54,12 +74,10 @@ def build_gated_plain(pos, take, old: Optional[Tuple], nb_mask,
             torch.where(t, dropped, 0))
 
 
-def nlist_build_batched(pos, take, old: Optional[Tuple], mask_bits,
-                        r_list: float, k_max: int):
-    """The kernels: CUDA tensors -> (idx (R, N, K) int32, valid (R, N, K)
-    f32, dropped (R,) int32), written to fresh buffers; anything else
-    raises.  ``mask_bits``: the pack's (ld, ld / 32) int32 mask words.
-    ``old`` None builds every replica (``take`` is not read)."""
+def _flag_and_outputs(pos, take, old: Optional[Tuple], k_max: int):
+    """(flag, old idx, old valid, idx, valid) of a kernel call: the flag
+    as contiguous int32 (all ones where ``old`` is None), fresh outputs,
+    and the outputs themselves standing in for a missing ``old``."""
     r, n, _ = pos.shape
     if old is None:
         take = torch.ones(1, dtype=torch.int32, device=pos.device)
@@ -71,6 +89,18 @@ def nlist_build_batched(pos, take, old: Optional[Tuple], mask_bits,
     valid = torch.empty((r, n, k_max), dtype=torch.float32,
                         device=pos.device)
     old_idx, old_valid = (idx, valid) if old is None else old
+    return flag, old_idx, old_valid, idx, valid
+
+
+def nlist_build_batched(pos, take, old: Optional[Tuple], mask_bits,
+                        r_list: float, k_max: int):
+    """The kernels: CUDA tensors -> (idx (R, N, K) int32, valid (R, N, K)
+    f32, dropped (R,) int32), written to fresh buffers; anything else
+    raises.  ``mask_bits``: the pack's (ld, ld / 32) int32 mask words.
+    ``old`` None builds every replica (``take`` is not read)."""
+    r, n, _ = pos.shape
+    flag, old_idx, old_valid, idx, valid = _flag_and_outputs(pos, take, old,
+                                                             k_max)
     check_cuda((pos, mask_bits, flag, old_idx, old_valid),
                ("pos", "mask_bits", "take", "old idx", "old valid"))
     n_tiles = -(-n // ref.TILE)
@@ -100,13 +130,73 @@ def nlist_build_batched(pos, take, old: Optional[Tuple], mask_bits,
     return idx, valid, dropped
 
 
+def cell_build_batched(pos, take, old: Optional[Tuple], mask_bits,
+                       r_list: float, k_max: int, grid_dims,
+                       cell_capacity: int):
+    """The cell-build kernels: CUDA tensors -> (idx (R, N, K) int32, valid
+    (R, N, K) f32, dropped (R,) int32), written to fresh buffers; anything
+    else raises.  ``mask_bits``: the pack's (ld, ld / 32) int32 mask
+    words; ``grid_dims`` (at most MAX_CELLS cells) and ``cell_capacity``
+    as for ``ref.build_cells``.  ``old`` None builds every replica."""
+    r, n, _ = pos.shape
+    gx, gy, gz = (int(g) for g in grid_dims)
+    cap = int(cell_capacity)
+    flag, old_idx, old_valid, idx, valid = _flag_and_outputs(pos, take, old,
+                                                             k_max)
+    check_cuda((pos, mask_bits, flag, old_idx, old_valid),
+               ("pos", "mask_bits", "take", "old idx", "old valid"))
+    n_cells = gx * gy * gz
+    if (pos.dtype != torch.float32 or mask_bits.dtype != torch.int32
+            or mask_bits.shape[0] < n or 32 * mask_bits.shape[1] < n
+            or min(gx, gy, gz, cap) < 1 or n_cells > MAX_CELLS
+            or old_idx.dtype != torch.int32
+            or tuple(old_idx.shape) != (r, n, k_max)
+            or tuple(old_valid.shape) != (r, n, k_max)):
+        raise ValueError(f"want float32 pos (R, N, 3), int32 mask bits "
+                         f"covering {n} atoms, a grid of 1 to {MAX_CELLS} "
+                         f"cells, a capacity >= 1 and an old int32 list of "
+                         f"({r}, {n}, {k_max}); got {pos.dtype} "
+                         f"{tuple(pos.shape)}, {mask_bits.dtype} "
+                         f"{tuple(mask_bits.shape)}, grid {grid_dims}, "
+                         f"capacity {cap}, {tuple(old_idx.shape)} "
+                         f"{old_idx.dtype}")
+    dev = pos.device
+    cell_of = torch.empty((r, n), dtype=torch.int32, device=dev)
+    order = torch.empty((r, n), dtype=torch.int32, device=dev)
+    start = torch.empty((r, n_cells), dtype=torch.int32, device=dev)
+    kept = torch.empty((r, n_cells), dtype=torch.int32, device=dev)
+    dropped = torch.empty(r, dtype=torch.int32, device=dev)
+    fn = CELL_LIBRARY.function("cell_build_launch", _CELL_ARGTYPES)
+    code = fn(pos.data_ptr(), mask_bits.data_ptr(), mask_bits.shape[1],
+              flag.data_ptr(), 0 if flag.numel() == 1 else 1,
+              old_idx.data_ptr(), old_valid.data_ptr(), idx.data_ptr(),
+              valid.data_ptr(), cell_of.data_ptr(), order.data_ptr(),
+              start.data_ptr(), kept.data_ptr(), dropped.data_ptr(), r, n,
+              k_max, gx, gy, gz, cap, float(np.float32(r_list)),
+              f32_square(r_list), stream_ptr())
+    raise_on_error(code, "cell_build")
+    CELL_LIBRARY.count()
+    return idx, valid, dropped
+
+
 def build_gated(pos, take, old: Optional[Tuple], nb_pack, r_list: float,
-                k_max: int):
-    """(idx, valid, dropped) of the gated build: the kernel on the card,
-    its plain version on the CPU.  ``nb_pack``: the engine's
+                k_max: int, cells=None):
+    """(idx, valid, dropped) of the gated build: the kernels on the card,
+    their plain version on the CPU.  ``nb_pack``: the engine's
     ``lj_forces.ops.NonbondedPack`` (its float mask for the plain build,
-    its mask bits for the kernels)."""
+    its mask bits for the kernels); ``cells``: None for the dense build,
+    (grid_dims, cell_capacity) for the cell build."""
     if default_use_kernel(pos):
-        return nlist_build_batched(pos.contiguous(), take, old,
-                                   nb_pack.mask_bits, r_list, k_max)
-    return build_gated_plain(pos, take, old, nb_pack.nb_mask, r_list, k_max)
+        if cells is None:
+            return nlist_build_batched(pos.contiguous(), take, old,
+                                       nb_pack.mask_bits, r_list, k_max)
+        return cell_build_batched(pos.contiguous(), take, old,
+                                  nb_pack.mask_bits, r_list, k_max, *cells)
+    # a CPU cost measure, the cell build's alone (see the module
+    # docstring): skip its wide candidate planes when no flag is set;
+    # the outputs stay fresh tensors, as everywhere else
+    if cells is not None and old is not None and not bool(take.any()):
+        return (old[0].clone(), old[1].clone(),
+                torch.zeros(pos.shape[0], dtype=torch.int32))
+    return build_gated_plain(pos, take, old, nb_pack.nb_mask, r_list, k_max,
+                             cells)

@@ -136,3 +136,195 @@ def build_culled(pos: torch.Tensor, mask_bits: torch.Tensor, r_list: float,
             valid[rep, rows] = hit
             dropped[rep] += int(over)
     return idx, valid, dropped
+
+
+# -- the cell-list build ------------------------------------------------------
+#
+# The JAX package's ``build_cells`` (md/neighbors.py:120-232), op for op:
+# atoms binned into a static (G_x, G_y, G_z) grid of cells at least r_list
+# wide, each row packed in candidate order (stencil cell, then rank in the
+# cell, where rank is the order of atom index within the cell), not in
+# ascending j.  The sparse pass sums in slot order, so the lists are held
+# bitwise, not as sets.  Every function takes a leading replica axis.
+
+CELL_BYTES = 2 ** 31      # candidate-plane bytes per replica chunk
+
+
+def _stencil(grid_dims) -> np.ndarray:
+    """Neighbor-cell offsets, (S, 3): an axis with one cell has no +-1
+    neighbors, so a (16, 1, 1) grid searches 3 cells, not 27."""
+    axes = [(-1, 0, 1) if g > 1 else (0,) for g in grid_dims]
+    return np.array([(i, j, k)
+                     for i in axes[0]
+                     for j in axes[1]
+                     for k in axes[2]], np.int32)
+
+
+def _cell_coords(pos: torch.Tensor, r_list: float, grid_dims) -> torch.Tensor:
+    """(..., N, 3) -> (..., N, 3) int32 cell coordinates: the cell width is
+    max(r_list, extent / G) per axis, the coordinates clipped into the grid.
+    Divided tensor by tensor, as JAX divides (a reciprocal would move atoms
+    that sit on a cell border)."""
+    g = torch.tensor(grid_dims, dtype=torch.float32, device=pos.device)
+    lo = torch.amin(pos, dim=-2, keepdim=True)
+    hi = torch.amax(pos, dim=-2, keepdim=True)
+    r = torch.tensor(np.float32(r_list), device=pos.device)
+    width = torch.maximum((hi - lo) / g, r)
+    cc = torch.floor((pos - lo) / width).to(torch.int32)
+    top = torch.tensor(grid_dims, dtype=torch.int32, device=pos.device) - 1
+    return torch.minimum(torch.clamp_min(cc, 0), top)
+
+
+def _bin_atoms(cell_id: torch.Tensor, n_cells: int, capacity: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R, N) cell ids -> (bins (R, n_cells + 1, C) int32, dropped (R,)):
+    slot k of a cell holds its k-th atom by index (a stable sort), padding
+    N; ranks past ``capacity`` are dropped and counted.  Row ``n_cells``
+    stays all padding.  JAX's ``.at[].set(mode="drop")``: the dropped
+    ranks are written to a spare row, then cut off."""
+    r, n = cell_id.shape
+    order = torch.sort(cell_id, dim=-1, stable=True).indices
+    sorted_id = torch.gather(cell_id, 1, order).contiguous()
+    first = torch.searchsorted(sorted_id, sorted_id, side="left")
+    rank = torch.arange(n, device=cell_id.device) - first
+    flat = torch.where(rank < capacity,
+                       sorted_id.to(torch.int64) * capacity + rank,
+                       (n_cells + 1) * capacity)
+    bins = torch.full((r, (n_cells + 2) * capacity), n, dtype=torch.int32,
+                      device=cell_id.device)
+    bins = bins.scatter(1, flat, order.to(torch.int32))
+    n_dropped = torch.sum(rank >= capacity, dim=-1)
+    return (bins[:, :(n_cells + 1) * capacity]
+            .reshape(r, n_cells + 1, capacity), n_dropped)
+
+
+def _cell_candidates(pos: torch.Tensor, r_list: float, grid_dims,
+                     capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R, N, 3) -> (candidates (R, N, S C) int32, bin dropped (R,)): each
+    atom's stencil cells in stencil order, each cell's slots in rank order;
+    out-of-grid cells and repeats of an earlier stencil cell gather the
+    padding row."""
+    gx, gy, gz = grid_dims
+    n_cells = gx * gy * gz
+    dev = pos.device
+    stencil = torch.from_numpy(_stencil(grid_dims)).to(dev)
+    n_st = stencil.shape[0]
+    cc = _cell_coords(pos, r_list, grid_dims)                 # (R, N, 3)
+    cell_id = (cc[..., 0] * gy + cc[..., 1]) * gz + cc[..., 2]
+    bins, bin_dropped = _bin_atoms(cell_id, n_cells, capacity)
+    dims = torch.tensor(grid_dims, dtype=torch.int32, device=dev)
+    ncc = cc[..., None, :] + stencil                          # (R, N, S, 3)
+    in_grid = torch.all((ncc >= 0) & (ncc < dims), dim=-1)
+    ncc = torch.minimum(torch.clamp_min(ncc, 0), dims - 1)
+    nid = (ncc[..., 0] * gy + ncc[..., 1]) * gz + ncc[..., 2]
+    nid = torch.where(in_grid, nid, n_cells)
+    ar = torch.arange(n_st, device=dev)
+    dup = torch.any((nid[..., :, None] == nid[..., None, :])
+                    & (ar[None, :] < ar[:, None]), dim=-1)
+    nid = torch.where(~dup, nid, n_cells).to(torch.int64)
+    r, n = cell_id.shape
+    cand = torch.gather(bins, 1, nid.reshape(r, -1, 1).expand(
+        -1, -1, capacity))                                    # (R, N S, C)
+    return cand.reshape(r, n, n_st * capacity), bin_dropped
+
+
+def _cells_block(pos, nb_mask, r_list: float, k_max: int, grid_dims,
+                 capacity: int):
+    r, n, _ = pos.shape
+    cand, bin_dropped = _cell_candidates(pos, r_list, grid_dims, capacity)
+    c = torch.clamp(cand, 0, n - 1).to(torch.int64)           # (R, N, SC)
+    flat = c.reshape(r, -1)
+    d = [pos[..., a, None] - torch.gather(pos[..., a], 1, flat).reshape(
+        c.shape) for a in range(3)]
+    r2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+    rows = torch.arange(n, device=pos.device)[:, None]
+    within = (r2 <= f32_square(r_list)) & (nb_mask[rows, c] > 0) & (cand < n)
+    cols, valid, dropped = pack_rows(within, k_max)
+    idx = torch.where(valid > 0, torch.gather(cand, -1, cols), n)
+    return (idx.to(torch.int32), valid,
+            (dropped + bin_dropped).to(torch.int32))
+
+
+def build_cells(pos: torch.Tensor, nb_mask: torch.Tensor, r_list: float,
+                k_max: int, grid_dims, cell_capacity: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cell-list build: (R, N, 3) -> (idx, valid, dropped), the contract of
+    :func:`build_dense` (the same neighbor sets) with each row in candidate
+    order.  ``nb_mask`` (N, N), any dtype: > 0 where the pair is kept.
+    ``dropped`` counts both the atoms past a cell's capacity (once each)
+    and the hits past ``k_max``.  Replicas go in chunks of CELL_BYTES of
+    candidate planes."""
+    r, n, _ = pos.shape
+    width = len(_stencil(grid_dims)) * int(cell_capacity)
+    step = max(1, CELL_BYTES // max(1, n * width * 40))
+    parts = [_cells_block(pos[i:i + step], nb_mask, r_list, k_max,
+                          grid_dims, int(cell_capacity))
+             for i in range(0, r, step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def build_cells_counting(pos: torch.Tensor, mask_bits: torch.Tensor,
+                         r_list: float, k_max: int, grid_dims,
+                         cell_capacity: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The card kernel's algorithm (csrc/cell_build.cu), step for step, in
+    Python loops for small tests: a counting sort (per-cell counts, each
+    cell's start at the running sum of the counts, ranks given by one pass
+    over the atoms in ascending index, the atoms put in cell order), then
+    each row walks its in-grid stencil cells in stencil order and each
+    cell's first min(count, capacity) atoms in rank order, testing the
+    mask bits (``mask_bits[i, j >> 5]`` bit ``j & 31``) and r2 <=
+    r_list^2.  Same outputs as :func:`build_cells`."""
+    r, n, _ = pos.shape
+    gx, gy, gz = grid_dims
+    n_cells = gx * gy * gz
+    cap = int(cell_capacity)
+    r2_max = f32_square(r_list)
+    cc = _cell_coords(pos, r_list, grid_dims)
+    cell_id = ((cc[..., 0] * gy + cc[..., 1]) * gz + cc[..., 2]).tolist()
+    bits = mask_bits.to(torch.int64) & 0xFFFFFFFF
+    idx = torch.full((r, n, k_max), n, dtype=torch.int32)
+    valid = torch.zeros((r, n, k_max), dtype=torch.float32)
+    dropped = torch.zeros(r, dtype=torch.int32)
+    offsets = [(dx, dy, dz)
+               for dx in ((-1, 0, 1) if gx > 1 else (0,))
+               for dy in ((-1, 0, 1) if gy > 1 else (0,))
+               for dz in ((-1, 0, 1) if gz > 1 else (0,))]
+    for rep in range(r):
+        ids = cell_id[rep]
+        count = [0] * n_cells
+        for c in ids:
+            count[c] += 1
+        kept = [min(k, cap) for k in count]
+        start = np.concatenate([[0], np.cumsum(count)[:-1]]).tolist()
+        run = [0] * n_cells
+        order = [0] * n
+        for i, c in enumerate(ids):          # ascending atom index
+            order[start[c] + run[c]] = i
+            run[c] += 1
+        over = sum(k - m for k, m in zip(count, kept))
+        p = pos[rep]
+        for i in range(n):
+            c = ids[i]
+            cx, cy, cz = c // (gy * gz), (c // gz) % gy, c % gz
+            hits = []
+            for dx, dy, dz in offsets:
+                nx, ny, nz = cx + dx, cy + dy, cz + dz
+                if not (0 <= nx < gx and 0 <= ny < gy and 0 <= nz < gz):
+                    continue
+                nc = (nx * gy + ny) * gz + nz
+                js = torch.tensor(order[start[nc]:start[nc] + kept[nc]],
+                                  dtype=torch.int64)
+                if len(js) == 0:
+                    continue
+                on = ((bits[i, js >> 5] >> (js & 31)) & 1) > 0
+                d = p[i] - p[js]
+                r2 = ((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                      + d[:, 2] * d[:, 2])
+                hits += js[on & (r2 <= r2_max)].tolist()
+            idx[rep, i, :min(len(hits), k_max)] = torch.tensor(
+                hits[:k_max], dtype=torch.int32)
+            valid[rep, i, :min(len(hits), k_max)] = 1.0
+            over += max(len(hits) - k_max, 0)
+        dropped[rep] = over
+    return idx, valid, dropped

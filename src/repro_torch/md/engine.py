@@ -33,8 +33,9 @@ on the CPU; the card keeps its bonded kernel either way.  As in the JAX
 package, the sparse passes need an analytic path ("pallas", "fused").
 
 ``cross_energy`` builds the (R, C) matrix of the Gibbs exchange (the
-``kernels.exchange_matrix`` kernel on the card).  The cell-list build is
-not ported yet; asking for it raises.
+``kernels.exchange_matrix`` kernel on the card).  The list is built by
+the masked dense build or the cell-list build (``nlist_build``), each a
+device-gated kernel pair on the card.
 
 ``propagate(..., stack=R)``: the replica count of the ensemble when the
 state is one wave of it (Mode II); the all-pairs kernels size their
@@ -140,9 +141,10 @@ class MDEngine:
         truncated at ``cutoff``, the list built to ``cutoff + skin`` and
         rebuilt on the device when an atom drifts more than ``skin / 2``.
         ``k_max`` and ``nlist_build`` default to the JAX package's
-        host-side heuristics on the reference geometry; only the "dense"
-        build is ported ("cell" raises).  ``cell_capacity`` feeds the
-        build choice as there.  ``nb_pair_planes`` carries the build-time
+        host-side heuristics on the reference geometry, as there.
+        ``cell_capacity`` caps the "cell" build's atoms per cell (default
+        the JAX package's suggestion); atoms past it are dropped and
+        counted in ``nb_overflow``.  ``nb_pair_planes`` carries the build-time
         parameter planes in the list (default: on the CPU only, where
         the oracle reads them; the card's kernel gathers its atom rows).
         ``bonded="sparse"``: the slot-table bonded oracle on the CPU.
@@ -216,23 +218,20 @@ class MDEngine:
         self.k_max = (NB.suggest_k_max(sys.n_atoms, base, mask, self.r_list)
                       if k_max is None else int(k_max))
         extent = base.max(0) - base.min(0) + 2.0 * self.r_list
-        grid_dims = NB.suggest_grid_dims(extent, self.r_list)
-        if cell_capacity is None:
-            cell_capacity = NB.suggest_cell_capacity(base, self.r_list,
-                                                     grid_dims)
-        if int(cell_capacity) < 1:
+        self._grid_dims = NB.suggest_grid_dims(extent, self.r_list)
+        self._cell_capacity = (
+            int(cell_capacity) if cell_capacity is not None
+            else NB.suggest_cell_capacity(base, self.r_list,
+                                          self._grid_dims))
+        if self._cell_capacity < 1:
             raise ValueError(f"cell_capacity must be >= 1, got "
-                             f"{cell_capacity}")
+                             f"{self._cell_capacity}")
         if nlist_build is None:
             nlist_build = NB.suggest_build_method(
-                sys.n_atoms, grid_dims, int(cell_capacity))
+                sys.n_atoms, self._grid_dims, self._cell_capacity)
         if nlist_build not in ("dense", "cell"):
             raise ValueError(f"nlist_build must be 'dense' or 'cell', got "
                              f"{nlist_build!r}")
-        if nlist_build == "cell":
-            raise NotImplementedError(
-                "nlist_build='cell' (neighbors.build_cells) is not ported "
-                "yet (ported: 'dense')")
         self.nlist_build = nlist_build
 
     # -- neighbor-list plumbing (nonbonded="sparse") -----------------------
@@ -240,7 +239,8 @@ class MDEngine:
     def _build_nlist(self, pos, prev=None):
         return NB.build_neighbor_list(
             pos, self._nb_pack, self.r_list, self.k_max,
-            method=self.nlist_build, prev=prev,
+            method=self.nlist_build, grid_dims=self._grid_dims,
+            cell_capacity=self._cell_capacity, prev=prev,
             pair_params=self._pair_params)
 
     def _refresh_nlist(self, pos, nlist):
@@ -248,7 +248,8 @@ class MDEngine:
         replica rebuilds every replica's list."""
         return NB.maybe_rebuild(
             pos, nlist, self._nb_pack, self.r_list, self.skin, self.k_max,
-            method=self.nlist_build, sync=True,
+            method=self.nlist_build, grid_dims=self._grid_dims,
+            cell_capacity=self._cell_capacity, sync=True,
             pair_params=self._pair_params)
 
     def nb_stats(self, state):

@@ -15,11 +15,15 @@ replica axis, kept in the engine state as ``state["nlist"]``:
   pair     (R, 3, N, K) f32 optional build-time planes
                             [sig^2, eps, COULOMB * qq] (``pair_planes``)
 
-Only the dense (masked O(N^2)) build is ported; ``method="cell"``
-(``build_cells``) raises.  The rebuild of ``maybe_rebuild`` is gated on
-the device: ``needs_rebuild`` leaves a flag tensor that the build kernel
-(``kernels.nlist_build``) reads, so no host read, no Python branch and no
-unconditional build stands in for the JAX package's ``lax.cond``.
+Two builds give the same neighbor sets: ``build_dense`` (the masked
+O(N^2) build, rows in ascending j) and ``build_cells`` (the cell-list
+build: atoms binned into a static grid of cells at least ``r_list`` wide,
+each row in candidate order, bitwise the JAX package's ``build_cells``);
+``method`` picks one.  The rebuild of ``maybe_rebuild`` is gated on the
+device: ``needs_rebuild`` leaves a flag tensor that the build kernels
+(``kernels.nlist_build``: ``nlist_build.cu`` for "dense",
+``cell_build.cu`` for "cell") read, so no host read, no Python branch and
+no unconditional build stands in for the JAX package's ``lax.cond``.
 Capacity overflow is never silent: it accumulates in ``overflow``, which
 the driver reports per cycle as ``nb_overflow``.
 """
@@ -33,18 +37,21 @@ import torch
 from repro_torch.kernels import f32_square
 from repro_torch.kernels.lj_forces.ref import COULOMB
 from repro_torch.kernels.nlist_build import ops as build_ops
-from repro_torch.kernels.nlist_build.ref import build_dense  # noqa: F401
+from repro_torch.kernels.nlist_build.ref import (  # noqa: F401
+    _bin_atoms, _cell_candidates, _cell_coords, _stencil, build_cells,
+    build_dense)
 
 NeighborList = Dict[str, torch.Tensor]
 
 
-def _check_method(method: str) -> None:
+def _cells(method: str, grid_dims, cell_capacity):
+    """The build's cell geometry: None for "dense", (grid_dims,
+    cell_capacity) for "cell"."""
     if method == "cell":
-        raise NotImplementedError(
-            "nlist_build='cell' (neighbors.build_cells) is not ported yet "
-            "(ported: 'dense')")
+        return tuple(int(g) for g in grid_dims), int(cell_capacity)
     if method != "dense":
         raise ValueError(f"unknown neighbor-list build method {method!r}")
+    return None
 
 
 def pair_planes(idx, lj_sigma, lj_eps, charges) -> torch.Tensor:
@@ -62,16 +69,20 @@ def pair_planes(idx, lj_sigma, lj_eps, charges) -> torch.Tensor:
 
 def build_neighbor_list(pos, nb_pack, r_list: float, k_max: int, *,
                         method: str = "dense",
+                        grid_dims: Tuple[int, int, int] = (1, 1, 1),
+                        cell_capacity: int = 8,
                         prev: Optional[NeighborList] = None,
                         pair_params=None) -> NeighborList:
     """A fresh list for a (R, N, 3) stack (the build kernel on the card,
     the plain build on the CPU).  ``nb_pack``: the engine's
-    ``lj_forces.ops.NonbondedPack`` (the exclusion mask).  ``prev``
-    carries the cumulative counters forward (None zeroes them);
-    ``pair_params`` (lj_sigma, lj_eps, charges) adds the ``pair`` leaf."""
-    _check_method(method)
+    ``lj_forces.ops.NonbondedPack`` (the exclusion mask).  ``method``:
+    "dense" or "cell" (on the static ``grid_dims`` grid with
+    ``cell_capacity`` atoms a cell).  ``prev`` carries the cumulative
+    counters forward (None zeroes them); ``pair_params`` (lj_sigma,
+    lj_eps, charges) adds the ``pair`` leaf."""
+    cells = _cells(method, grid_dims, cell_capacity)
     idx, valid, dropped = build_ops.build_gated(pos, None, None, nb_pack,
-                                                r_list, k_max)
+                                                r_list, k_max, cells)
     overflow = dropped
     rebuilds = torch.zeros(pos.shape[0], dtype=torch.int32,
                            device=pos.device)
@@ -95,6 +106,8 @@ def needs_rebuild(pos, nlist: NeighborList, skin: float) -> torch.Tensor:
 
 def maybe_rebuild(pos, nlist: NeighborList, nb_pack, r_list: float,
                   skin: float, k_max: int, *, method: str = "dense",
+                  grid_dims: Tuple[int, int, int] = (1, 1, 1),
+                  cell_capacity: int = 8,
                   sync: bool = False, pair_params=None) -> NeighborList:
     """Skin check and a rebuild gated on the device, with no host read.
 
@@ -105,11 +118,12 @@ def maybe_rebuild(pos, nlist: NeighborList, nb_pack, r_list: float,
     place; a replica that keeps its list gets its old rows, ref_pos and
     counters back unchanged, one that rebuilds gets the fresh list, its
     dropped pairs added to ``overflow`` and one added to ``rebuilds``."""
-    _check_method(method)
+    cells = _cells(method, grid_dims, cell_capacity)
     need = needs_rebuild(pos, nlist, skin)                 # (R,)
     take = torch.any(need).reshape(1) if sync else need
     idx, valid, dropped = build_ops.build_gated(
-        pos, take, (nlist["idx"], nlist["valid"]), nb_pack, r_list, k_max)
+        pos, take, (nlist["idx"], nlist["valid"]), nb_pack, r_list, k_max,
+        cells)
     rows = take.expand(need.shape)
     out = {"idx": idx, "valid": valid,
            "ref_pos": torch.where(rows[:, None, None], pos,

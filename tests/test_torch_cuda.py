@@ -31,7 +31,13 @@ order).  The driver's sixth slice: Mode II (three waves, the last padded)
 bitwise Mode I on both patterns; an asynchronous run with injected
 failures resumed from a checkpoint bitwise; the same run's decisions and
 failures as the CPU's; the oracle force paths ("batched", "vmap") within
-1e-3 A of "pallas" after 5 steps.
+1e-3 A of "pallas" after 5 steps.  The seventh slice: the cell-build
+kernels bitwise their plain version (``ref.build_cells``) on the chain, on
+a chain whose cells overflow their capacity and on gases at the LJ
+fluid's density, in both states of the flag; the cell path through its
+kernels under the sync guard and making the CPU's decisions; telemetry on
+and off bitwise on the card (the probes' launches only), its counters
+the CPU's; the ``repex_run`` CLI's report.
 """
 import numpy as np
 import pytest
@@ -792,3 +798,156 @@ def test_oracle_paths_on_the_card():
     for name in ("batched", "vmap"):
         assert float((out[name]["pos"] - out["pallas"]["pos"]).abs()
                      .max()) < 1e-3
+
+
+# -- the seventh slice: the cell build, observability, the CLI ---------------
+
+def _gas_mask(n_atoms):
+    """The mask bits and the dense uint8 mask of a gas: every pair kept
+    but the diagonal."""
+    mask = 1 - torch.eye(n_atoms, dtype=torch.uint8, device="cuda")
+    ld = nb_ops.pad_to_block(n_atoms, nb_ops.TILE)
+    u8 = torch.zeros((n_atoms, ld), dtype=torch.uint8, device="cuda")
+    u8[:, :n_atoms] = mask
+    return nb_ops.tile_flags(u8)[0], mask
+
+
+# The chain (whose cells hold ~180 atoms at N = 2881), a chain at a
+# capacity that drops atoms, a gas at the LJ fluid's density large enough
+# that suggest_build_method picks the cell build (the stencil's 27 cells
+# of ~160 slots undercut N) and a small one whose k_max drops pairs; each
+# with both flags and a flag row, every call counted once.
+@pytest.mark.parametrize("kind,n_atoms,n_rep", [
+    ("chain", 2881, 4), ("chain_cap", 257, 3), ("gas", 6000, 2),
+    ("gas_kmax", 1000, 2)])
+def test_cell_build_kernel_equals_plain_build_bitwise(kind, n_atoms, n_rep):
+    from repro_torch.md import neighbors as NB
+    if kind.startswith("chain"):
+        eng = _sparse_engine("cuda", n_atoms, nlist_build="cell",
+                             cell_capacity=3 if kind == "chain_cap" else None)
+        pos = eng.init_state(jr.key(0, "cuda"), n_rep)["pos"]
+        bits, mask = eng._nb_pack.mask_bits, eng._nb_pack.nb_mask
+        r_list, k_max = eng.r_list, eng.k_max
+        cells = (eng._grid_dims, eng._cell_capacity)
+    else:
+        side = (n_atoms / 0.0205) ** (1 / 3)
+        pos = _gas(n_atoms, n_rep, side)
+        bits, mask = _gas_mask(n_atoms)
+        r_list = 10.5
+        host = pos[0].double().cpu().numpy()
+        dims = NB.suggest_grid_dims(host.max(0) - host.min(0) + 2 * r_list,
+                                    r_list)
+        cap = NB.suggest_cell_capacity(host, r_list, dims)
+        assert (NB.suggest_build_method(n_atoms, dims, cap) == "cell") == (
+            kind == "gas")
+        cells, k_max = (dims, cap), (160 if kind == "gas" else 40)
+    old = nl_ops.build_gated_plain(pos + 0.7, None, None, mask, r_list,
+                                   k_max, cells)[:2]
+    flags = (torch.zeros(1, dtype=torch.int32, device="cuda"),
+             torch.ones(1, dtype=torch.int32, device="cuda"),
+             (torch.arange(n_rep, device="cuda") % 2).to(torch.int32))
+    for flag in flags:
+        n0 = nl_ops.CELL_LIBRARY.launches
+        got = nl_ops.cell_build_batched(pos, flag, old, bits, r_list, k_max,
+                                        *cells)
+        assert nl_ops.CELL_LIBRARY.launches == n0 + 1
+        want = nl_ops.build_gated_plain(pos, flag, old, mask, r_list, k_max,
+                                        cells)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (kind, flag.tolist())
+    assert int(want[0].lt(n_atoms).sum()) > 0
+    assert (int(want[2].sum()) > 0) == (kind in ("chain_cap", "gas_kmax"))
+
+
+def test_cell_path_runs_under_the_sync_guard_through_its_kernels(
+        monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(nl_ops, "build_gated_plain", boom)
+    monkeypatch.setattr(nl_ops.ref, "build_cells", boom)
+    cfg = RepExConfig(dimensions=(("temperature", 8),), md_steps_per_cycle=4,
+                      n_cycles=3)
+    drv = REMDDriver(_sparse_engine("cuda", path="pallas", skin=0.3,
+                                    nlist_build="cell"), cfg, device="cuda")
+    ens = drv.init(0)
+    n0 = (nl_ops.CELL_LIBRARY.launches, nl_ops.LIBRARY.launches)
+    drv.run_fused(ens, chunk_cycles=3)
+    assert nl_ops.CELL_LIBRARY.launches - n0[0] == 15    # 3 x 5 evaluations
+    assert nl_ops.LIBRARY.launches == n0[1]
+    assert drv.history[-1]["nb_rebuilds"] > 0
+
+
+def test_cell_path_card_and_cpu_make_the_same_decisions():
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cfg = RepExConfig(dimensions=(("temperature", 8),),
+                          md_steps_per_cycle=4, n_cycles=4)
+        drv = REMDDriver(_sparse_engine(dev, path="pallas", skin=0.3,
+                                        nlist_build="cell"), cfg,
+                         device=dev)
+        ens = drv.run_fused(drv.init(0), chunk_cycles=2)
+        runs[dev] = (drv, ens)
+    gpu, cpu = runs["cuda"][0], runs["cpu"][0]
+    for hg, hc in zip(gpu.history, cpu.history):
+        np.testing.assert_array_equal(hg["assignment"], hc["assignment"])
+        assert hg["nb_rebuilds"] == hc["nb_rebuilds"]
+    assert gpu.history[-1]["nb_rebuilds"] > 0
+    np.testing.assert_allclose(runs["cuda"][1].state["pos"].cpu().numpy(),
+                               runs["cpu"][1].state["pos"].numpy(),
+                               atol=1e-4)
+
+
+def _tel_run(device, telemetry, scheme="neighbor"):
+    from repro_torch.obs import Telemetry
+    cfg = RepExConfig(dimensions=(("temperature", 8),), md_steps_per_cycle=4,
+                      n_cycles=6, exchange_scheme=scheme)
+    drv = REMDDriver(MDEngine(chain_molecule(64), device=device), cfg,
+                     device=device,
+                     telemetry=Telemetry() if telemetry else None)
+    ens = drv.run_fused(drv.init(0), chunk_cycles=3)
+    return drv, ens
+
+
+@pytest.mark.parametrize("scheme", ["neighbor", "matrix"])
+def test_telemetry_on_and_off_bitwise_on_the_card(scheme):
+    from repro_torch.obs import validate_report
+    n0 = nb_ops.LIBRARY.launches
+    off, e_off = _tel_run("cuda", False, scheme)
+    n_off = nb_ops.LIBRARY.launches - n0
+    on, e_on = _tel_run("cuda", True, scheme)
+    n_on = nb_ops.LIBRARY.launches - n0 - n_off
+    assert n_off == 6 * 5
+    assert n_on > n_off                       # the propagate probes
+    for a, b in zip(on.history, off.history):
+        np.testing.assert_array_equal(a["assignment"], b["assignment"])
+    for k in ("pos", "vel"):
+        assert torch.equal(e_on.state[k], e_off.state[k])
+    rep = on.last_report
+    validate_report(rep.to_dict())
+    assert rep.meta["backend"] == "cuda" and rep.phases["samples"] == 2
+    assert (rep.exchange["pair_attempt"] is None) == (scheme == "matrix")
+
+
+def test_telemetry_counters_on_the_card_equal_the_cpu():
+    gpu, _ = _tel_run("cuda", True)
+    cpu, _ = _tel_run("cpu", True)
+    for key in ("pair_attempt", "pair_accept", "occupancy", "round_trips"):
+        np.testing.assert_array_equal(gpu.last_report.exchange[key],
+                                      cpu.last_report.exchange[key])
+
+
+def test_repex_run_cli_on_the_card(tmp_path):
+    import json
+
+    from repro_torch.launch import repex_run
+    from repro_torch.obs import validate_report
+    out = tmp_path / "report.json"
+    drv = repex_run.main(["--atoms", "64", "--dims", "temperature:8",
+                          "--md-steps", "4", "--cycles", "4", "--chunk", "2",
+                          "--report-out", str(out)])
+    with open(out) as f:
+        rep = validate_report(json.load(f))
+    assert rep["meta"]["backend"] == "cuda" and rep["cycles"]["counted"] == 4
+    assert rep["exchange"]["accepted"] == sum(
+        a for a, _ in drv.acceptance.values())

@@ -25,6 +25,7 @@ from repro.core import REMDDriver as JDriver
 from repro.core import failures as jF
 from repro.md import MDEngine as JEngine
 from repro.md.system import chain_molecule as j_chain_molecule
+from repro.obs import Telemetry as JTelemetry
 from repro_torch import convert
 from repro_torch.config import RepExConfig
 from repro_torch.core import REMDDriver
@@ -32,6 +33,7 @@ from repro_torch.core import exchange as tX
 from repro_torch.core import failures as tF
 from repro_torch.core.ensemble import control_multiset_ok
 from repro_torch.md import MDEngine
+from repro_torch.obs import Telemetry
 
 CFG = dict(dimensions=(("temperature", 4),), md_steps_per_cycle=3,
            n_cycles=8)
@@ -235,9 +237,7 @@ def test_device_defaults_to_cuda_and_never_falls_back(jax_system,
         REMDDriver(eng, RepExConfig(**CFG))
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(telemetry=object()), dict(mesh=object()),
-])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unported_options_raise(kwargs, jax_system):
     cfg = RepExConfig(**CFG)
     eng = MDEngine(_cpu_system(jax_system), device="cpu")
@@ -252,26 +252,24 @@ def test_unported_options_raise(kwargs, jax_system):
     dict(cfg=dict(execution_mode="mode2")),
     dict(cfg=dict(dimensions=(("temperature", 2), ("umbrella", 2)),
                   pattern="asynchronous")),
+    dict(telemetry=True),
 ])
 def test_ported_options_build_as_in_jax(kwargs, jax_system):
-    """The options that raised before this slice: the port's driver
-    builds with each and reads it as the JAX driver does."""
+    """The options that raised before they were ported: the port's
+    driver builds with each and reads it as the JAX driver does."""
     c = dict(CFG, **kwargs.pop("cfg", {}))
     if "ckpt_dir" in kwargs:
         kwargs["ckpt_dir"] = None          # nothing written here
+    tkw, jkw = dict(kwargs), dict(kwargs)
+    if kwargs.get("telemetry"):
+        tkw["telemetry"], jkw["telemetry"] = Telemetry(), JTelemetry()
     tdrv = REMDDriver(MDEngine(_cpu_system(jax_system), device="cpu"),
-                      RepExConfig(**c), device="cpu", **kwargs)
-    jdrv = JDriver(JEngine(jax_system), JConfig(**c), **kwargs)
+                      RepExConfig(**c), device="cpu", **tkw)
+    jdrv = JDriver(JEngine(jax_system), JConfig(**c), **jkw)
+    assert tdrv._obs_rows == jdrv._obs_rows
+    assert (tdrv._tel is None) == (jdrv._tel is None)
     assert tdrv.execution == jdrv.execution
     assert tdrv.failure_rate == jdrv.failure_rate
     assert tdrv._cfg_fingerprint() == jdrv._cfg_fingerprint()
     assert bool(tdrv.init(SEED).speed.ne(1.0).any()) == \
         (c.get("pattern") == "asynchronous")
-
-
-@pytest.mark.parametrize("kwargs", [dict(nonbonded="sparse",
-                                         nlist_build="cell")])
-def test_unported_engine_paths_raise(kwargs, jax_system):
-    with pytest.raises(NotImplementedError):
-        MDEngine(_cpu_system(jax_system), device="cpu",
-                 **kwargs)

@@ -27,12 +27,17 @@ assert not any(k == "jax" or k.startswith(("jax.", "repro."))
 print(" ".join(names))
 """
 
-# the modules of the driver's fault-tolerance slice: patterns, modes,
-# failures, the checkpoint package and the driver around them
+# the modules of the driver's fault-tolerance slice (patterns, modes,
+# failures, the checkpoint package and the driver around them) and of the
+# observability slice (telemetry, the report, the repex_run CLI)
 SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.core.patterns", "repro_torch.core.modes",
                  "repro_torch.core.failures", "repro_torch.core.repex",
-                 "repro_torch.md.engine", "repro_torch.md.energy")
+                 "repro_torch.md.engine", "repro_torch.md.energy",
+                 "repro_torch.obs", "repro_torch.obs.telemetry",
+                 "repro_torch.obs.report", "repro_torch.launch.repex_run",
+                 "repro_torch.md.neighbors",
+                 "repro_torch.kernels.nlist_build.ops")
 
 
 def _sources():
@@ -46,7 +51,7 @@ def test_port_imports_without_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 17                  # every module of the port
+    assert len(names) >= 20                  # every module of the port
     missing = [m for m in SLICE_MODULES if m not in names]
     assert not missing, f"not imported without jax: {missing}"
 

@@ -181,15 +181,6 @@ def test_build_kernel_takes_no_cpu_tensor():
         nl_ops.nlist_build_batched(pos, None, None, npack.mask_u8, R_LIST, 8)
 
 
-def test_cell_build_is_not_ported():
-    jsys, tsys, npack = _system(22)
-    pos = torch.from_numpy(_stack(jsys, 2))
-    with pytest.raises(NotImplementedError, match="build_cells"):
-        NB.build_neighbor_list(pos, npack, R_LIST, 8, method="cell")
-    with pytest.raises(NotImplementedError, match="build_cells"):
-        MDEngine(tsys, nonbonded="sparse", nlist_build="cell", device="cpu")
-
-
 @pytest.mark.parametrize("n_atoms", [22, 64, 300])
 def test_suggestions_match_jax(n_atoms):
     jsys, tsys, _ = _system(n_atoms)
