@@ -187,6 +187,43 @@ printed on its own lines:
  30. CLI          ``python -m repro_torch.launch.repex_run`` on phase 27's
                   T-REMD configuration as a subprocess: exit 0, its
                   ``--report-out`` valid and its counters phase 27's
+ 31. sharded      the eighth slice, replica-sharded execution:
+                  ``run_sharded`` on a one-rank NCCL group (made here on
+                  127.0.0.1; NCCL's version and availability printed)
+                  against ``run_fused`` from the same seed: T-REMD 64 x
+                  2881 (8 cycles, chunks of 4) on the halo and the gather
+                  wire, TSU 384 dense fused with the matrix scheme (3
+                  cycles, one chunk), T-REMD 64 asynchronous with failure
+                  rate 0.05 and relaunch budget 2, and a
+                  ``resume(via="sharded")`` of a ``run_fused`` checkpoint:
+                  history rows, acceptance, failures, escalations,
+                  ``alive`` and the state bitwise, every chunk under
+                  ``set_sync_debug_mode("error")``; ms/cycle of both, the
+                  kernel launches per chunk (equal) and the collectives and
+                  bytes per chunk from the wire ledger
+ 32. blocks       the per-shard functions on blocks of R/2 and R/4 rows
+                  against the full stack, for T-REMD 64, TSU 384 dense
+                  fused, TSU 384 sparse fused and LJ 384 x 864, called as
+                  a rank calls them (``sharding.ensemble_scope``: the
+                  kernels' splits sized by R): one cycle's propagate
+                  (``stack=R``; the sparse list's collective rebuild flag
+                  the full stack's, as the ranks' reduction makes it),
+                  ``replica_features``, ``energy_pair_from_features`` on
+                  the sliced ctrl rows, ``cross_energy_from_features``
+                  (the tile) and ``is_failed``, all bitwise (else the
+                  function and its largest ulp distance); the features
+                  once more without the scope, a split sized by the
+                  block (printed, not checked)
+ 33. GPUs         only under ``python3 -m torch.distributed.run
+                  --nproc-per-node N chip_smoke.py``, N > 1 GPUs of one
+                  host (without a launcher the script runs phases 1-32 on
+                  one card): ``run_sharded`` on N and on N/2 NCCL ranks
+                  for T-REMD 64 (halo, gather, asynchronous + faults) and
+                  TSU 384 (fused neighbor and matrix, sparse fused), each
+                  bitwise ``run_fused`` on rank 0's GPU; ms/cycle on 1,
+                  N/2 and N GPUs in turns, the wire per chunk, and rank
+                  0's device time in a profiled chunk on N GPUs, its
+                  kernels apart from NCCL's (which wait for the ranks)
 
 Any failed check raises and the script exits non-zero.  The next to last
 line is the kernels' JSON record, the last line the device record.
@@ -3128,6 +3165,416 @@ def cli_run(report, smi: str) -> None:
                               "run's")
 
 
+def same_trajectory(a, ea, b, eb) -> dict:
+    """Driver a's run (history, final ensemble ea) against b's: which of
+    the discrete trajectory and the state are bitwise equal."""
+    keys = ("cycle", "dim", "accept", "attempt", "failed", "esc_relaunch",
+            "esc_reinit", "esc_dead", "ready_frac", "nb_overflow",
+            "nb_rebuilds")
+    out = {
+        "rows": ([h["assignment"].tolist() for h in a.history]
+                 == [h["assignment"].tolist() for h in b.history]),
+        "history": ([[h[k] for k in keys] for h in a.history]
+                    == [[h[k] for k in keys] for h in b.history]),
+        "acceptance": a.acceptance == b.acceptance}
+    for f in ("assignment", "alive", "failures", "relaunches", "debt",
+              "cycle"):
+        out[f] = torch.equal(getattr(ea, f), getattr(eb, f))
+    live = ea.alive
+    out["state"] = all(torch.equal(ea.state[k][live], eb.state[k][live])
+                       for k in ("pos", "vel"))
+    return out
+
+
+def sharded(libs, smi: str):
+    """Phase 31: run_sharded on one NCCL rank at full width against
+    run_fused from the same seed, bitwise; times, launches and the wire
+    ledger per chunk.  Returns the mesh."""
+    phase("31 run_sharded on a one-rank NCCL group vs run_fused")
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    from repro_torch.obs import Telemetry, validate_report
+    print(f"torch.cuda.nccl.version() {torch.cuda.nccl.version()}, "
+          f"dist.is_nccl_available() {dist.is_nccl_available()}")
+    check(dist.is_nccl_available(), "NCCL is available")
+    t0 = time.perf_counter()
+    mesh = make_replica_mesh(1, device="cuda")
+    print(f"mesh {mesh.shape} on {mesh.device}, backend "
+          f"{dist.get_backend()}, made in "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    check(dist.get_backend() == "nccl", "the group is NCCL's")
+    from repro_torch import sharding
+    x = torch.zeros(R_MAIN, device="cuda")
+    for name, fn in (("all-gather", sharding.all_gather_rows),
+                     ("all-reduce", sharding.all_reduce_max)):
+        print(f"one NCCL {name} of {R_MAIN} float32: host "
+              f"{host_ms(lambda: fn(x, mesh), 100):.4f} ms a call "
+              f"[{smi}]")
+    main = MDEngine(chain_molecule(N_ATOMS), device="cuda")
+    t_cfg = dict(dimensions=(("temperature", R_MAIN),),
+                 md_steps_per_cycle=10, n_cycles=8)
+    cases = (
+        ("T-REMD 64 halo", main, RepExConfig(**t_cfg), 0.0, 4),
+        ("T-REMD 64 gather", main,
+         RepExConfig(exchange_comm="gather", **t_cfg), 0.0, 4),
+        ("TSU 384 fused matrix", tsu_engine("fused"),
+         RepExConfig(dimensions=TSU_DIMS, md_steps_per_cycle=10,
+                     n_cycles=3, exchange_scheme="matrix"), 0.0, 3),
+        ("T-REMD 64 async faults", main, RepExConfig(**t_cfg, **ASYNC),
+         FAIL_RATE, 4))
+    for tag, engine, cfg, rate, chunk in cases:
+        n_chunks = cfg.n_cycles // chunk
+        runs = {}
+        # fused, sharded (the compared runs), then sharded, fused again
+        # for one chunk each: the times of both paths in turns
+        for path in ("fused", "sharded", "sharded", "fused"):
+            tel = (Telemetry(phase_probe_every=0, exchange_counters=False)
+                   if path == "sharded" else None)
+            d = REMDDriver(engine, cfg, failure_rate=rate, telemetry=tel,
+                           device="cuda")
+            if path in runs:
+                start = runs[path]["ens"]
+                (d.run_fused(start, n_cycles=chunk, chunk_cycles=chunk)
+                 if path == "fused" else d.run_sharded(
+                     start, mesh=mesh, n_cycles=chunk, chunk_cycles=chunk))
+                runs[path]["ms"].append(d.history[-1]["t_step"] * 1e3)
+                continue
+            ens = d.init(SEED)
+            reset(libs)
+            with counting_fetches() as fetches:
+                if path == "fused":
+                    ens = d.run_fused(ens, chunk_cycles=chunk)
+                else:
+                    ens = d.run_sharded(ens, mesh=mesh, chunk_cycles=chunk)
+            runs[path] = dict(d=d, ens=ens, fetches=fetches[0],
+                              ms=[d.history[-1]["t_step"] * 1e3],
+                              launches={lib.name: lib.launches / n_chunks
+                                        for lib in libs if lib.launches})
+        f, sh = runs["fused"], runs["sharded"]
+        same = same_trajectory(f["d"], f["ens"], sh["d"], sh["ens"])
+        rep = sh["d"].last_report
+        validate_report(rep.to_dict())
+        wire = rep.wire["per_chunk"][str(chunk)]
+        print(f"{tag}: bitwise {same}")
+        print(f"{tag}: ms/cycle run_fused {f['ms'][0]:.2f} / "
+              f"{f['ms'][1]:.2f}, run_sharded {sh['ms'][0]:.2f} / "
+              f"{sh['ms'][1]:.2f} (the compared run's last chunk / one "
+              f"more chunk, in the order fused, sharded, sharded, fused) "
+              f"[{smi}]")
+        print(f"{tag}: kernel launches per chunk {sh['launches']} "
+              f"(run_fused {f['launches']}); fetches per chunk "
+              f"{sh['fetches'] / n_chunks}; NCCL collectives per chunk "
+              f"{wire or 'none (one rank: the halo ring has no hop)'}; "
+              f"failures {rep.failures}")
+        check(all(same.values()), f"{tag}: run_sharded bitwise run_fused")
+        check(sh["launches"] == f["launches"] and sh["launches"],
+              f"{tag}: the same kernels launched on both paths")
+        check(sh["fetches"] == n_chunks, f"{tag}: one fetch per chunk")
+        check(rep.path == "sharded", f"{tag}: the report's path")
+        if cfg.exchange_comm == "gather":
+            check(wire.get("all-gather", {}).get("count", 0) > 0,
+                  f"{tag}: the gather wire issued NCCL all-gathers")
+        if rate:
+            check(rep.failures["total"] > 0, f"{tag}: failures injected")
+
+    tag = "resume(via='sharded') of a run_fused checkpoint"
+    cfg = RepExConfig(**t_cfg, **ASYNC)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        a = REMDDriver(main, cfg, ckpt_dir=tmp, ckpt_every=4,
+                       failure_rate=FAIL_RATE, device="cuda")
+        ea = a.run_fused(a.init(SEED), chunk_cycles=4)
+        b = REMDDriver(main, cfg, ckpt_dir=tmp, ckpt_every=4,
+                       failure_rate=FAIL_RATE, device="cuda")
+        reset(libs)
+        eb = b.resume(via="sharded", mesh=mesh, chunk_cycles=4, step=3)
+        launches = {lib.name: lib.launches for lib in libs if lib.launches}
+    same = same_trajectory(a, ea, b, eb)
+    print(f"{tag}, cycles 4-7: bitwise {same}; launches {launches}")
+    check(all(same.values()), f"{tag}: bitwise the uninterrupted run")
+    check(launches == {"chain_forces": 44, "nonbonded": 44},
+          f"{tag}: 4 cycles x 11 launches of each per-pass kernel")
+    return mesh
+
+
+def leaves(x) -> list:
+    """The tensors of a state dict, a tuple of tensors or a tensor."""
+    from repro_torch.tree import tree_leaves
+    if isinstance(x, dict):
+        return tree_leaves(x)
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in float32 units in the last place."""
+    if not a.is_floating_point():
+        return int((a != b).sum())
+    ia = a.float().contiguous().view(torch.int32).to(torch.int64)
+    ib = b.float().contiguous().view(torch.int32).to(torch.int64)
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def block_invariance(mesh, smi: str) -> None:
+    """Phase 32: the per-shard functions on blocks of R/2 and R/4 rows,
+    called as a rank of ``run_sharded`` calls them (inside
+    ``ensemble_scope``), bitwise their rows of the full stack."""
+    phase("32 block invariance: the per-shard functions on R/2 and R/4 "
+          "row blocks vs the full stack")
+    from repro_torch import random as jr
+    from repro_torch import sharding
+    from repro_torch.core.controls import build_grid, ctrl_for_assignment
+    from repro_torch.config import RepExConfig
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    from repro_torch.tree import tree_map
+    configs = (
+        ("T-REMD 64", MDEngine(chain_molecule(N_ATOMS), device="cuda"),
+         (("temperature", R_MAIN),)),
+        ("TSU 384 dense fused", tsu_engine("fused"), TSU_DIMS),
+        ("TSU 384 sparse fused", sparse_engine("fused"), TSU_DIMS),
+        ("LJ 384", lj_engine(), (("temperature", R_TSU),)))
+    orig_any = sharding.ensemble_any
+    worst = {}
+    try:
+        for tag, engine, dims in configs:
+            t0 = time.perf_counter()
+            grid = build_grid(RepExConfig(dimensions=dims), "cuda")
+            r = grid.n_ctrl
+            keys = jr.split(jr.key(SEED, "cuda"), 3)
+            state = engine.init_state(keys[0], r)
+            perm = jr.permutation(keys[1], r)
+            ctrl = ctrl_for_assignment(grid, torch.arange(r, device="cuda"),
+                                       getattr(engine, "ctrl_keys", None))
+            swap = ctrl_for_assignment(grid, perm,
+                                       getattr(engine, "ctrl_keys", None))
+            n_steps = torch.full((r,), 10, dtype=torch.int64, device="cuda")
+            rngs = jr.split(keys[2], r)
+            # the full stack, the list's collective rebuild flags recorded
+            flags = []
+
+            def record(flag):
+                flags.append(flag.clone())
+                return flag
+            sharding.ensemble_any = record
+            full_prop = engine.propagate(state, ctrl, n_steps, rngs,
+                                         max_steps=10)
+            sharding.ensemble_any = orig_any
+            bad = full_prop["pos"][r // 3].clone()
+            bad[7] = float("nan")
+            broken = dict(full_prop, pos=full_prop["pos"].clone())
+            broken["pos"][r // 3] = bad
+            feats = engine.replica_features(full_prop)
+            want = {"propagate": full_prop,
+                    "replica_features": feats,
+                    "energy_pair_from_features":
+                        engine.energy_pair_from_features(feats, ctrl, swap),
+                    "cross_energy_from_features":
+                        engine.cross_energy_from_features(
+                            feats, dict(grid.values)),
+                    "is_failed": engine.is_failed(broken)}
+            for n_shards in (2, 4):
+                b = r // n_shards
+                for s in range(n_shards):
+                    def rows(x, s=s, b=b):
+                        return x[s * b:(s + 1) * b]
+                    replay = iter(flags)
+                    # each rank's flag or-ed over the ranks: the full stack's
+                    sharding.ensemble_any = lambda flag: next(replay)
+                    with sharding.ensemble_scope(mesh, r):
+                        prop = engine.propagate(
+                            tree_map(rows, state), tree_map(rows, ctrl),
+                            rows(n_steps), rows(rngs), max_steps=10,
+                            stack=r)
+                        sharding.ensemble_any = orig_any
+                        bf = engine.replica_features(
+                            tree_map(rows, full_prop))
+                    got = {"propagate": prop, "replica_features": bf,
+                           "energy_pair_from_features":
+                               engine.energy_pair_from_features(
+                                   bf, tree_map(rows, ctrl),
+                                   tree_map(rows, swap)),
+                           "cross_energy_from_features":
+                               engine.cross_energy_from_features(
+                                   bf, dict(grid.values)),
+                           "is_failed": engine.is_failed(
+                               tree_map(rows, broken))}
+                    # the same features without the scope: a split sized by
+                    # the block, as a rank would size it without being told
+                    got["features, split by the block"] = \
+                        engine.replica_features(tree_map(rows, full_prop))
+                    want["features, split by the block"] = feats
+                    for name, val in got.items():
+                        d = max(ulps(g, rows(w)) for g, w in zip(
+                            leaves(val), leaves(want[name])))
+                        key = (tag, name)
+                        worst[key] = max(worst.get(key, 0), d)
+            torch.cuda.synchronize()
+            print(f"{tag}: R = {r}, blocks of {r // 2} and {r // 4}; "
+                  f"collective rebuilds in the cycle "
+                  f"{sum(int(f.item()) for f in flags)} of {len(flags)} "
+                  f"force evaluations; largest ulp distance per function "
+                  f"{ {k[1]: v for k, v in worst.items() if k[0] == tag} } "
+                  f"({time.perf_counter() - t0:.1f} s) [{smi}]")
+    finally:
+        sharding.ensemble_any = orig_any
+    off = {f"{k[0]}: {k[1]}": v for k, v in worst.items()
+           if v and k[1] != "features, split by the block"}
+    check(not off, f"every per-shard function bitwise on its block; not: "
+                   f"{off}")
+
+
+def across_ranks(mesh, half, cases, smi: str) -> None:
+    """run_sharded across the ranks of ``mesh`` (every rank) and of
+    ``half`` (its first half) against run_fused on rank 0's device from
+    the same seed, bitwise; ms/cycle of each, in turns."""
+    import torch.distributed as dist
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.obs import Telemetry
+    rank, n = dist.get_rank(), mesh.n_shards
+    say = print if rank == 0 else (lambda *a, **k: None)
+    for tag, make, cfg_kw, rate, chunk in cases:
+        engine, cfg = make(), RepExConfig(**cfg_kw)
+        runs, ms = {}, {}
+
+        def run(path, start=None):
+            """One run on ``path`` ("fused" on rank 0, or a shard count);
+            from ``start`` for one more chunk, timed only."""
+            sharded = path != "fused"
+            tel = (Telemetry(phase_probe_every=0, exchange_counters=False)
+                   if sharded else None)
+            d = REMDDriver(engine, cfg, failure_rate=rate, telemetry=tel,
+                           device=mesh.device)
+            m = {n: mesh, n // 2: half}.get(path)
+            ens = d.init(SEED) if start is None else start
+            k = None if start is None else chunk
+            ens = (d.run_sharded(ens, mesh=m, n_cycles=k, chunk_cycles=chunk)
+                   if sharded else
+                   d.run_fused(ens, n_cycles=k, chunk_cycles=chunk))
+            ms.setdefault(path, []).append(d.history[-1]["t_step"] * 1e3)
+            if start is None:
+                runs[path] = (d, ens)
+
+        order = ["fused", n, n // 2, n // 2, n, "fused"]
+        for path in order:
+            member = (rank == 0 if path == "fused"
+                      else (mesh if path == n else half).is_member)
+            if member:
+                again = path in runs
+                run(path, runs[path][1] if again else None)
+            dist.barrier()
+        # one more chunk on every GPU, profiled: rank 0's device time
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(n, runs[n][1])
+        prof_ms = ms[n].pop()
+        # NCCL's kernels wait on the device for the other ranks: their
+        # time is the wire's and the ranks' skew, not work
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        nccl = sum(e.device_time_total for e in dev
+                   if "nccl" in e.name.lower()) / 1e3 / chunk
+        busy = sum(e.device_time_total for e in dev
+                   if "nccl" not in e.name.lower()) / 1e3 / chunk
+        dist.barrier()
+        if rank == 0:
+            d0, e0 = runs["fused"]
+            for path in (n, n // 2):
+                d, e = runs[path]
+                same = same_trajectory(d0, e0, d, e)
+                wire = d.last_report.wire["per_chunk"][str(chunk)]
+                say(f"{tag} on {path} GPUs: bitwise {same}; NCCL "
+                    f"collectives per chunk {wire}")
+                check(all(same.values()),
+                      f"{tag}: run_sharded on {path} GPUs bitwise run_fused")
+            say(f"{tag}: ms/cycle on 1 GPU (run_fused) "
+                + " / ".join(f"{t:.2f}" for t in ms["fused"])
+                + "".join(f", on {p} GPUs (run_sharded) "
+                          + " / ".join(f"{t:.2f}" for t in ms[p])
+                          for p in (n // 2, n))
+                + f" (the compared run's last chunk / one more chunk, in "
+                  f"the order {order}); on {n} GPUs, a profiled chunk: "
+                  f"{prof_ms:.2f} ms/cycle, rank 0's device kernel time "
+                  f"{busy:.2f} ms/cycle (busy share {busy / prof_ms:.3f}) "
+                  f"and NCCL kernels {nccl:.2f} ms/cycle [{smi}]")
+
+
+def across_gpus() -> int:
+    """``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py``
+    with N > 1 GPUs: phase 33, run_sharded across the GPUs (one NCCL rank
+    each) and across half of them, against run_fused on one GPU."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    import torch.distributed as dist
+    from repro_torch.kernels.chain_forces import ops as chain_ops
+    from repro_torch.kernels.exchange_matrix import ops as x_ops
+    from repro_torch.kernels.fused_propagate import ops as fused_ops
+    from repro_torch.kernels.lj_forces import ops as nb_ops
+    from repro_torch.kernels.nlist_build import ops as nl_ops
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    mesh = make_replica_mesh(device="cuda")
+    half = make_replica_mesh(mesh.n_shards // 2, device="cuda")
+    rank = dist.get_rank()
+    smi = [environment() if rank == 0 else None]
+    dist.broadcast_object_list(smi, src=0)
+    smi = smi[0].replace("\n", "; ")
+    libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
+            x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY]
+    if rank == 0:
+        build(libs)
+    dist.barrier()
+    for lib in libs:
+        lib.load()
+    if rank == 0:
+        phase(f"33 run_sharded across {mesh.n_shards} and "
+              f"{half.n_shards} GPUs (NCCL {torch.cuda.nccl.version()}) vs "
+              f"run_fused on one")
+    t_cfg = dict(dimensions=(("temperature", R_MAIN),),
+                 md_steps_per_cycle=10, n_cycles=8)
+    tsu = dict(dimensions=TSU_DIMS, md_steps_per_cycle=10, n_cycles=3)
+
+    def chain():
+        return MDEngine(chain_molecule(N_ATOMS), device="cuda")
+    cases = (
+        ("T-REMD 64 halo", chain, t_cfg, 0.0, 4),
+        ("T-REMD 64 gather", chain, dict(t_cfg, exchange_comm="gather"),
+         0.0, 4),
+        ("T-REMD 64 async faults", chain, dict(t_cfg, **ASYNC), FAIL_RATE,
+         4),
+        ("TSU 384 fused neighbor", lambda: tsu_engine("fused"), tsu, 0.0,
+         3),
+        ("TSU 384 fused matrix", lambda: tsu_engine("fused"),
+         dict(tsu, exchange_scheme="matrix"), 0.0, 3),
+        ("TSU 384 sparse fused", lambda: sparse_engine("fused"), tsu, 0.0,
+         3))
+    across_ranks(mesh, half, cases, smi)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        print(f"total seconds {time.perf_counter() - _T0:.1f}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3257,6 +3704,10 @@ def main() -> int:
     times.update(times_cell)
     bound.update(bound_cell)
     cli_run(report27, smi)
+    mesh = sharded(libs, smi)
+    block_invariance(mesh, smi)
+    import torch.distributed as dist
+    dist.destroy_process_group()
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",
@@ -3333,4 +3784,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(across_gpus() if int(os.environ.get("WORLD_SIZE", "1")) > 1
+             else main())

@@ -252,9 +252,14 @@ def _load_step(path: str, flat_like: Dict[str, Any]):
     return out, manifest
 
 
-def load_checkpoint(directory: str, tree_like, step: Optional[int] = None):
+def load_checkpoint(directory: str, tree_like, step: Optional[int] = None,
+                    shardings=None):
     """Restore into the structure of ``tree_like``, each leaf on the
-    device and in the dtype of the template's leaf.
+    device and in the dtype of the template's leaf.  ``shardings``: a
+    tree of the same structure (``None`` subtrees allowed) whose leaves
+    are row slices or None; a leaf under a slice keeps only those rows,
+    so each rank of a replica mesh loads its own block
+    (``repro_torch.sharding.ensemble_shardings``).
 
     Every array's CRC32 is verified against the manifest (version-1
     manifests have none).  When ``step`` is None the newest intact
@@ -293,6 +298,10 @@ def load_checkpoint(directory: str, tree_like, step: Optional[int] = None):
             f"no intact checkpoint in {directory!r} — tried "
             f"{len(reasons)} candidate(s):\n  " + "\n  ".join(reasons),
             reasons=reasons)
+    if shardings is not None:
+        for key, rows in _flatten(shardings).items():
+            if isinstance(rows, slice):
+                out[key] = out[key][rows].clone()
     return (_unflatten(tree_like, out), manifest["step"],
             manifest.get("extra", {}))
 

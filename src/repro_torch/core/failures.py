@@ -19,6 +19,13 @@ B < streak <= 2B re-initialises from the next ladder rung's backup
 continues degraded.  B = 0 (the default) is unlimited relaunching.
 Every mask is a device tensor: nothing here reads the device from the
 host.
+
+Under replica sharding (``mesh`` set) the state and the backup hold one
+rank's block; ``alive``, ``failures`` and ``relaunches`` are the whole
+control plane.  The hit mask is drawn at full (R,) size and sliced, the
+failure row comes from the exchange's ring (``fail_row``), and the
+tier-2 donor's boundary row takes one reverse ring hop, so every
+decision and counter is the unsharded run's bit for bit.
 """
 from __future__ import annotations
 
@@ -28,21 +35,27 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch import sharding as S
 from repro_torch.core.ensemble import Ensemble
+from repro_torch.core.modes import shard_rows
 from repro_torch.tree import tree_map
 
 # the per-cycle escalation counters every detect/recover path emits
 ESC_STAT_KEYS = ("failed", "esc_relaunch", "esc_reinit", "esc_dead")
 
 
-def inject_failures(ens: Ensemble, rng: torch.Tensor,
-                    rate: float) -> Ensemble:
+def inject_failures(ens: Ensemble, rng: torch.Tensor, rate: float,
+                    mesh=None) -> Ensemble:
     """Corrupt each replica's state with probability ``rate``: the (R,)
     hit mask is ``uniform(rng, (R,)) < rate`` in float32, as JAX's
     ``bernoulli`` draws it, and a hit row of every floating leaf (the
-    sparse path's list planes included) becomes NaN."""
-    r = ens.assignment.shape[0]
-    hit = jr.uniform(rng, (r,)) < float(np.float32(rate))
+    sparse path's list planes included) becomes NaN.  With ``mesh`` the
+    state is this rank's block and takes its slice of the same mask."""
+    hit = jr.uniform(rng, (ens.assignment.shape[0],)) \
+        < float(np.float32(rate))
+    if mesh is not None:
+        hit = shard_rows(hit, mesh)
+    r = hit.shape[0]
 
     def corrupt(x):
         if x.ndim < 1 or x.shape[0] != r or not x.is_floating_point():
@@ -67,11 +80,19 @@ def _mend(state, donor_state, mask_rows: torch.Tensor):
     return tree_map(one, state, donor_state)
 
 
-def _peer_backup(backup_state):
+def _peer_backup(backup_state, mesh=None):
     """The tier-2 donor: replica i's donor is the next ladder rung's
-    backup, peer(i) = backup[(i + 1) mod R], exact copies of its rows."""
-    return tree_map(lambda b: torch.roll(b, -1, dims=0) if b.ndim >= 1
-                    else b, backup_state)
+    backup, peer(i) = backup[(i + 1) mod R], exact copies of its rows.
+    Sharded, each rank rolls its block and fills its last row with the
+    next rank's first backup row, one reverse ring hop per leaf."""
+    if mesh is None or mesh.n_shards == 1:
+        return tree_map(lambda b: torch.roll(b, -1, dims=0) if b.ndim >= 1
+                        else b, backup_state)
+
+    def roll(b):
+        first = S.ring_shift(b[:1], mesh, reverse=True)
+        return torch.cat([b[1:], first])
+    return tree_map(roll, backup_state)
 
 
 def _escalate_masks(failed: torch.Tensor, streak: torch.Tensor, budget: int):
@@ -108,14 +129,30 @@ def recover(engine, ens: Ensemble, failed: torch.Tensor, policy: str,
 
 
 def detect_recover(engine, ens: Ensemble, policy: str, backup_state: Any,
-                   relaunch_budget: int = 0
+                   relaunch_budget: int = 0, mesh=None,
+                   fail_row: torch.Tensor = None
                    ) -> Tuple[Ensemble, Any, Dict[str, torch.Tensor]]:
     """Device-side detect + escalate + recover + backup carry, with no
     host read: recovery on an all-False mask is the identity, so it
     always runs; the backup advances to the post-cycle state only on
     clean cycles.  Returns (ensemble, new_backup_state, stats of
-    ``ESC_STAT_KEYS``)."""
-    failed = detect(engine, ens)
+    ``ESC_STAT_KEYS``).
+
+    With ``mesh`` the state and the backup are this rank's block.
+    ``fail_row``: the (R,) raw failure row the exchange already moved
+    this cycle (the exchange never changes the state), so tier-1
+    recovery adds nothing to the wire; without it the block's flags are
+    all-gathered here.  Every rank agrees on ``alive``, the counters and
+    whether the backup freezes; the mend is per row on the block, and a
+    ``relaunch_budget`` adds the tier-2 donor's boundary hop
+    (:func:`_peer_backup`)."""
+    if mesh is None:
+        failed = detect(engine, ens)
+    elif fail_row is not None:
+        failed = fail_row & ens.alive
+    else:
+        failed = S.all_gather_rows(engine.is_failed(ens.state), mesh) \
+            & ens.alive
     any_failed = torch.any(failed)
     n_failed = torch.sum(failed.to(torch.int64))
     streak = torch.where(failed, ens.relaunches + 1, 0)
@@ -127,12 +164,15 @@ def detect_recover(engine, ens: Ensemble, policy: str, backup_state: Any,
         zeros = torch.zeros_like(failed)
         stats = _esc_stats(failed, zeros, zeros, failed)
     else:
+        def rows(mask):                 # the (R,) mask's rows of the state
+            return mask if mesh is None else shard_rows(mask, mesh)
         relaunch, reinit, dead = _escalate_masks(failed, streak,
                                                  relaunch_budget)
-        state = _mend(ens.state, backup_state, relaunch)
+        state = _mend(ens.state, backup_state, rows(relaunch))
         alive = ens.alive
         if relaunch_budget > 0:
-            state = _mend(state, _peer_backup(backup_state), reinit)
+            state = _mend(state, _peer_backup(backup_state, mesh),
+                          rows(reinit))
             alive = alive & ~dead
         new_ens = ens._replace(state=state, alive=alive,
                                failures=ens.failures + n_failed,

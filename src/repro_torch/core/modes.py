@@ -12,6 +12,14 @@ Both modes wrap the SAME engine call, and keys are replica-indexed
 noise streams.  Each wave is told the ensemble's replica count
 (``stack=R``), from which the all-pairs kernels size their per-replica
 split: a replica's output bits do not depend on its wave.
+
+Under ``run_sharded`` both modes run on one rank's block of replicas:
+the caller computes the ctrl rows, step counts and keys at full (R,)
+size, cuts them to the block with :func:`shard_rows`, and passes the
+keys (``keys=``) and the ensemble's count (``stack=R``), so a replica's
+inputs and bits are those of the unsharded run.  Mode II's waves then
+run within the block: the mesh is the spatial resource dimension, the
+waves the temporal one.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import random as jr
+from repro_torch import sharding
 from repro_torch.tree import tree_map
 
 
@@ -28,24 +37,38 @@ def per_replica_keys(rng: torch.Tensor, n_replicas: int) -> torch.Tensor:
     return jr.split(rng, n_replicas)
 
 
-def propagate_mode1(engine, state, ctrl, n_steps, rng, *, max_steps: int):
+def shard_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's contiguous block of ``R // n_shards`` rows of a
+    per-replica array computed at full (R, ...) size."""
+    return x[sharding.block_slice(mesh, x.shape[0])]
+
+
+def propagate_mode1(engine, state, ctrl, n_steps, rng=None, *,
+                    max_steps: int, keys=None, stack=None):
     """Mode I: all replicas in ``state`` propagate in one engine call.
-    Per-replica: nothing crosses replica rows."""
-    keys = per_replica_keys(rng, n_steps.shape[0])
-    return engine.propagate(state, ctrl, n_steps, keys, max_steps=max_steps)
+    Per-replica: nothing crosses replica rows.  ``keys``: the per-replica
+    keys (else derived from ``rng``); ``stack``: the ensemble's replica
+    count when ``state`` is a block of it."""
+    if keys is None:
+        keys = per_replica_keys(rng, n_steps.shape[0])
+    return engine.propagate(state, ctrl, n_steps, keys, max_steps=max_steps,
+                            stack=stack)
 
 
-def propagate_mode2(engine, state, ctrl, n_steps, rng, n_waves: int, *,
-                    max_steps: int):
+def propagate_mode2(engine, state, ctrl, n_steps, rng=None, n_waves: int = 1,
+                    *, max_steps: int, keys=None, stack=None):
     """Mode II: ``n_waves`` sequential engine calls of ``W = ceil(R /
     n_waves)`` replicas each.  Waves never exchange data.  When
     ``n_waves`` does not divide R the last wave is padded with copies of
     replica 0 (state, ctrl row and key) at ``n_steps = 0``: every engine
-    keeps a zero-step lane bitwise frozen, and the pad rows are dropped."""
+    keeps a zero-step lane bitwise frozen, and the pad rows are dropped.
+    ``keys`` / ``stack`` as for :func:`propagate_mode1` (``stack``
+    defaults to the rows of ``state``)."""
     r = n_steps.shape[0]
     w = -(-r // n_waves)
     pad = n_waves * w - r
-    keys = per_replica_keys(rng, r)
+    if keys is None:
+        keys = per_replica_keys(rng, r)
 
     def pad_rep(x):
         if pad == 0 or x.ndim < 1 or x.shape[0] != r:
@@ -62,7 +85,7 @@ def propagate_mode2(engine, state, ctrl, n_steps, rng, n_waves: int, *,
             return x[i * w:(i + 1) * w]
         outs.append(engine.propagate(
             tree_map(rows, state_p), tree_map(rows, ctrl_p), rows(steps_p),
-            rows(keys_p), max_steps=max_steps, stack=r))
+            rows(keys_p), max_steps=max_steps, stack=stack or r))
     return tree_map(lambda *xs: torch.cat(xs)[:r], *outs)
 
 

@@ -46,8 +46,20 @@ off (``None``) dispatches exactly the operations of a driver without it.
 Its accumulators ride the checkpoint, so a resumed run reports what an
 uninterrupted one does.
 
-Meshes and ``run_sharded`` are not ported yet; asking for them raises
-``NotImplementedError``.
+``run_sharded(ens, mesh)`` is ``run_fused`` over a replica mesh
+(``repro_torch.launch.mesh``), one process per shard under
+``torch.distributed``: the paper's spatial Execution-Mode dimension made
+a process layout.  Each rank holds one contiguous block of R / n_shards
+replicas and runs the same ``_chunk``; the control plane is computed in
+full on every rank, and per sweep only O(R / n_shards) exchange scalars
+and failure flags cross ranks (``cfg.exchange_comm``: the halo ring, or
+the gather of the feature rows).  Positions never do, except the tier-2
+reinit hop of one boundary backup row.  The discrete trajectory is
+``run_fused``'s bitwise on any shard count; the host fetches once per
+chunk, and on the card the collectives are stream-ordered, so a chunk
+stays free of host syncs.  Checkpoints gather the blocks and rank 0
+writes them in the shared format; ``resume(via="sharded")`` restarts
+on any shard count.
 """
 from __future__ import annotations
 
@@ -61,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch import sharding as S
 from repro_torch.ckpt import (CheckpointError, CheckpointManager, PRNGKey,
                               load_checkpoint)
 from repro_torch.config import RepExConfig
@@ -71,6 +84,8 @@ from repro_torch.core.engine import NB_STAT_KEYS, engine_capabilities
 from repro_torch.core.ensemble import Ensemble, make_ensemble
 from repro_torch.core.modes import auto_mode
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (ReplicaMesh, best_replica_shards,
+                                     make_replica_mesh)
 from repro_torch.obs import build_report
 
 # the scalar fields of one cycle's stats row, in packing order; the
@@ -88,26 +103,36 @@ CKPT_DRIVER_SCHEMA = 1
 _CFG_RESUME_EXEMPT = ("n_cycles",)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Equal devices, an unindexed CUDA device read as the current one."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
 class REMDDriver:
     def __init__(self, engine, cfg: RepExConfig, mesh=None,
                  slots: Optional[int] = None, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 0, failure_rate: float = 0.0,
                  telemetry=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("not ported yet: ['mesh']")
         self.device = resolve_device(device)
-        if getattr(engine, "device", self.device) != self.device:
+        if not _same_device(getattr(engine, "device", self.device),
+                            self.device):
             raise ValueError(f"engine lives on {engine.device}, the driver "
                              f"on {self.device}")
         self.engine = engine
         self.capabilities = engine_capabilities(engine)
         # can nb_stats ever be nonzero?  (no list, or a dense nonbonded
         # path: ``run`` skips the read)
-        self._nb_live = (self.capabilities["nb_stats"]
-                         and self.capabilities["nonbonded"] != "dense")
+        self._nb_live = patterns.nb_live(engine)
         self.cfg = cfg
         self.grid: ControlGrid = build_grid(cfg, self.device)
         n = self.grid.n_ctrl
+        # the default mesh of run_sharded / resume(via="sharded"); run and
+        # run_fused ignore it (JAX's mesh there moves placement, not values)
+        self.mesh = self._check_mesh(mesh)
         if slots is None:
             slots = n * cfg.cores_per_replica
         eff_slots = max(slots // max(cfg.cores_per_replica, 1), 1)
@@ -129,6 +154,8 @@ class REMDDriver:
         # accumulator; None changes no operation of a chunk
         self.telemetry = telemetry
         self.last_report = None
+        # the collectives of the last sharded chunk (sharding.WireCensus)
+        self.last_wire = None
         self._phase_probes = None
         self._probe_warmed: set = set()
         # (backup, fail_key) restored by resume()/restore(), consumed by
@@ -150,16 +177,20 @@ class REMDDriver:
         t = self._tel
         return bool(t is not None and t.exchange_counters)
 
-    def _maybe_phase_sample(self, ens: Ensemble, cyc: int) -> None:
+    def _maybe_phase_sample(self, ens: Ensemble, cyc: int,
+                            mesh=None) -> None:
         """A phase probe at a chunk boundary: each cycle phase timed alone
-        on the current ensemble, which the probes read and never write."""
+        on the current ensemble, which the probes read and never write
+        (sharded: on the rank's block, every rank at the same boundary)."""
         tel = self._tel
         if tel is None or not tel.want_phase_sample():
             return
         from repro_torch.obs import make_phase_probes, sample_phases
-        if self._phase_probes is None:
-            self._phase_probes = make_phase_probes(self)
-        times = sample_phases(self._phase_probes, ens, self._probe_warmed)
+        if self._phase_probes is None or self._phase_probes[0] is not mesh:
+            self._phase_probes = (mesh, make_phase_probes(self, mesh))
+            self._probe_warmed = set()
+        times = sample_phases(self._phase_probes[1], ens,
+                              self._probe_warmed)
         tel.note_phase_sample(cyc, times)
 
     @property
@@ -282,6 +313,72 @@ class REMDDriver:
         self.last_report = build_report(self, "fused", chunk_cycles)
         return ens
 
+    def run_sharded(self, ens: Ensemble, mesh=None,
+                    n_cycles: Optional[int] = None, chunk_cycles: int = 16,
+                    verbose: bool = False) -> Ensemble:
+        """``run_fused`` with the replicas sharded over a replica mesh
+        (module docstring), called by every rank of the mesh.
+
+        ``ens``: the whole ensemble (every rank makes the same one with
+        ``init``) or this rank's block of it; the returned ensemble is
+        the whole one, its state gathered from the blocks at the end.
+        ``mesh``: default the driver's, else the best mesh of the running
+        world (``best_replica_shards``; a one-rank group when nothing
+        launched more).  Its shard count must divide R (``ValueError``),
+        and the engine must have the split feature API
+        (``replica_features``, ``energy_pair_from_features``; for the
+        matrix scheme ``cross_energy_from_features``; ``TypeError``).
+        Mode II's waves run within each rank's block."""
+        if chunk_cycles < 1:
+            raise ValueError(f"chunk_cycles must be >= 1, got {chunk_cycles}")
+        caps = self.capabilities
+        needed = ["replica_features", "energy_pair_from_features"]
+        if self.cfg.exchange_scheme == "matrix":
+            needed.append("cross_energy_from_features")
+        missing = [c for c in needed if not caps[c]]
+        if missing:
+            raise TypeError(
+                f"engine {type(self.engine).__name__} lacks the feature "
+                f"API required by run_sharded: {missing} (see "
+                f"repro_torch.core.engine)")
+        mesh = self._sharded_mesh(mesh)
+        ens = S.shard_ensemble(ens, mesh)
+        backup, fail_key = self._start_carry(ens)
+        backup = S.shard_state(backup, mesh, self.grid.n_ctrl)
+        ens = self._chunk_loop(ens, backup, fail_key,
+                               n_cycles or self.cfg.n_cycles, chunk_cycles,
+                               verbose, mesh=mesh)
+        self.last_report = build_report(self, "sharded", chunk_cycles)
+        return S.gather_ensemble(ens, mesh)
+
+    def _check_mesh(self, mesh):
+        """A mesh for this driver: a member's ``ReplicaMesh`` on the
+        driver's device whose shard count divides R (None passes)."""
+        if mesh is None:
+            return None
+        if not isinstance(mesh, ReplicaMesh):
+            raise TypeError(f"mesh must be a ReplicaMesh "
+                            f"(repro_torch.launch.mesh.make_replica_mesh), "
+                            f"got {type(mesh).__name__}")
+        if not mesh.is_member:
+            raise ValueError("this rank is not a member of the mesh")
+        if not _same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
+                             f"driver on {self.device}")
+        n = self.grid.n_ctrl
+        if n % mesh.n_shards:
+            raise ValueError(f"replica count {n} is not divisible by the "
+                             f"mesh's {mesh.n_shards} shards")
+        return mesh
+
+    def _sharded_mesh(self, mesh):
+        """The mesh of a sharded run: ``mesh``, the driver's, or the best
+        one of the running world."""
+        if mesh is None:
+            mesh = self.mesh or make_replica_mesh(
+                best_replica_shards(self.grid.n_ctrl), device=self.device)
+        return self._check_mesh(mesh)
+
     def acceptance_ratios(self) -> Dict[str, float]:
         return {k: (a / max(n, 1.0))
                 for k, (a, n) in self.acceptance.items()}
@@ -308,33 +405,38 @@ class REMDDriver:
                 torch.cuda.set_sync_debug_mode(prev)
         return guard()
 
-    def _inject(self, fail_key, ens: Ensemble):
+    def _inject(self, fail_key, ens: Ensemble, mesh=None):
         """Advance the failure key and corrupt this cycle's hits."""
         fail_key, k = jr.split(fail_key, 2)
-        return fail_key, F.inject_failures(ens, k, self.failure_rate)
+        return fail_key, F.inject_failures(ens, k, self.failure_rate, mesh)
 
-    def _chunk(self, ens: Ensemble, backup, fail_key, k: int):
+    def _chunk(self, ens: Ensemble, backup, fail_key, k: int, mesh=None):
         """``k`` complete inject -> cycle -> detect/recover steps, queued
         on the device with no host read.  Returns (ens, backup, fail_key,
         rows) with rows a (k, F) float64 device tensor of per-cycle stats
         (``_FIELDS``, then the assignment row, then with telemetry's
-        counters the pair_attempt and pair_accept rows)."""
+        counters the pair_attempt and pair_accept rows).  With ``mesh``
+        the same steps run on this rank's block (``ens.state`` and
+        ``backup`` hold it), the exchange's failure row handed on to the
+        recovery; the rows are the same on every rank."""
         cfg = self.cfg
         policy = "relaunch" if cfg.relaunch_failed else "continue"
         obs_rows = self._obs_rows
         rows = []
         for _ in range(k):
             if self.failure_rate > 0:
-                fail_key, ens = self._inject(fail_key, ens)
+                fail_key, ens = self._inject(fail_key, ens, mesh)
             cyc = ens.cycle
             ens, stats = patterns.fused_cycle(
                 self.engine, self.grid, ens, pattern=cfg.pattern,
                 md_steps=cfg.md_steps_per_cycle,
                 window_steps=self._window_steps, scheme=cfg.exchange_scheme,
-                execution=self.execution, telemetry_rows=obs_rows)
+                execution=self.execution, telemetry_rows=obs_rows,
+                mesh=mesh, exchange_comm=cfg.exchange_comm)
             ens, backup, esc = F.detect_recover(
                 self.engine, ens, policy, backup,
-                relaunch_budget=cfg.relaunch_budget)
+                relaunch_budget=cfg.relaunch_budget, mesh=mesh,
+                fail_row=stats.pop("_fail_row", None))
             stats = dict(stats, cycle=cyc, **esc)
             scalars = torch.stack([stats[f].to(torch.float64)
                                    for f in _FIELDS])
@@ -346,15 +448,22 @@ class REMDDriver:
         return ens, backup, fail_key, torch.stack(rows)
 
     def _chunk_loop(self, ens: Ensemble, backup, fail_key, n_cycles: int,
-                    chunk_cycles: int, verbose: bool) -> Ensemble:
+                    chunk_cycles: int, verbose: bool,
+                    mesh=None) -> Ensemble:
+        """Drive chunks to ``n_cycles``, one stats fetch per chunk, with
+        the ``history`` / ``acceptance`` / telemetry / checkpoint
+        bookkeeping of both ``run_fused`` and ``run_sharded`` (``mesh``:
+        each chunk's collectives go to a census, the wire ledger)."""
         c0 = int(ens.cycle)
         done = 0
+        census = (S.wire_census if mesh is not None
+                  else contextlib.nullcontext)
         while done < n_cycles:
             k = min(chunk_cycles, n_cycles - done)
             t0 = time.perf_counter()
-            with self._no_host_sync():
+            with self._no_host_sync(), census() as wire:
                 ens, backup, fail_key, rows = self._chunk(ens, backup,
-                                                          fail_key, k)
+                                                          fail_key, k, mesh)
             self._sync()
             t_chunk = time.perf_counter() - t0      # K x (T_MD + T_EX)
 
@@ -391,12 +500,17 @@ class REMDDriver:
                     "nb_rebuilds": cols["nb_rebuilds"][i],
                 })
             done += k
+            if wire is not None:
+                self.last_wire = wire
             tel = self._tel
             if tel is not None:
                 # the probe first: want_phase_sample reads the chunk count
                 # before note_cycles advances it, so every Nth boundary
                 # (the first included) samples
-                self._maybe_phase_sample(ens, c0 + done - 1)
+                self._maybe_phase_sample(ens, c0 + done - 1, mesh)
+                if wire is not None and tel.wire_ledger:
+                    tel.note_wire_budget(k, wire.budget())
+                    tel.note_wire_invocation(k)
                 tel.note_cycles(
                     cycles=cols["cycle"], dims=cols["dim"],
                     assignments=assignment, n_dims=len(self.grid.dims),
@@ -407,7 +521,8 @@ class REMDDriver:
             if self.ckpt is not None and self.ckpt.every > 0:
                 lo, hi = c0 + done - k, c0 + done - 1
                 if hi // self.ckpt.every > (lo - 1) // self.ckpt.every:
-                    self._save_ckpt(hi, ens, backup, fail_key, force=True)
+                    self._save_ckpt(hi, ens, backup, fail_key, force=True,
+                                    mesh=mesh)
             if verbose:
                 acc = sum(cols["accepted"])
                 att = max(sum(cols["attempted"]), 1.0)
@@ -469,20 +584,38 @@ class REMDDriver:
         }}
 
     def _save_ckpt(self, step: int, ens: Ensemble, backup, fail_key,
-                   force: bool = False):
+                   force: bool = False, mesh=None):
+        """Save the restart state.  Sharded: the blocks of the state and
+        the backup are gathered, rank 0 writes, and the ranks meet at a
+        barrier before any of them goes on."""
+        if mesh is not None:
+            ens = S.gather_ensemble(ens, mesh)
+            backup = S.gather_state(backup, mesh)
+            if mesh.rank != 0:
+                mesh.barrier()
+                return
         self.ckpt.maybe_save(step, self._ckpt_payload(ens, backup, fail_key),
                              extra=self._ckpt_extra(), force=force)
+        if mesh is not None:
+            mesh.barrier()
 
     # -- restart paths -----------------------------------------------------
 
-    def _load_ckpt(self, step: Optional[int] = None):
+    def _load_ckpt(self, step: Optional[int] = None, mesh=None):
         """The newest intact checkpoint (or ``step``), in a template
-        payload on this driver's device; returns (ensemble, carry,
+        payload on this driver's device; with ``mesh`` the state and the
+        backup hold only this rank's rows.  Returns (ensemble, carry,
         step, extra)."""
         ens_like = self.init()
         like = self._ckpt_payload(ens_like, ens_like.state, ens_like.rng)
+        shardings = None
+        if mesh is not None:
+            sh = S.ensemble_shardings(mesh, ens_like)
+            shardings = {"ensemble": sh._asdict(), "backup": sh.state,
+                         "fail_key": None}
         tree, step_no, extra = load_checkpoint(self.ckpt.directory, like,
-                                               step=step)
+                                               step=step,
+                                               shardings=shardings)
         e = dict(tree["ensemble"], rng=tree["ensemble"]["rng"].data)
         carry = (tree["backup"], tree["fail_key"].data)
         return Ensemble(**e), carry, step_no, extra
@@ -505,18 +638,22 @@ class REMDDriver:
         ``step``): the ensemble, the carry (backup + failure key) and the
         host bookkeeping (history, acceptance, telemetry), then the
         remaining ``n_cycles - cycle`` cycles via ``run`` or
-        ``run_fused``.  The stitched run equals an uninterrupted one
-        bitwise.  The checkpoint's config fingerprint must match this
-        driver's (``n_cycles`` exempt), else :class:`CheckpointError`.
-        ``via="sharded"`` and ``mesh`` are not ported yet."""
+        ``run_fused`` or ``run_sharded``.  The stitched run equals an
+        uninterrupted one bitwise.  With ``via="sharded"`` each rank
+        loads its own rows onto ``mesh`` (default: the driver's, else the
+        best mesh of the running world), whatever shard count wrote the
+        checkpoint (the elastic restart).  The checkpoint's config
+        fingerprint must match this driver's (``n_cycles`` exempt), else
+        :class:`CheckpointError`."""
         if self.ckpt is None:
             raise ValueError("resume() needs a driver constructed with "
                              "ckpt_dir")
-        if via == "sharded" or mesh is not None:
-            raise NotImplementedError("run_sharded is not ported yet")
-        if via not in ("run", "fused"):
+        if via not in ("run", "fused", "sharded"):
             raise ValueError(f"via must be run|fused|sharded, got {via!r}")
-        ens, carry, step_no, extra = self._load_ckpt(step=step)
+        if via == "sharded":
+            mesh = self._sharded_mesh(mesh)
+        ens, carry, step_no, extra = self._load_ckpt(
+            step=step, mesh=mesh if via == "sharded" else None)
         meta = (extra or {}).get("repex")
         if not meta:
             raise CheckpointError(
@@ -543,9 +680,13 @@ class REMDDriver:
         if remaining <= 0:
             self.last_report = build_report(
                 self, via, None if via == "run" else chunk_cycles)
-            return ens
+            return S.gather_ensemble(ens, mesh) if via == "sharded" else ens
         self._resume_carry = carry
         if via == "run":
             return self.run(ens, n_cycles=remaining, verbose=verbose)
+        if via == "sharded":
+            return self.run_sharded(ens, mesh=mesh, n_cycles=remaining,
+                                    chunk_cycles=chunk_cycles,
+                                    verbose=verbose)
         return self.run_fused(ens, n_cycles=remaining,
                               chunk_cycles=chunk_cycles, verbose=verbose)

@@ -50,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.kernels import (REPLICA_CHUNK, KernelLibrary, check_cuda,
                                  default_use_kernel, f32_square,
                                  pad_to_block, raise_on_error, stream_ptr)
@@ -147,8 +148,12 @@ def _check_stack(pos: torch.Tensor) -> None:
 def split_replicas(r: int, stack) -> int:
     """The replica count a split is sized by: the call's own ``r``, or
     ``stack``, the ensemble's count when the call holds one Mode II wave
-    of it — so that a replica's sums, and with them its bits, do not
-    depend on the wave it ran in."""
+    of it, or inside ``sharding.ensemble_scope`` the ensemble's count of
+    which the call holds one rank's block — so that a replica's sums, and
+    with them its bits, do not depend on the wave or the block it ran
+    in."""
+    if stack is None:
+        stack = sharding.ensemble_rows()
     if stack is None:
         return r
     if stack < r:

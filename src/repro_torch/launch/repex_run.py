@@ -5,19 +5,27 @@
         --chunk 4 --report-out report.json
     PYTHONPATH=src python3 -m repro_torch.launch.repex_run \\
         --dims temperature:6,umbrella:8,umbrella:8 --chunk 3 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 \\
+        -m repro_torch.launch.repex_run --shards 4 --dims temperature:64 \\
+        --atoms 2881 --md-steps 10 --cycles 8 --chunk 4
 
 The port of the JAX package's ``repro/launch/repex_run.py``: the same
 flags and the same printed lines, plus ``--device`` (``cuda`` unless
-asked).  A run is ``REMDDriver.run`` (no ``--chunk``) or ``run_fused``
-(``--chunk K``); ``--resume CKPT_DIR`` continues a killed run from its
-newest intact checkpoint (either package's); ``--report-out PATH``
-switches telemetry on, writes the ``RunReport`` JSON there and prints
-the Eq. (1) split.  Not ported yet: ``--engine lm`` (ROADMAP queue 1
-item 8) and ``--shards`` (item 6) raise ``NotImplementedError``.
+asked).  A run is ``REMDDriver.run`` (no ``--chunk``), ``run_fused``
+(``--chunk K``) or ``run_sharded`` (``--shards N``, one process per
+shard: under ``torchrun --nproc-per-node N`` the world must be N; without
+a launcher only ``--shards 1`` runs, on a one-rank group of its own;
+rank 0 prints the lines for every rank).  ``--resume CKPT_DIR`` continues a killed
+run from its newest intact checkpoint (either package's, any shard
+count); ``--report-out PATH`` switches telemetry on, writes the
+``RunReport`` JSON there (rank 0 on a sharded run) and prints the
+Eq. (1) split.  Not ported yet: ``--engine lm`` (ROADMAP queue 1 item 8)
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.config import RepExConfig
 from repro_torch.core import REMDDriver
@@ -64,8 +72,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk", type=int, default=0,
                     help="fuse K cycles per chunk (run_fused)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="replica-shard over N devices (run_sharded; not "
-                         "ported yet)")
+                    help="replica-shard over N processes (run_sharded; "
+                         "launch with torchrun --nproc-per-node N)")
     ap.add_argument("--report-out", default=None, metavar="PATH",
                     help="write the RunReport JSON here (switches "
                          "telemetry on: per-pair counters, phase probes)")
@@ -84,11 +92,8 @@ def main(argv=None) -> REMDDriver:
         raise NotImplementedError(
             "--engine lm (the LM engine, RE-SGLD) is not ported yet: "
             "ROADMAP queue 1 item 8")
-    if args.shards:
-        raise NotImplementedError(
-            "--shards (run_sharded) is not ported yet: ROADMAP queue 1 "
-            "item 6")
-    dev = resolve_device(args.device)
+    mesh = _mesh(args.shards, args.device) if args.shards else None
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = RepExConfig(
         engine=args.engine,
         dimensions=parse_dims(args.dims),
@@ -114,29 +119,52 @@ def main(argv=None) -> REMDDriver:
                         ckpt_every=1 if ckpt_dir else 0,
                         failure_rate=args.failure_rate, telemetry=telemetry,
                         device=dev)
-    print(f"replicas={driver.grid.n_ctrl} execution={driver.execution} "
-          f"pattern={cfg.pattern} scheme={cfg.exchange_scheme}")
+    # a sharded run's ranks make the same run: rank 0 speaks for them
+    loud = mesh is None or mesh.rank == 0
+    say = print if loud else (lambda *a, **k: None)
+    say(f"replicas={driver.grid.n_ctrl} execution={driver.execution} "
+        f"pattern={cfg.pattern} scheme={cfg.exchange_scheme}")
     if args.resume:
-        ens = driver.resume(via="fused" if args.chunk else "run",
-                            n_cycles=args.cycles,
-                            chunk_cycles=args.chunk or 16, verbose=True)
+        via = "sharded" if mesh else ("fused" if args.chunk else "run")
+        ens = driver.resume(via=via, n_cycles=args.cycles,
+                            chunk_cycles=args.chunk or 16, mesh=mesh,
+                            verbose=loud)
+    elif mesh is not None:
+        ens = driver.run_sharded(driver.init(), mesh=mesh,
+                                 chunk_cycles=args.chunk or 16, verbose=loud)
     elif args.chunk:
         ens = driver.run_fused(driver.init(), chunk_cycles=args.chunk,
                                verbose=True)
     else:
         ens = driver.run(driver.init(), verbose=True)
-    print("\nmultiset ok:", control_multiset_ok(ens))
-    print("acceptance:", {k: f"{v*100:.1f}%"
-                          for k, v in driver.acceptance_ratios().items()})
-    print("failures recovered:", sum(h["failed"] for h in driver.history))
-    if args.report_out:
+    say("\nmultiset ok:", control_multiset_ok(ens))
+    say("acceptance:", {k: f"{v*100:.1f}%"
+                        for k, v in driver.acceptance_ratios().items()})
+    say("failures recovered:", sum(h["failed"] for h in driver.history))
+    if args.report_out and loud:
         driver.last_report.save(args.report_out)
         eq1 = driver.last_report.phases["eq1"]
-        print(f"report -> {args.report_out}")
+        say(f"report -> {args.report_out}")
         if eq1:
-            print("Eq.(1) split:",
-                  {k: f"{v*1e3:.3f} ms" for k, v in eq1.items()})
+            say("Eq.(1) split:",
+                {k: f"{v*1e3:.3f} ms" for k, v in eq1.items()})
     return driver
+
+
+def _mesh(n_shards: int, device):
+    """The replica mesh of ``--shards N``: a launcher's world must hold
+    exactly N ranks; without one only N = 1 runs."""
+    from repro_torch.launch.mesh import make_replica_mesh
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if "WORLD_SIZE" in os.environ and world != n_shards:
+        raise ValueError(f"--shards {n_shards} under a launcher of {world} "
+                         f"processes: launch --nproc-per-node {n_shards}")
+    if n_shards > world:
+        raise ValueError(
+            f"--shards {n_shards} runs one process per shard: launch it "
+            f"as `torchrun --nproc-per-node {n_shards} -m "
+            f"repro_torch.launch.repex_run --shards {n_shards} ...`")
+    return make_replica_mesh(n_shards, device=device)
 
 
 if __name__ == "__main__":

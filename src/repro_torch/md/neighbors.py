@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.kernels import f32_square
 from repro_torch.kernels.lj_forces.ref import COULOMB
 from repro_torch.kernels.nlist_build import ops as build_ops
@@ -114,13 +115,16 @@ def maybe_rebuild(pos, nlist: NeighborList, nb_pack, r_list: float,
     ``sync=False`` (lazy): each replica rebuilds only when its own drift
     tripped.  ``sync=True`` (collective, the propagate loop's policy):
     one tripped replica rebuilds every replica; the flag is then one
-    element, ``any(need)``.  Either way the new list is written out of
-    place; a replica that keeps its list gets its old rows, ref_pos and
-    counters back unchanged, one that rebuilds gets the fresh list, its
-    dropped pairs added to ``overflow`` and one added to ``rebuilds``."""
+    element, ``any(need)``, over the whole ensemble when ``pos`` is one
+    rank's block of it (``sharding.ensemble_scope``).  Either way the new
+    list is written out of place; a replica that keeps its list gets its
+    old rows, ref_pos and counters back unchanged, one that rebuilds gets
+    the fresh list, its dropped pairs added to ``overflow`` and one added
+    to ``rebuilds``."""
     cells = _cells(method, grid_dims, cell_capacity)
     need = needs_rebuild(pos, nlist, skin)                 # (R,)
-    take = torch.any(need).reshape(1) if sync else need
+    take = (sharding.ensemble_any(torch.any(need).reshape(1)) if sync
+            else need)
     idx, valid, dropped = build_ops.build_gated(
         pos, take, (nlist["idx"], nlist["valid"]), nb_pack, r_list, k_max,
         cells)

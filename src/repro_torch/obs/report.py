@@ -3,7 +3,7 @@
 The port of the JAX package's ``obs/report.py``: one dataclass,
 JSON-serializable, built by :func:`build_report` from a driver (and its
 optional :class:`~repro_torch.obs.telemetry.Telemetry`) at the end of
-``run``, ``run_fused`` and ``resume``, and stored as
+``run``, ``run_fused``, ``run_sharded`` and ``resume``, and stored as
 ``driver.last_report``.  Its schema is the JAX package's, version
 ``REPORT_VERSION``, so either package's :func:`validate_report` accepts
 either's reports:
@@ -22,7 +22,10 @@ either's reports:
                                           (matrix scheme, telemetry off)
   failures    {total, relaunched, reinit_peer, degraded}
   neighbor    {nb_overflow, nb_rebuilds}  end-of-run cumulative max
-  wire        {} until run_sharded is ported
+  wire        {per_chunk{K: {op: {count, bytes}}}, invocations{K: n},
+               totals{op: ...}}           a sharded run's collectives per
+                                          chunk length (the wire ledger);
+                                          {} on the other paths
   meta        {backend ("cuda" or "cpu", the ensemble's device),
                n_devices (torch.cuda.device_count())}
 

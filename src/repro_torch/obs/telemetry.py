@@ -21,9 +21,12 @@ without moving the run:
     mutates nor advances it, so the trajectory is bitwise unchanged.
   * **Rung occupancy and round trips** are folded on the host from the
     per-cycle assignment rows the driver fetches anyway.
-  * The **wire ledger** fields (``wire``, ``note_wire_*``) keep the
-    checkpoint format of the JAX package; only a sharded run fills them,
-    and ``run_sharded`` is not ported yet.
+  * The **wire ledger** (``wire``, ``note_wire_*``): on a sharded run
+    the driver opens a census around each chunk
+    (``repro_torch.sharding.wire_census``) and notes its collectives, op
+    by op with their count and bytes, per chunk length, in the JAX
+    package's format.  The census is host bookkeeping only: with the
+    ledger off the chunk issues the same collectives.
 
 A :class:`Telemetry` is the configuration and the host accumulator
 (:meth:`Telemetry.reset` clears it, e.g. after a warm-up).
@@ -96,7 +99,7 @@ class Telemetry:
     # sample the phase probes every Nth chunk boundary (0 = off); ``run``
     # samples every Nth cycle
     phase_probe_every: int = 1
-    # census a sharded chunk's collectives (run_sharded, not ported yet)
+    # note a sharded chunk's collectives (run_sharded)
     wire_ledger: bool = True
 
     pair_attempt: Optional[np.ndarray] = field(default=None, repr=False)
@@ -236,7 +239,7 @@ class Telemetry:
 
     def wire_totals(self) -> Dict[str, Dict[str, float]]:
         """Bytes per collective over the run: each chunk length's budget
-        times its invocations (empty until ``run_sharded`` is ported)."""
+        times its invocations (empty unless a sharded run noted some)."""
         totals: Dict[str, Dict[str, float]] = {}
         for entry in self.wire.values():
             inv = entry["invocations"]
@@ -250,13 +253,15 @@ class Telemetry:
 # -- phase probes (chunk-boundary timing brackets) ----------------------------
 
 
-def make_phase_probes(driver) -> Dict[str, Any]:
+def make_phase_probes(driver, mesh=None) -> Dict[str, Any]:
     """The four phase probes of a driver's configuration.  Each runs one
     phase of a cycle on an ensemble, the code the chunk's cycle runs (the
     same propagate mode, exchange scheme and sweep gather), alone, so a
     timing bracket holds that phase only.  A probe takes the ensemble and
     returns fresh tensors: the driver key is split without writing back,
-    and no operation writes to a tensor of the ensemble."""
+    and no operation writes to a tensor of the ensemble.  With ``mesh``
+    the probes run the sharded phases on the rank's block, collectives
+    included, so every rank of the mesh samples together."""
     from repro_torch import random as jr
     from repro_torch.core import failures as F
     from repro_torch.core import patterns
@@ -285,6 +290,10 @@ def make_phase_probes(driver) -> Dict[str, Any]:
     def probe_propagate(ens):
         k_md = jr.split(ens.rng, 3)[0]
         n_steps, max_steps = _steps(ens)
+        if mesh is not None:
+            return patterns._propagate_sharded(engine, ens, grid, n_steps,
+                                               k_md, execution, max_steps,
+                                               mesh)
         return patterns._propagate(engine, ens, grid, n_steps, k_md,
                                    execution, max_steps)
 
@@ -300,13 +309,18 @@ def make_phase_probes(driver) -> Dict[str, Any]:
         dim_index = torch.remainder(ens.cycle, n_dims)
         parity = torch.remainder(torch.div(ens.cycle, n_dims,
                                            rounding_mode="floor"), 2)
+        features, fail, halo = patterns.exchange_inputs(
+            engine, ens.state, mesh, cfg.exchange_comm,
+            ens.assignment.shape[0])
         return patterns._exchange(engine, ens.state, grid, ens.assignment,
                                   dim_index, parity, k_ex,
-                                  cfg.exchange_scheme, ready=ens.alive)
+                                  cfg.exchange_scheme, ready=ens.alive,
+                                  features=features, fail=fail, mesh=halo)
 
     def probe_detect_recover(ens):
         return F.detect_recover(engine, ens, policy, ens.state,
-                                relaunch_budget=cfg.relaunch_budget)
+                                relaunch_budget=cfg.relaunch_budget,
+                                mesh=mesh)
 
     return {"propagate": probe_propagate, "features": probe_features,
             "exchange": probe_exchange,

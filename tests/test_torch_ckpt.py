@@ -42,6 +42,7 @@ from repro_torch import convert
 from repro_torch.ckpt import checkpoint as tckpt
 from repro_torch.config import RepExConfig
 from repro_torch.core import REMDDriver
+from repro_torch.launch.mesh import ReplicaMesh
 from repro_torch.md import MDEngine
 
 CFG = dict(dimensions=(("temperature", 8),), md_steps_per_cycle=4,
@@ -212,8 +213,12 @@ def test_config_mismatch_raises(port_run, jax_system):
     drv = _port(jax_system, port_run[0], md_steps_per_cycle=5)
     with pytest.raises(tckpt.CheckpointError, match="md_steps_per_cycle"):
         drv.resume(via="fused")
-    with pytest.raises(NotImplementedError):
-        _port(jax_system, port_run[0]).resume(via="sharded")
+    # the sharded resume checks the same fingerprint (a one-rank mesh;
+    # nothing crosses ranks before the check)
+    one = ReplicaMesh(group=None, n_shards=1, rank=0,
+                      device=torch.device("cpu"))
+    with pytest.raises(tckpt.CheckpointError, match="md_steps_per_cycle"):
+        drv.resume(via="sharded", mesh=one)
 
 
 def test_restore_stages_the_carry(port_run, jax_system):

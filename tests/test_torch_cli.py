@@ -3,8 +3,9 @@
 aside (the per-cycle and per-chunk ``t ... ms`` figures and the Eq. (1)
 split), and its ``--report-out`` JSON validates under both packages'
 ``validate_report`` with the JAX report's counters.  ``--resume`` takes
-a checkpoint of either package; the unported ``--engine lm`` and
-``--shards`` raise, naming their ROADMAP items."""
+a checkpoint of either package; the unported ``--engine lm`` raises,
+naming its ROADMAP item (``--shards`` is held in
+``test_torch_sharded``)."""
 import contextlib
 import io
 import json
@@ -101,8 +102,7 @@ def test_cli_resumes_a_jax_checkpoint(tmp_path, monkeypatch):
         validate_report(json.load(f))
 
 
-@pytest.mark.parametrize("argv,item", [(["--engine", "lm"], "item 8"),
-                                       (["--shards", "2"], "item 6")])
+@pytest.mark.parametrize("argv,item", [(["--engine", "lm"], "item 8")])
 def test_unported_flags_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         repex_run.main(argv + ["--device", "cpu"])

@@ -239,9 +239,11 @@ def test_device_defaults_to_cuda_and_never_falls_back(jax_system,
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unported_options_raise(kwargs, jax_system):
+    # meshes are ported (run_sharded): a mesh that is not a ReplicaMesh
+    # is refused
     cfg = RepExConfig(**CFG)
     eng = MDEngine(_cpu_system(jax_system), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ReplicaMesh"):
         REMDDriver(eng, cfg, device="cpu", **kwargs)
 
 

@@ -28,8 +28,9 @@ print(" ".join(names))
 """
 
 # the modules of the driver's fault-tolerance slice (patterns, modes,
-# failures, the checkpoint package and the driver around them) and of the
-# observability slice (telemetry, the report, the repex_run CLI)
+# failures, the checkpoint package and the driver around them), of the
+# observability slice (telemetry, the report, the repex_run CLI) and of
+# the replica-sharded slice (sharding, the mesh, the exchange)
 SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.core.patterns", "repro_torch.core.modes",
                  "repro_torch.core.failures", "repro_torch.core.repex",
@@ -37,7 +38,9 @@ SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.obs", "repro_torch.obs.telemetry",
                  "repro_torch.obs.report", "repro_torch.launch.repex_run",
                  "repro_torch.md.neighbors",
-                 "repro_torch.kernels.nlist_build.ops")
+                 "repro_torch.kernels.nlist_build.ops",
+                 "repro_torch.sharding", "repro_torch.launch.mesh",
+                 "repro_torch.core.exchange")
 
 
 def _sources():
