@@ -214,6 +214,36 @@ printed on its own lines:
                   function and its largest ulp distance); the features
                   once more without the scope, a split sized by the
                   block (printed, not checked)
+ 34. RE-SGLD      the twelfth slice, LM training: ``LMEngine`` (in place)
+                  on OLMo-1B at full width through ``REMDDriver.run_fused
+                  (chunk_cycles=2)``, 4 temperature rungs, synchronous
+                  DEO, 2 cycles of 1 optimizer step, every chunk under
+                  ``set_sync_debug_mode("error")``: the flash kernel
+                  launched 16 times per replica per energy evaluation,
+                  all bf16_tc, and nothing under autograd; finite losses,
+                  a permutation of the rungs; ms per cycle, init_state s,
+                  peak memory, and one replica-step split into fwd + bwd,
+                  AdamW, SGLD noise and an energy evaluation, each timed
+                  alone; the flash kernel on the q, k, v an energy
+                  evaluation hands it, against its plain version, and
+                  the held-out loss through it against the plain route
+                  within TOL_LM_LOSS (a non-causal kernel as the control);
+                  34b: the float32 smoke preset of
+                  ``examples/lm_parallel_tempering_torch.py`` at R = 4, 3
+                  cycles of 2 steps: ``run`` and ``run_fused`` on the card
+                  make the same decisions, the card makes the CPU's
+                  (margins printed if not); on one seeded state the same
+                  kernel checks (its f32 variant), the losses card vs
+                  CPU within TOL_LM_CPU, and one replica-step's gradient
+                  of every leaf on the card the CPU's within TOL_LM_GRAD
+                  (TF32 matmuls as the control)
+ 35. train        ``repro_torch.launch.train.main`` on OLMo-1B at full
+                  width, B = 8, S = 128, remat per block, 5 steps: ms per
+                  step, tokens/s, peak memory, each step's loss (finite),
+                  no kernel launched; then the smoke config with a
+                  checkpoint per step, killed after step 3 (its later
+                  checkpoints removed) and resumed: bitwise the
+                  uninterrupted run
  33. GPUs         only under ``python3 -m torch.distributed.run
                   --nproc-per-node N chip_smoke.py``, N > 1 GPUs of one
                   host (without a launcher the script runs phases 1-32 on
@@ -234,6 +264,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -401,6 +432,33 @@ LJ_BIG = (4000, 17500)
 # The H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the
 # attention's products take bf16 operands.
 BF16_TC_FLOPS_PER_S = 989e12
+
+# The twelfth slice: RE-SGLD at OLMo-1B's full width on one card.  Four
+# replicas' params, mu and nu are 56.5 GB; eight would be 113 GB.  A
+# second copy of the state does not fit, so the driver runs the
+# "continue" recovery policy, under which it donates the state to the
+# engine to step in place.  Then the train launcher at full width.
+RSGLD_RUNGS, RSGLD_CYCLES = 4, 2
+TRAIN_STEPS = 5
+# One replica-step's gradient, card against CPU, per leaf as max |diff| /
+# max |cpu|, on the float32 smoke preset: the same formulas, the matmuls
+# and reductions summed in another order, which the seeded weights'
+# near one-hot attention (fan-in 4 for wq, wk: scores std ~30) amplifies.
+# Seen on an H100 at 700 W: card vs CPU 2.5e-6 to 1.35e-4; on the CPU,
+# JAX against the port on this preset up to 6.6e-5
+# (tests/test_torch_lm_engine.py); the card with TF32 matmuls (10-bit
+# mantissas, the control the limit must see) 8.0e-3 to 0.34, checked
+# above the limit in every leaf.  A missing or cut gradient is off by 1.
+TOL_LM_GRAD = 1e-3
+# The held-out loss of one replica through the flash kernel against the
+# plain attention on the same card, |diff| / |plain|, by dtype: phase 34
+# at OLMo-1B (bfloat16 through 16 layers; seen 1.1e-3, the plain route's
+# float32 compute printed beside it), phase 34b on the float32 preset
+# (seen 1.2e-7; the kernel without its causal mask 4.7e-5, checked above
+# the limit).  At OLMo-1B the seeded weights' near one-hot rows make the
+# loss all but blind to the attention (no causal mask moved it 4.7e-5):
+# there the kernel is held layer by layer on the engine's own inputs.
+TOL_LM_LOSS = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 def reset(libs) -> None:
     """Every launch count to 0, just before a path is driven."""
@@ -2149,9 +2207,12 @@ def fa_cases():
                     for d in (16, 64, 128):
                         cases.append((dtype, causal, window, rep, s, d, 1, 8,
                                       0.0))
-    # the OLMo-1B prefill shape
+    # the OLMo-1B prefill shape, and the energy evaluations of phase 34
+    # (OLMo-1B) and 34b (the float32 smoke preset)
     cases.append((torch.bfloat16, True, 0, 1, LM_PROMPT, 128, LM_BATCH, 16,
                   0.0))
+    cases.append((torch.bfloat16, True, 0, 1, 64, 128, 8, 16, 0.0))
+    cases.append((torch.float32, True, 0, 1, 64, 32, 8, 4, 0.0))
     for dtype in (torch.float32, torch.bfloat16):
         for window in (0, 64):
             for rep in (1, 4):
@@ -3507,6 +3568,362 @@ def across_ranks(mesh, half, cases, smi: str) -> None:
                   f"and NCCL kernels {nccl:.2f} ms/cycle [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# The twelfth slice: LM training on the card (RE-SGLD and the launcher)
+# ---------------------------------------------------------------------------
+
+
+def lm_pieces_ms(eng, smi: str) -> dict:
+    """Phase 34's split of one replica-step, each part timed alone on one
+    full-width replica (CUDA events around synchronised calls, median):
+    fwd + bwd (autograd, the plain attention), the AdamW update of the
+    whole tree, the SGLD noise of the whole tree, and one energy
+    evaluation (the held-out loss under no_grad: 16 flash launches)."""
+    from repro_torch import random as jr
+    from repro_torch.optim import adamw_update, sgld_noise
+    from repro_torch.optim.adamw import AdamWState, lr_schedule
+    from repro_torch.tree import tree_map
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = eng.init_state(jr.key(SEED, "cuda"), 1)
+    torch.cuda.synchronize()
+    init1 = time.perf_counter() - t0
+    params = tree_map(lambda x: x[0], state["params"])
+    batch = eng._batch(state["step"][0])
+    out = {"fwd+bwd": median_ms(lambda: eng._grads(params, batch), n=3,
+                                warmup=1)}
+    _, grads = eng._grads(params, batch)
+    opt = AdamWState(state["step"][0], tree_map(lambda x: x[0], state["mu"]),
+                     tree_map(lambda x: x[0], state["nu"]))
+    out["adamw"] = median_ms(lambda: adamw_update(eng.tcfg, params, grads,
+                                                  opt), n=3, warmup=1)
+    lr = lr_schedule(eng.tcfg, state["step"][0] + 1)
+    temp = torch.full((), 300.0 * eng.noise_per_kelvin, device="cuda")
+    key = jr.key(SEED + 1, "cuda")
+    out["sgld noise"] = median_ms(lambda: sgld_noise(key, params, lr, temp),
+                                  n=2, warmup=1)
+    out["energy"] = median_ms(lambda: eng._eval_loss(params), n=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"one replica: init_state {init1:.2f} s; parts timed alone (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out.items())
+          + f"; peak memory {peak:.2f} GiB [{smi}]")
+    return out
+
+
+def energy_through_kernel(eng, params, tol_loss: float, smi: str,
+                          control: bool) -> float:
+    """Kernel 8 on the engine's own inputs: one held-out loss evaluation
+    of ``params`` on the card, every flash call's q, k, v and output
+    captured (one per layer) and held against the plain attention at
+    phase 19's per-element allowance.  Then that loss against the same
+    params' loss through the plain attention (``default_use_kernel``
+    off) within ``tol_loss`` (|diff| / |plain|), beside two readings:
+    the plain route with float32 compute (the spread the compute dtype
+    alone makes) and the kernel without its causal mask (a wrong
+    attention), which with ``control`` the limit must see.  Returns the
+    kernel's max absolute error."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers
+    from repro_torch.models.lm import LM
+    flash, use_kernel = layers.flash_attention, layers.default_use_kernel
+    seen = []
+
+    def spy(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    def acausal(q, k, v, **kw):
+        return flash(q, k, v, **dict(kw, causal=False))
+    f32 = LM(dataclasses.replace(eng.cfg, compute_dtype="float32",
+                                 reduce_dtype="float32"))
+    n0 = fa_ops.LIBRARY.launches
+    try:
+        layers.flash_attention = spy
+        loss_k = float(eng._eval_loss(params))
+        layers.flash_attention = acausal
+        loss_wrong = float(eng._eval_loss(params))
+        layers.flash_attention = flash
+        layers.default_use_kernel = lambda t: False
+        loss_p = float(eng._eval_loss(params))
+        with torch.no_grad():
+            loss_f32 = float(f32.loss(params, eng.eval_batch)[0])
+    finally:
+        layers.flash_attention, layers.default_use_kernel = flash, use_kernel
+    n_layers = eng.cfg.n_layers
+    check(len(seen) == n_layers and fa_ops.LIBRARY.launches - n0 ==
+          2 * n_layers, f"one flash launch per layer ({len(seen)} calls)")
+    used, err = 0.0, 0.0
+    for q, k, v, kw, got in seen:
+        want = fa_ops.ref.attention(q, k, v, **kw)
+        used = max(used, fa_allowance_used(got, want, q.dtype))
+        err = max(err, float((got.float() - want.float()).abs().max()))
+    q, k = seen[0][:2]
+    tag = (f"{str(q.dtype)[6:]} causal B={q.shape[0]} S={q.shape[1]} "
+           f"H={q.shape[2]} G={k.shape[2]} D={q.shape[3]}")
+
+    def gap(x):
+        return abs(x - loss_p) / abs(loss_p)
+    print(f"flash on the engine's inputs ({tag}, {n_layers} layers): "
+          f"{used:.3f} of the allowance, max |diff| {err:.3e}; held-out "
+          f"loss kernel {loss_k:.6f}, plain {loss_p:.6f}: |diff| / |plain| "
+          f"{gap(loss_k):.2e} (tol {tol_loss}); plain with float32 compute "
+          f"{gap(loss_f32):.2e}; kernel without the causal mask "
+          f"{gap(loss_wrong):.2e} [{smi}]")
+    check(used <= 1.0, f"flash vs plain on the engine's inputs ({tag})")
+    check(gap(loss_k) <= tol_loss, "the held-out loss through the kernel "
+          "is the plain route's")
+    check(not control or gap(loss_wrong) > tol_loss,
+          "the loss limit sees a wrong attention")
+    return err
+
+
+def re_sgld(libs, smi: str) -> dict:
+    """Phase 34: RE-SGLD at OLMo-1B's full width through REMDDriver on
+    one card, then the float32 smoke preset on the card and the CPU.
+    Returns the launch counts of the full-width run and the flash
+    kernel's max absolute error on the engines' own inputs."""
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.core.ensemble import control_multiset_ok
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import registry
+    from repro_torch.models.lm_engine import LMEngine
+    from repro_torch.tree import tree_map
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(LM_ARCH)
+    phase(f"34 RE-SGLD at full width: {LM_ARCH} (seeded weights), "
+          f"{RSGLD_RUNGS} temperature rungs, synchronous DEO, "
+          f"run_fused(chunk_cycles=2), {RSGLD_CYCLES} cycles of 1 step")
+    eng = LMEngine(cfg, device="cuda")
+    parts = lm_pieces_ms(eng, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rcfg = RepExConfig(engine="lm", dimensions=(("temperature",
+                                                 RSGLD_RUNGS),),
+                       md_steps_per_cycle=1, n_cycles=RSGLD_CYCLES,
+                       relaunch_failed=False)
+    driver = REMDDriver(eng, rcfg, device="cuda")
+    # under the "continue" policy the driver hands the state to the
+    # engine to step in place: a second copy would not fit
+    check(driver._donate, "RE-SGLD: the driver donates the state")
+    evals = [0]
+    energy = eng.energy
+
+    def counted_energy(state, ctrl):
+        evals[0] += 1
+        return energy(state, ctrl)
+    eng.energy = counted_energy
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ens = driver.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset(libs)
+    t0 = time.perf_counter()
+    ens = driver.run_fused(ens, chunk_cycles=2)     # one sync per chunk
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {lib.name: lib.launches for lib in libs}
+    variants = dict(fa_ops.LIBRARY.variants)
+    eng.energy = energy
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_cycle = driver.history[-1]["t_step"] * 1e3
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.n_layers * RSGLD_RUNGS * evals[0]
+    losses = eng._losses(ens.state)
+    n_rs = RSGLD_RUNGS * RSGLD_CYCLES
+    print(f"R={RSGLD_RUNGS} init_state {init_s:.2f} s; run_fused "
+          f"{run_s:.2f} s, {ms_cycle:.1f} ms per cycle ({n_rs} replica-"
+          f"steps, {ms_cycle * RSGLD_CYCLES / n_rs:.1f} ms each, "
+          f"{evals[0]} energy evaluations); peak memory {peak:.2f} GiB "
+          f"[{smi}]")
+    per = sum(parts[k] for k in ("fwd+bwd", "adamw", "sgld noise"))
+    print("replica-step split (parts alone, ms): " + ", ".join(
+        f"{k} {v:.2f} ({v / per:.3f})" for k, v in parts.items()
+        if k != "energy") + f"; energy evaluation {parts['energy']:.2f} "
+          f"per replica")
+    print(f"held-out losses {[round(float(x), 4) for x in losses]}; "
+          f"assignment {ens.assignment.tolist()}; acceptance "
+          f"{driver.acceptance_ratios()}")
+    print(f"launches {launches}, flash by variant {variants} (want "
+          f"{want['flash_attention']} = {cfg.n_layers} layers x "
+          f"{RSGLD_RUNGS} replicas x {evals[0]} evaluations, all bf16_tc)")
+    check(launches == want and variants == {
+        "bf16_tc": want["flash_attention"]},
+          "RE-SGLD: flash in every energy evaluation, never under autograd")
+    check(bool(torch.isfinite(losses).all()) and control_multiset_ok(ens),
+          "RE-SGLD: finite losses, a permutation of the rungs")
+    err = energy_through_kernel(eng, tree_map(lambda x: x[0],
+                                              ens.state["params"]),
+                                TOL_LM_LOSS[torch.bfloat16], smi,
+                                control=False)
+    del ens, driver, losses
+    eng = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = max(err, re_sgld_small(smi))
+    return launches, err
+
+
+def lm_smoke_engine(device: str):
+    """The float32 smoke preset of examples/lm_parallel_tempering_torch.py
+    (2 layers, d_model 128, vocab 2048; its engine settings), every
+    dtype float32."""
+    from repro_torch.config import ModelConfig, TrainConfig
+    from repro_torch.models.lm_engine import LMEngine
+    cfg = ModelConfig(name="pt-smoke", n_layers=2, d_model=128, n_heads=4,
+                      n_kv_heads=4, d_ff=512, vocab_size=2048,
+                      compute_dtype="float32", reduce_dtype="float32",
+                      cache_dtype="float32")
+    return LMEngine(cfg, tcfg=TrainConfig(learning_rate=3e-3,
+                                          warmup_steps=20, total_steps=5000,
+                                          weight_decay=0.01),
+                    batch_size=8, seq_len=64, pool_batches=16,
+                    noise_per_kelvin=3e-9, device=device)
+
+
+def re_sgld_small(smi: str) -> float:
+    """Phase 34b: the float32 smoke preset, R = 4, 3 cycles of 2 steps:
+    ``run`` and ``run_fused`` on the card make the same decisions and the
+    card makes the CPU's.  On one seeded state: the flash kernel (its f32
+    variant) on the engine's inputs, the held-out losses card against
+    CPU within TOL_LM_CPU, and one replica-step's gradient on the card
+    the CPU's within TOL_LM_GRAD for every leaf, with TF32 matmuls as the
+    control the limit must see.  Returns the kernel's max absolute
+    error."""
+    from repro_torch import random as jr
+    from repro_torch.config import RepExConfig
+    from repro_torch.core import REMDDriver
+    from repro_torch.tree import tree_map, tree_paths
+    phase("34b RE-SGLD float32 smoke preset: R=4, 3 cycles of 2 steps, "
+          "card vs CPU")
+    rcfg = RepExConfig(engine="lm", dimensions=(("temperature", 4),),
+                       md_steps_per_cycle=2, n_cycles=3)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        seen, restore = metropolis_spy()
+        try:
+            driver = REMDDriver(lm_smoke_engine(dev), rcfg, device=dev)
+            ens = driver.run_fused(driver.init(SEED), chunk_cycles=3)
+        finally:
+            restore()
+        runs[dev] = ([h["assignment"].tolist() for h in driver.history],
+                     seen, driver.engine._losses(ens.state).cpu())
+    drv = REMDDriver(lm_smoke_engine("cuda"), rcfg, device="cuda")
+    drv.run(drv.init(SEED))
+    rows_run = [h["assignment"].tolist() for h in drv.history]
+    same = runs["cuda"][0] == runs["cpu"][0]
+    # printed, not held: after six AdamW steps the rounding of near-zero
+    # gradient elements has moved some parameters by up to 2 lr a step
+    # (AdamW's first steps are lr sign(g)), so the trajectories part;
+    # the decisions above and the same-state checks below are held
+    dloss = float((runs["cuda"][2] - runs["cpu"][2]).abs().max())
+    print(f"run_fused cuda {runs['cuda'][0]}, cpu {runs['cpu'][0]}, run "
+          f"(cuda) {rows_run}; final held-out losses max |cuda - cpu| "
+          f"{dloss:.2e} (printed: the trajectories part by AdamW's sign "
+          f"steps)")
+    if not same:
+        print_margins(runs, 0, 1)
+    check(rows_run == runs["cuda"][0], "RE-SGLD: run makes run_fused's "
+          "decisions on the card")
+    check(same, "RE-SGLD: the card makes the CPU's decisions")
+
+    # one seeded state on both devices
+    engs = {dev: lm_smoke_engine(dev) for dev in ("cuda", "cpu")}
+    state = engs["cuda"].init_state(jr.key(SEED, "cuda"), 4)
+    err = energy_through_kernel(engs["cuda"], tree_map(
+        lambda x: x[0], state["params"]), TOL_LM_LOSS[torch.float32], smi,
+        control=True)
+    losses = {dev: eng._losses(tree_map(lambda x: x.to(dev), state)).cpu()
+              for dev, eng in engs.items()}
+    e_loss = rel(losses["cuda"], losses["cpu"])
+    print(f"held-out losses of one state, card (kernel) vs CPU (plain): "
+          f"max |diff| / max |cpu| {e_loss:.2e} (tol {TOL_LM_CPU})")
+    check(e_loss <= TOL_LM_CPU, "RE-SGLD: the card's energies are the "
+          "CPU's")
+
+    # one replica-step's gradient, card against CPU, every leaf; the
+    # control takes the card's matmuls in TF32
+    def grads(dev):
+        eng = engs[dev]
+        params = tree_map(lambda x: x[0].to(dev), state["params"])
+        _, g = eng._grads(params, eng._batch(
+            torch.zeros((), dtype=torch.int32, device=dev)))
+        return [(path, x.cpu()) for path, x in tree_paths(g)]
+    cpu = grads("cpu")
+    card = grads("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = grads("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {"/".join(path): (rel(g, c), rel(t, c), float(c.abs().max()))
+            for (path, c), (_, g), (_, t) in zip(cpu, card, tf32)}
+    print("gradient card vs CPU, max |diff| / max |cpu| (TF32 control; "
+          "max |cpu|): " + ", ".join(
+              f"{k} {e:.2e} ({t:.2e}; {m:.2e})"
+              for k, (e, t, m) in errs.items())
+          + f" (tol {TOL_LM_GRAD}) [{smi}]")
+    check(all(e <= TOL_LM_GRAD and m > 0 for e, _, m in errs.values()),
+          "RE-SGLD: every leaf's gradient on the card is the CPU's")
+    check(all(t > TOL_LM_GRAD for _, t, _ in errs.values()),
+          "RE-SGLD: the gradient limit sees TF32 matmuls in every leaf")
+    return err
+
+
+def train_launcher(libs, smi: str) -> None:
+    """Phase 35: ``repro_torch.launch.train.main`` at OLMo-1B's full
+    width (B = 8, S = 128, remat per block, 5 steps) with every launch
+    count at 0 (training never reaches the flash kernel); then a
+    killed-then-resumed smoke run bitwise the uninterrupted one."""
+    import shutil
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_paths
+    phase(f"35 train launcher at full width: {LM_ARCH}, batch 8, seq 128, "
+          f"remat block, {TRAIN_STEPS} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset(libs)
+    rep = {}
+    state = train.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS)],
+                       report=rep)
+    launches = {lib.name: lib.launches for lib in libs}
+    ms = rep["step_ms"]
+    warm = statistics.median(ms[1:])
+    print(f"init {rep['init_s']:.2f} s; ms per step {[round(x, 2) for x in ms]}"
+          f" (median after the first {warm:.2f}), {rep['tokens'] / warm * 1e3:.0f}"
+          f" tokens/s; peak memory {rep['peak_bytes'] / 2 ** 30:.2f} GiB; "
+          f"losses {[round(x, 4) for x in rep['losses']]} [{smi}]")
+    print(f"launches {launches} (want none: autograd takes the plain "
+          f"attention)")
+    check(all(v == 0 for v in launches.values()),
+          "train: no kernel launch under autograd")
+    check(len(rep["losses"]) == TRAIN_STEPS and all(
+        math.isfinite(x) for x in rep["losses"]), "train: finite losses")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    flags = ["--arch", LM_ARCH, "--smoke", "--steps", "5", "--ckpt-dir",
+             str(ckpt), "--ckpt-every", "1"]
+    full = train.main(flags)
+    for step in (4, 5):              # a run killed after step 3
+        shutil.rmtree(ckpt / f"step-{step:08d}")
+    resumed = train.main(flags)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_paths(full), tree_paths(resumed)))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"smoke: killed after step 3 and resumed, final state bitwise "
+          f"the uninterrupted run's: {same}")
+    check(same, "train: resume is bitwise the uninterrupted run")
+
+
 def across_gpus() -> int:
     """``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py``
     with N > 1 GPUs: phase 33, run_sharded across the GPUs (one NCCL rank
@@ -3708,6 +4125,8 @@ def main() -> int:
     block_invariance(mesh, smi)
     import torch.distributed as dist
     dist.destroy_process_group()
+    sgld_launches, err34 = re_sgld(libs, smi)
+    train_launcher(libs, smi)
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",
@@ -3762,10 +4181,12 @@ def main() -> int:
                                for r in lj_runs.values()),
               "lj_forces": sum(r["variants"]["forces"]
                                for r in lj_runs.values()),
-              "flash_attention": serve_launches["flash_attention"],
+              "flash_attention": serve_launches["flash_attention"]
+              + sgld_launches["flash_attention"],
               "cell_build": cell_launches["cell_build"]}
     errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3,
-                **errs4, flash_attention=err5, cell_build=err_cell)
+                **errs4, flash_attention=max(err5, err34),
+                cell_build=err_cell)
     library = {"flash_attention": lib_ms}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src_of[name],

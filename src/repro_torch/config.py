@@ -1,10 +1,11 @@
-"""Configuration of one replica-exchange simulation and of one language
-model.
+"""Configuration of one replica-exchange simulation, of one language
+model and of its training.
 
-The port keeps its own copies of the JAX package's ``RepExConfig`` and
-``ModelConfig`` (same fields, same defaults) and of ``apply_overrides``,
-so that it imports nothing of that package.  dtype fields stay strings
-(``"bfloat16"``, ``"float32"``); ``torch_dtype`` maps them.
+The port keeps its own copies of the JAX package's ``RepExConfig``,
+``TrainConfig`` and ``ModelConfig`` (same fields, same defaults) and of
+``apply_overrides``, so that it imports nothing of that package.  dtype
+fields stay strings (``"bfloat16"``, ``"float32"``); ``torch_dtype``
+maps them.
 """
 from __future__ import annotations
 
@@ -14,6 +15,23 @@ from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    num_microbatches: int = 1         # gradient accumulation inside the step
+    remat_policy: str = "block"       # none | block | dots_saveable
+    seed: int = 0
+    grad_compression: str = "none"    # none | int8_ef (error-feedback int8)
+    zero_sharding: bool = True        # FSDP-shard params/opt over data axis
 
 
 @dataclass(frozen=True)

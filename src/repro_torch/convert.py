@@ -83,6 +83,8 @@ def lm_params_from_arrays(tree, device):
     return tree_map(lambda x: _lm_leaf(x, device), dict(tree))
 
 
-# an LM decode state (``index`` and the stacked ``cache``) converts leaf
-# by leaf the same way
+# an LM decode state (``index`` and the stacked ``cache``) and a training
+# state (``{params, mu, nu, step[, err]}``, a train launcher's or
+# ``LMEngine``'s stacked over replicas) convert leaf by leaf the same way
 lm_state_from_arrays = lm_params_from_arrays
+lm_train_state_from_arrays = lm_params_from_arrays

@@ -9,11 +9,16 @@ needs no host read, and ``stack`` is the ensemble's replica count when
 the state is one Mode II wave of it (kernels whose sums are split by the
 replica count size the split by it, so a replica's bits do not depend on
 its wave).  Optional extensions (``energy_pair``, the split
-feature API, ``force_paths``, ``failure_detectors``) are duck-typed and
-reported by :func:`engine_capabilities`.
+feature API, ``force_paths``, ``failure_detectors``, a ``donate``
+keyword of ``propagate``) are duck-typed and reported by
+:func:`engine_capabilities`.  An engine whose ``propagate`` takes
+``donate`` may, when handed ``donate=True``, write the new state into
+the one it is given; the driver hands it only when nothing reads the
+pre-cycle state afterwards.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict
 
 import torch
@@ -51,4 +56,6 @@ def engine_capabilities(engine) -> Dict[str, Any]:
         "nb_stats": callable(getattr(engine, "nb_stats", None)),
         "failure_detectors": tuple(
             getattr(engine, "failure_detectors", ("nonfinite",))),
+        "donate": "donate" in inspect.signature(
+            engine.propagate).parameters,
     }

@@ -179,6 +179,9 @@ def detect_recover(engine, ens: Ensemble, policy: str, backup_state: Any,
                                relaunches=streak)
         stats = _esc_stats(failed, relaunch, reinit, dead)
 
-    new_backup = tree_map(lambda b, s: torch.where(any_failed, b, s),
-                          backup_state, new_ens.state)
+    # where(c, s, s) is s: a leaf the backup shares with the state (an
+    # in-place engine's) is kept without a copy
+    new_backup = tree_map(
+        lambda b, s: s if b is s else torch.where(any_failed, b, s),
+        backup_state, new_ens.state)
     return new_ens, new_backup, stats

@@ -43,27 +43,36 @@ def shard_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     return x[sharding.block_slice(mesh, x.shape[0])]
 
 
+def _donated(donate: bool) -> Dict[str, Any]:
+    """The ``donate`` keyword for ``engine.propagate``: passed only when
+    set, so engines without it are called as before."""
+    return {"donate": True} if donate else {}
+
+
 def propagate_mode1(engine, state, ctrl, n_steps, rng=None, *,
-                    max_steps: int, keys=None, stack=None):
+                    max_steps: int, keys=None, stack=None,
+                    donate: bool = False):
     """Mode I: all replicas in ``state`` propagate in one engine call.
     Per-replica: nothing crosses replica rows.  ``keys``: the per-replica
     keys (else derived from ``rng``); ``stack``: the ensemble's replica
-    count when ``state`` is a block of it."""
+    count when ``state`` is a block of it; ``donate``: the engine may
+    write into ``state`` (see ``core/engine.py``)."""
     if keys is None:
         keys = per_replica_keys(rng, n_steps.shape[0])
     return engine.propagate(state, ctrl, n_steps, keys, max_steps=max_steps,
-                            stack=stack)
+                            stack=stack, **_donated(donate))
 
 
 def propagate_mode2(engine, state, ctrl, n_steps, rng=None, n_waves: int = 1,
-                    *, max_steps: int, keys=None, stack=None):
+                    *, max_steps: int, keys=None, stack=None,
+                    donate: bool = False):
     """Mode II: ``n_waves`` sequential engine calls of ``W = ceil(R /
     n_waves)`` replicas each.  Waves never exchange data.  When
     ``n_waves`` does not divide R the last wave is padded with copies of
     replica 0 (state, ctrl row and key) at ``n_steps = 0``: every engine
     keeps a zero-step lane bitwise frozen, and the pad rows are dropped.
-    ``keys`` / ``stack`` as for :func:`propagate_mode1` (``stack``
-    defaults to the rows of ``state``)."""
+    ``keys`` / ``stack`` / ``donate`` as for :func:`propagate_mode1`
+    (``stack`` defaults to the rows of ``state``)."""
     r = n_steps.shape[0]
     w = -(-r // n_waves)
     pad = n_waves * w - r
@@ -85,7 +94,8 @@ def propagate_mode2(engine, state, ctrl, n_steps, rng=None, n_waves: int = 1,
             return x[i * w:(i + 1) * w]
         outs.append(engine.propagate(
             tree_map(rows, state_p), tree_map(rows, ctrl_p), rows(steps_p),
-            rows(keys_p), max_steps=max_steps, stack=stack or r))
+            rows(keys_p), max_steps=max_steps, stack=stack or r,
+            **_donated(donate)))
     return tree_map(lambda *xs: torch.cat(xs)[:r], *outs)
 
 

@@ -48,18 +48,21 @@ from repro_torch.tree import tree_map
 
 
 def _propagate(engine, ens: Ensemble, grid: ControlGrid, n_steps, rng,
-               execution: Dict[str, Any], max_steps: int):
+               execution: Dict[str, Any], max_steps: int,
+               donate: bool = False):
     ctrl = ctrl_for_assignment(grid, ens.assignment,
                                getattr(engine, "ctrl_keys", None))
     if execution["mode"] == "mode2":
         return M.propagate_mode2(engine, ens.state, ctrl, n_steps, rng,
-                                 execution["n_waves"], max_steps=max_steps)
+                                 execution["n_waves"], max_steps=max_steps,
+                                 donate=donate)
     return M.propagate_mode1(engine, ens.state, ctrl, n_steps, rng,
-                             max_steps=max_steps)
+                             max_steps=max_steps, donate=donate)
 
 
 def _propagate_sharded(engine, ens: Ensemble, grid: ControlGrid, n_steps,
-                       rng, execution: Dict[str, Any], max_steps: int, mesh):
+                       rng, execution: Dict[str, Any], max_steps: int, mesh,
+                       donate: bool = False):
     """Propagate on one rank: ``ens.state`` is its block; the ctrl rows,
     step counts and per-replica keys are computed for all R replicas and
     cut to the block, and the engine is told the ensemble's count
@@ -77,9 +80,10 @@ def _propagate_sharded(engine, ens: Ensemble, grid: ControlGrid, n_steps,
             return M.propagate_mode2(engine, ens.state, ctrl, steps,
                                      n_waves=execution["n_waves"],
                                      max_steps=max_steps, keys=keys,
-                                     stack=r)
+                                     stack=r, donate=donate)
         return M.propagate_mode1(engine, ens.state, ctrl, steps,
-                                 max_steps=max_steps, keys=keys, stack=r)
+                                 max_steps=max_steps, keys=keys, stack=r,
+                                 donate=donate)
 
 
 def _exchange(engine, state, grid, assignment, dim_index, parity, rng,
@@ -123,14 +127,16 @@ def exchange_inputs(engine, state, mesh, exchange_comm: str,
 def _cycle_core(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
                 md_steps: int, window_steps: int, dim_index, parity,
                 scheme: str, execution, mesh=None,
-                exchange_comm: str = "halo"
+                exchange_comm: str = "halo", donate: bool = False
                 ) -> Tuple[Ensemble, Dict[str, Any], torch.Tensor]:
     """The cycle body of both patterns: split the driver key, propagate
     every replica, then one exchange sweep (masked by readiness under the
     asynchronous pattern).  With ``mesh`` the body runs on one rank's
     block and exchanges on the ``exchange_comm`` wire, and the stats carry
-    ``_fail_row``, the (R,) failure row the wire moved.  Returns
-    (new_ens, exchange_stats, ready)."""
+    ``_fail_row``, the (R,) failure row the wire moved.  ``donate``: the
+    engine may write the new state into ``ens.state`` (the driver's call
+    when nothing reads the pre-cycle state).  Returns (new_ens,
+    exchange_stats, ready)."""
     k_md, k_ex, k_next = jr.split(ens.rng, 3)
     if pattern == "asynchronous":
         max_steps = 2 * window_steps
@@ -142,10 +148,10 @@ def _cycle_core(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
                              dtype=torch.int64, device=ens.assignment.device)
     if mesh is None:
         state = _propagate(engine, ens, grid, n_steps, k_md, execution,
-                           max_steps)
+                           max_steps, donate)
     else:
         state = _propagate_sharded(engine, ens, grid, n_steps, k_md,
-                                   execution, max_steps, mesh)
+                                   execution, max_steps, mesh, donate)
     features, fail, halo = exchange_inputs(engine, state, mesh,
                                            exchange_comm,
                                            ens.assignment.shape[0])
@@ -183,7 +189,7 @@ def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
                 md_steps: int, window_steps: int = 0,
                 scheme: str = "neighbor", execution=None,
                 telemetry_rows: bool = False, mesh=None,
-                exchange_comm: str = "halo"
+                exchange_comm: str = "halo", donate: bool = False
                 ) -> Tuple[Ensemble, Dict[str, torch.Tensor]]:
     """One cycle with dim/parity derived ON DEVICE from ``ens.cycle``.
 
@@ -195,7 +201,8 @@ def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
     the pair table's width W; the neighbor scheme only).  With ``mesh``
     the cycle runs on one rank's block (module docstring); the stats then
     also carry ``_fail_row``, the (R,) failure row the exchange moved,
-    which the driver pops and hands to the recovery."""
+    which the driver pops and hands to the recovery.  ``donate`` as for
+    :func:`_cycle_core`."""
     execution = execution or {"mode": "mode1", "n_waves": 1}
     n_dims = len(grid.dims)
     dim_index = torch.remainder(ens.cycle, n_dims)
@@ -205,7 +212,7 @@ def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,
         engine, grid, ens, pattern=pattern, md_steps=md_steps,
         window_steps=window_steps, dim_index=dim_index, parity=parity,
         scheme=scheme, execution=execution, mesh=mesh,
-        exchange_comm=exchange_comm)
+        exchange_comm=exchange_comm, donate=donate)
     pa, pc = _pop_pair_rows(stats, telemetry_rows)
     nb = nb_health(engine, new_ens.state, new_ens.assignment.device)
     if mesh is not None and nb_live(engine):

@@ -34,6 +34,14 @@ the driver checkpoints the ensemble, the carry and its host bookkeeping
 that crosses a multiple of ``ckpt_every``), in the JAX package's format;
 ``restore`` and ``resume`` continue a killed run bit-exactly.
 
+Under the "continue" recovery policy (``cfg.relaunch_failed`` off)
+nothing reads a cycle's pre-propagate state, so the driver hands
+``donate=True`` to an engine whose ``propagate`` takes it: the engine
+may step the state in place, and ``run``, ``run_fused`` and
+``run_sharded`` then consume the ensemble they are given.  Under the
+relaunch policy the pre-cycle state is the recovery backup, and every
+engine returns a new state.  Phase probes never donate.
+
 Every ``run``, ``run_fused`` and ``resume`` leaves a
 :class:`~repro_torch.obs.RunReport` in ``last_report``, with or without
 telemetry.  ``telemetry=Telemetry()`` (``repro_torch.obs``) adds the
@@ -124,6 +132,10 @@ class REMDDriver:
                              f"on {self.device}")
         self.engine = engine
         self.capabilities = engine_capabilities(engine)
+        # the relaunch policy's backup is the pre-cycle state: only
+        # without it may the engine write into the state it is handed
+        self._donate = (self.capabilities["donate"]
+                        and not cfg.relaunch_failed)
         # can nb_stats ever be nonzero?  (no list, or a dense nonbonded
         # path: ``run`` skips the read)
         self._nb_live = patterns.nb_live(engine)
@@ -235,7 +247,8 @@ class REMDDriver:
                 window_steps=self._window_steps,
                 dim_index=torch.tensor(dim_index, device=dev),
                 parity=torch.tensor(parity, device=dev),
-                scheme=cfg.exchange_scheme, execution=self.execution)
+                scheme=cfg.exchange_scheme, execution=self.execution,
+                donate=self._donate)
             pa, pc = patterns._pop_pair_rows(stats, self._obs_rows)
             self._sync()
             t_step = time.perf_counter() - t1            # T_MD + T_EX
@@ -432,7 +445,8 @@ class REMDDriver:
                 md_steps=cfg.md_steps_per_cycle,
                 window_steps=self._window_steps, scheme=cfg.exchange_scheme,
                 execution=self.execution, telemetry_rows=obs_rows,
-                mesh=mesh, exchange_comm=cfg.exchange_comm)
+                mesh=mesh, exchange_comm=cfg.exchange_comm,
+                donate=self._donate)
             ens, backup, esc = F.detect_recover(
                 self.engine, ens, policy, backup,
                 relaunch_budget=cfg.relaunch_budget, mesh=mesh,

@@ -7,9 +7,10 @@ the kernel (``flash_attention_kernel``, which launches
 ``csrc/flash_attention.cu`` and counts the launch on ``LIBRARY`` under
 its variant: "bf16_tc" for bfloat16, on the tensor cores, "f32" for
 float32); a CPU tensor to the plain version, ``ref.attention``.  Forward
-only, as the TPU kernel is.  ``softcap`` c > 0 caps each scaled score as
-``tanh(s / c) c`` before the masks and the softmax, as the plain version
-and the JAX package's attention cores do.
+only, as the TPU kernel is: handed tensors that record a gradient, the
+kernel raises rather than cut the gradient.  ``softcap`` c > 0 caps
+each scaled score as ``tanh(s / c) c`` before the masks and the
+softmax, as the plain version and the JAX package's attention cores do.
 """
 from __future__ import annotations
 
@@ -37,8 +38,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            softcap: float = 0.0) -> torch.Tensor:
     """The kernel alone: CUDA, contiguous q (B, S, H, D) and k, v
     (B, T, G, D) of one dtype (float32 or bfloat16), G | H, D <= 128 (in
-    bfloat16 a multiple of 8, 16-byte aligned tensors), softcap >= 0;
-    anything else raises."""
+    bfloat16 a multiple of 8, 16-byte aligned tensors), softcap >= 0,
+    none recording a gradient (the kernel has no backward); anything else
+    raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_kernel has no backward: its output would "
+            "carry no gradient to q, k, v; take the plain attention "
+            "under autograd, or call it under torch.no_grad()")
     check_cuda((q, k, v), ("q", "k", "v"))
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:

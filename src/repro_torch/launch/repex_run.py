@@ -19,8 +19,8 @@ rank 0 prints the lines for every rank).  ``--resume CKPT_DIR`` continues a kill
 run from its newest intact checkpoint (either package's, any shard
 count); ``--report-out PATH`` switches telemetry on, writes the
 ``RunReport`` JSON there (rank 0 on a sharded run) and prints the
-Eq. (1) split.  Not ported yet: ``--engine lm`` (ROADMAP queue 1 item 8)
-raises ``NotImplementedError``.
+Eq. (1) split.  ``--engine lm`` runs RE-SGLD (``LMEngine`` on the olmo
+smoke config, as the JAX launcher builds it).
 """
 from __future__ import annotations
 
@@ -88,10 +88,6 @@ def main(argv=None) -> REMDDriver:
     """Run the flags' configuration; returns the driver (its
     ``history``, ``acceptance`` and ``last_report``)."""
     args = _parser().parse_args(argv)
-    if args.engine == "lm":
-        raise NotImplementedError(
-            "--engine lm (the LM engine, RE-SGLD) is not ported yet: "
-            "ROADMAP queue 1 item 8")
     mesh = _mesh(args.shards, args.device) if args.shards else None
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = RepExConfig(
@@ -107,6 +103,10 @@ def main(argv=None) -> REMDDriver:
     )
     if args.engine == "lj":
         engine = LJEngine(device=dev)
+    elif args.engine == "lm":
+        from repro_torch.models import registry
+        from repro_torch.models.lm_engine import LMEngine
+        engine = LMEngine(registry.get_smoke_config("olmo_1b"), device=dev)
     else:
         engine = MDEngine(system=chain_molecule(args.atoms), device=dev)
 

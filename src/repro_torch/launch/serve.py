@@ -28,7 +28,7 @@ from repro_torch.models.lm import LM
 from repro_torch.models.params import init_params
 
 
-class _Clock:
+class Clock:
     """Marks on the device's timeline (CUDA events, read after the run)
     or on the host clock (the CPU runs synchronously)."""
 
@@ -91,7 +91,7 @@ def main(argv=None, params=None, report: Optional[dict] = None
     prompt = jr.randint(jr.key(1, dev), (args.batch, args.prompt_len), 0,
                         cfg.vocab_size)
     cache_len = args.prompt_len + args.tokens + cfg.n_image_tokens
-    clock = _Clock(dev)
+    clock = Clock(dev)
     keep = []
 
     t0 = time.perf_counter()

@@ -7,12 +7,16 @@ to ``compute_dtype`` (weights per call, as ``p["wq"].astype(cd)``), the
 output in the inputs' dtype, the row-parallel products (``wo``,
 ``w_down``) in ``reduce_dtype``.
 
-Prefill attention (no cache) is the flash kernel on the card
-(``kernels.flash_attention``); on the CPU it is ``full_attention``, or
-``chunked_attention`` from 8192 tokens, as in the JAX package.  Decode
-attention against the cache stays plain PyTorch on both.  The JAX
-package's ``shardctx.constrain_*`` calls are identities without a mesh;
-the port leaves them out until the multi-device slice.
+Attention without a cache and without a recorded gradient (prefill, an
+evaluation under ``torch.no_grad``) is the flash kernel on the card
+(``kernels.flash_attention``), which has no backward, as the TPU kernel
+has none; everywhere else, and under autograd on the card too, it is
+``full_attention``, or ``chunked_attention`` from 8192 tokens, as in
+the JAX package, whose training forward takes the plain path for its
+standard attention backward.  Decode attention against the cache stays
+plain PyTorch on both.  The JAX package's ``shardctx.constrain_*`` calls
+are identities without a mesh; the port leaves them out until the
+multi-device slice.
 """
 from __future__ import annotations
 
@@ -166,6 +170,11 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape((b, s) + tuple(w.shape[1:]))
 
 
+def _records_grad(*ts: torch.Tensor) -> bool:
+    """Would autograd record an operation on these tensors?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor, causal: bool = True,
               cache: Optional[Params] = None,
@@ -208,7 +217,7 @@ def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         kv_len = torch.clamp(cache_index + s_new, max=cache_len)
         out = decode_attention(q, cache["k"].to(cd), cache["v"].to(cd),
                                kv_len=kv_len, softcap=cfg.logit_softcap)
-    elif default_use_kernel(q):
+    elif default_use_kernel(q) and not _records_grad(q, k, v):
         out = flash_attention(q, k, v, causal=causal, window=cfg.window_size,
                               softcap=cfg.logit_softcap)
     elif x.shape[1] >= 8192:

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, tree_unflatten
 
 SLICE = 1 << 26          # elements per slice of a large draw
 
@@ -64,38 +64,49 @@ def _std_for(d: ParamDef) -> float:
     return d.scale / math.sqrt(max(fan_in, 1))
 
 
+def _draw_(out: torch.Tensor, key: torch.Tensor, std: float) -> None:
+    """``normal(key, out.shape) * std`` in float32, written into the
+    contiguous ``out`` (cast to its dtype) ``SLICE`` elements at a time."""
+    flat = out.view(-1)
+    n = flat.numel()
+    for a in range(0, n, SLICE):
+        b = min(n, a + SLICE)
+        flat[a:b] = jr.bits_to_normal(jr.random_bits(key, (b - a,), a)) * std
+
+
 def _normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` drawn ``SLICE`` elements at a
     time."""
-    n = math.prod(shape)
-    out = torch.empty(n, dtype=torch.float32, device=key.device)
-    for a in range(0, n, SLICE):
-        b = min(n, a + SLICE)
-        out[a:b] = jr.bits_to_normal(jr.random_bits(key, (b - a,), a))
-    return out.reshape(shape)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=key.device)
+    _draw_(out, key, 1.0)
+    return out
 
 
 def init_params(rng: torch.Tensor, defs, dtype=None):
     """Materialize a tree of ParamDefs on ``rng``'s device; ``rng`` is a
     raw key (``repro_torch.random.key``), folded per leaf by its index in
-    JAX's flatten order."""
-    flat = {}
-    for i, (path, d) in enumerate(_leaves_sorted(defs)):
+    JAX's flatten order.  Keys with a leading axis, (R, 2), draw a
+    stacked tree: leaf shapes (R, ...), replica r's leaves bitwise
+    ``init_params(rng[r])`` (the JAX package's ``vmap`` of the draw),
+    written replica by replica into one allocation per leaf."""
+    stacked = rng.ndim == 2
+    lead = (rng.shape[0],) if stacked else ()
+    arrs = []
+    for i, (_, d) in enumerate(_leaves_sorted(defs)):
         pdtype = dtype or d.dtype
+        shape = lead + tuple(d.shape)
         if d.init == "zeros":
-            arr = torch.zeros(d.shape, dtype=pdtype, device=rng.device)
+            arr = torch.zeros(shape, dtype=pdtype, device=rng.device)
         elif d.init == "ones":
-            arr = torch.ones(d.shape, dtype=pdtype, device=rng.device)
+            arr = torch.ones(shape, dtype=pdtype, device=rng.device)
         else:
             std = float(np.float32(_std_for(d)))
-            arr = (_normal(jr.fold_in(rng, i), d.shape) * std).to(pdtype)
-        flat[path] = arr
-
-    def rebuild(tree, path=()):
-        if isinstance(tree, dict):
-            return {k: rebuild(v, path + (k,)) for k, v in tree.items()}
-        return flat[path]
-    return rebuild(defs)
+            arr = torch.empty(shape, dtype=pdtype, device=rng.device)
+            for r in range(lead[0] if stacked else 1):
+                _draw_(arr[r] if stacked else arr,
+                       jr.fold_in(rng[r] if stacked else rng, i), std)
+        arrs.append(arr)
+    return tree_unflatten(defs, arrs)
 
 
 def param_count(defs) -> int:

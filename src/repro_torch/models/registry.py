@@ -10,7 +10,7 @@ from repro_torch.models.lm import LM
 from repro_torch.models.params import param_count as _count_defs
 
 # the dense architectures of the JAX package's registry; the others wait
-# for their families (ROADMAP.md, queue 1 item 15)
+# for their families (ROADMAP.md, queue 1 item 8)
 ARCH_IDS = ("mistral_large_123b", "phi3_medium_14b", "olmo_1b",
             "nemotron_4_15b")
 

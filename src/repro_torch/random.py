@@ -245,7 +245,19 @@ def normal(keys: torch.Tensor, shape) -> torch.Tensor:
 def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
     """32-bit words -> standard normals: ``sqrt(2) erf_inv(u)`` with u
     on (-1, 1), the float32 pipeline of ``jax.random.normal``."""
-    return _SQRT2 * erf_inv(bits_to_uniform(bits, _NORMAL_LO, 1.0))
+    return _SQRT2 * bits_to_erf_inv(bits)
+
+
+def bits_to_erf_inv(bits: torch.Tensor) -> torch.Tensor:
+    """``erf_inv(u)``, the normal before its ``sqrt(2)`` factor, which
+    compiled XLA folds into a constant the normal is multiplied by."""
+    return erf_inv(bits_to_uniform(bits, _NORMAL_LO, 1.0))
+
+
+# XLA's CPU float32 arithmetic, for modules that mirror a compiled JAX
+# expression: the fused multiply-add and the square root
+fma = _fma
+xla_sqrt = _sqrt
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

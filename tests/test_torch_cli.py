@@ -3,10 +3,11 @@
 aside (the per-cycle and per-chunk ``t ... ms`` figures and the Eq. (1)
 split), and its ``--report-out`` JSON validates under both packages'
 ``validate_report`` with the JAX report's counters.  ``--resume`` takes
-a checkpoint of either package; the unported ``--engine lm`` raises,
-naming its ROADMAP item (``--shards`` is held in
+a checkpoint of either package; ``--engine lm`` on a model family not
+yet ported raises, naming its ROADMAP item (``--shards`` is held in
 ``test_torch_sharded``)."""
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -17,6 +18,7 @@ import pytest
 from repro.launch import repex_run as j_repex_run
 from repro.obs import validate_report as j_validate_report
 from repro_torch.launch import repex_run
+from repro_torch.models import registry
 from repro_torch.obs import validate_report
 
 _TIMING = re.compile(r"\s+t\s+[\d.]+ ms(/cycle)?")
@@ -103,6 +105,12 @@ def test_cli_resumes_a_jax_checkpoint(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [(["--engine", "lm"], "item 8")])
-def test_unported_flags_name_their_roadmap_item(argv, item):
+def test_unported_flags_name_their_roadmap_item(argv, item, monkeypatch):
+    """``--engine lm`` runs (``test_torch_lm_engine`` holds it against
+    JAX's CLI); what it cannot run yet is another model family, whose
+    error names the ROADMAP item."""
+    cfg = dataclasses.replace(registry.get_smoke_config("olmo_1b"),
+                              family="moe")
+    monkeypatch.setattr(registry, "get_smoke_config", lambda arch: cfg)
     with pytest.raises(NotImplementedError, match=item):
-        repex_run.main(argv + ["--device", "cpu"])
+        repex_run.main(argv + ["--device", "cpu", "--cycles", "1"])

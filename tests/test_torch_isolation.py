@@ -29,8 +29,10 @@ print(" ".join(names))
 
 # the modules of the driver's fault-tolerance slice (patterns, modes,
 # failures, the checkpoint package and the driver around them), of the
-# observability slice (telemetry, the report, the repex_run CLI) and of
-# the replica-sharded slice (sharding, the mesh, the exchange)
+# observability slice (telemetry, the report, the repex_run CLI), of
+# the replica-sharded slice (sharding, the mesh, the exchange) and of the
+# LM training slice (data, optimizers, the RE-SGLD engine, the train step
+# and launcher)
 SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.core.patterns", "repro_torch.core.modes",
                  "repro_torch.core.failures", "repro_torch.core.repex",
@@ -40,7 +42,12 @@ SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.md.neighbors",
                  "repro_torch.kernels.nlist_build.ops",
                  "repro_torch.sharding", "repro_torch.launch.mesh",
-                 "repro_torch.core.exchange")
+                 "repro_torch.core.exchange",
+                 "repro_torch.data", "repro_torch.data.synthetic",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.sgld", "repro_torch.optim.compression",
+                 "repro_torch.models.lm_engine", "repro_torch.launch.steps",
+                 "repro_torch.launch.train")
 
 
 def _sources():

@@ -311,7 +311,7 @@ def test_serve_default_device_is_cuda(monkeypatch):
 def test_other_families_raise():
     from repro_torch.config import ModelConfig
     from repro_torch.models.lm import LM
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         LM(ModelConfig(family="moe")).param_defs()
     with pytest.raises(NotImplementedError):
         registry.get_config("whisper_small")
