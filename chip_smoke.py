@@ -23,8 +23,10 @@ printed on its own lines:
                   the nonbonded kernel also at N = 10,000, R = 1; the
                   CUDA launches behind one count of the bonded wrapper and
                   of the list build's, each flag (2 each, profiled);
-                  the launch floor: an empty kernel on the exchange-matrix
-                  kernel's grid at R = C = 384, timed the same way
+                  kernel 4 at R = C = 384 in turns with its staged design
+                  (on no path; bitwise checked) and its launch floors,
+                  timed the same way: an empty kernel on its (C / 128, R)
+                  grid, on the staged design's grid, and one block
   5. slice        the main path: T-REMD, 64 rungs, 2881 atoms,
                   ``run_fused(chunk_cycles=4)`` for 8 cycles, every chunk
                   under ``set_sync_debug_mode("error")``; each kernel must
@@ -175,7 +177,12 @@ printed on its own lines:
                   and on a random gas of 20,000 atoms at the LJ fluid's
                   density (R = 4), where ``suggest_build_method`` picks
                   "cell"; the lists as sets the dense build's; each timed
-                  beside the dense build and its bytes bound
+                  beside the dense build, its time before (BEFORE_MS) and
+                  its bound (flag 1: the larger of the bytes, with the
+                  mask words of the pairs within r_list, and those pairs'
+                  distance tests; the stencil's candidates printed beside
+                  it), flag 1's split between its bin and row kernels
+                  from profiled calls
  29. card vs CPU  R = 8, N = 2881, ``nonbonded="sparse",
                   nlist_build="cell"``, skin 0.5 A (the lists rebuilt),
                   telemetry's counters on: the card makes the CPU's
@@ -183,7 +190,8 @@ printed on its own lines:
                   cycle of the cell build; before and after the card's run
                   the cell-build kernels bitwise their plain version on its
                   own positions, grid, capacity and k_max (flag 0, flag 1,
-                  a flag row), and timed there for the kernels' record
+                  a flag row), and timed there (as in 28) for the
+                  kernels' record
  30. CLI          ``python -m repro_torch.launch.repex_run`` on phase 27's
                   T-REMD configuration as a subprocess: exit 0, its
                   ``--report-out`` valid and its counters phase 27's
@@ -409,17 +417,27 @@ FA_SOFTCAP, FA_SOFTCAP_Q = 30.0, 20.0
 # ordered pair and divisions; kernels 1 and 1b (bonded, R = 64 and 384,
 # N = 2881; an (R, 6W, 3) edge scratch between two launches) and the
 # list build (R = 384, N = 2881; every pair tested, flag 1, and the
-# kept list copied with 4-byte words, flag 0): measured by this script
-# on an NVIDIA H100 80GB HBM3 at 700 W as PERF.md section 6 records
-# them; printed beside this run's times.
+# kept list copied with 4-byte words, flag 0); the cell build with one
+# bin block per replica and one warp per row (both flags) on phase
+# 28's gas and chain at R = 384 and phase 29's chain at R = 8; kernel 4
+# (R = C = 384, the design it still has): measured
+# by this script on an NVIDIA H100 80GB HBM3 at 700 W as PERF.md section
+# 6 records them; printed beside this run's times.
 BEFORE_MS = {"fused_baoab": 9.3263, "flash_attention": 5.3706,
              "nonbonded": 2.1584, "lj_forces": 0.2866, "lj_energy": 0.2449,
              "chain_forces": 0.0227, "chain_forces_bias": 0.1076,
-             "nlist_build": 5.2438, "nlist_build (flag 0)": 0.1435}
+             "nlist_build": 5.2438, "nlist_build (flag 0)": 0.1435,
+             "cell_build gas": 0.6889, "cell_build gas (flag 0)": 0.0742,
+             "cell_build chain R=384": 2.8118,
+             "cell_build chain R=384 (flag 0)": 0.0977,
+             "cell_build chain R=8": 0.0910,
+             "cell_build chain R=8 (flag 0)": 0.0075,
+             "exchange_matrix": 0.0024}
 # CUDA launches one call of a wrapper makes (its count goes up by one per
 # call): the bonded kernel's block pass and its energy sum; the list
-# build's box-or-copy pass and its build pass; the cell build's bin-or-copy
-# pass and its row pass.
+# build's box-or-copy pass and its build pass; the cell build's
+# bin-or-copy pass (up to 16 bin blocks a replica) and its row
+# pass, whichever the flag.
 LAUNCHES_PER_CALL = {"chain_forces": 2, "nlist_build": 2, "cell_build": 2}
 # Kernel 3 past its shared-memory rows, R = 1: just above the last N whose
 # rows fit (16,256) and a larger chain.
@@ -682,6 +700,20 @@ def bounds(engine, n_rep: int):
     return out
 
 
+def xmat_inputs(r: int, c: int):
+    """Packed (4, R) feature and (6, C) control rows for kernel 4: seeded
+    energies, angles, salts and two umbrellas."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def u(*shape):
+        return torch.rand(shape, device="cuda", generator=gen)
+    feat = torch.stack([u(r) * 60 - 80, u(r) * 80 - 240, u(r) * 360 - 180,
+                        u(r) * 360 - 180])
+    ctrl = torch.stack([1.3 + 0.6 * u(c), u(c), 360 * u(c), 360 * u(c),
+                        0.02 * u(c), 0.02 * u(c)])
+    return feat.contiguous(), ctrl.contiguous()
+
+
 def timing(engine, pos, smi: str):
     """Kernel: device time per call from CUDA-graph replays; beside it
     the wrapper's host time per call.  Plain version: wall time of one
@@ -706,12 +738,30 @@ def timing(engine, pos, smi: str):
         print(f"{name}: kernel {k_ms:.4f} ms device (graph replay), "
               f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms "
               f"[{smi}]")
-    from repro_torch.kernels.exchange_matrix import ops as x_ops
-    floor = graph_ms(lambda: x_ops.empty_launch(R_TSU, R_TSU))
-    print(f"launch floor: an empty kernel on the exchange-matrix kernel's "
-          f"grid at R = C = {R_TSU}: {floor:.4f} ms device (graph replay) "
-          f"[{smi}]")
+    xmat_turns(smi)
     return res
+
+
+def xmat_turns(smi: str) -> None:
+    """Kernel 4 at R = C = R_TSU in turns with its staged design, bitwise
+    checked, beside its three launch floors."""
+    from repro_torch.kernels.exchange_matrix import ops as x_ops
+    feat, ctrl = xmat_inputs(R_TSU, R_TSU)
+    same = torch.equal(x_ops.exchange_matrix_staged(feat, ctrl),
+                       x_ops.exchange_matrix_batched(feat, ctrl))
+    check(same, "kernel 4's staged design bitwise the kernel")
+    turns = [graph_ms(lambda f=f: f(feat, ctrl)) for f in (
+        x_ops.exchange_matrix_batched, x_ops.exchange_matrix_staged,
+        x_ops.exchange_matrix_staged, x_ops.exchange_matrix_batched)]
+    floors = {grid: graph_ms(lambda grid=grid: x_ops.empty_launch(
+        R_TSU, R_TSU, grid)) for grid in x_ops.EMPTY_GRIDS}
+    print(f"kernel 4 at R = C = {R_TSU}: {turns[0]:.4f} {turns[3]:.4f} ms, "
+          f"its staged design {turns[1]:.4f} {turns[2]:.4f} ms (in turns, "
+          f"bitwise equal {same}); launch floors, an empty kernel on the "
+          f"kernel's grid ({R_TSU // 128} x {R_TSU} blocks of 128) "
+          f"{floors['kernel']:.4f} ms, on the staged design's "
+          f"{floors['staged']:.4f} ms, one block {floors['one']:.4f} ms "
+          f"(device, graph replay) [{smi}]")
 
 
 def no_ceiling_nonbonded(smi: str) -> None:
@@ -1021,6 +1071,34 @@ def timing_second(engine, d, smi: str):
               f"wrapper host {h_ms:.4f} ms/call, plain {p_ms:.4f} ms "
               f"[{smi}]")
     return res
+
+
+def profiled_split(fn, pattern: str, calls: int = 10) -> dict:
+    """Device ms per call of ``fn`` by CUDA kernel (names matching
+    ``pattern``), from a profiled session of ``calls`` calls; the session
+    with the most kernel events of three counts (the profiler can lose
+    events, never invent them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best, most = {}, -1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        sums, seen = {}, 0
+        for e in prof.events():
+            m = re.search(pattern, e.name)
+            if e.device_type == DeviceType.CUDA and m:
+                seen += 1
+                sums[m.group(0)] = (sums.get(m.group(0), 0.0)
+                                    + e.time_range.elapsed_us() / 1e3 / calls)
+        if seen > most:
+            best, most = sums, seen
+    return best
 
 
 def before_and_bound(name: str, k_ms: float, bound) -> None:
@@ -2998,12 +3076,65 @@ def cell_bitwise(tag, pos, bits, mask, r_list, k_max, cells) -> float:
     return err
 
 
-def cell_times(tag, pos, bits, mask, r_list, k_max, cells, smi,
+def cell_work(pos, r_list, k_max, cells, nw: int):
+    """What a flag-1 cell build on ``pos`` must do, from this run's data:
+    (bytes, pair tests, mask words, stencil candidates).  Bytes: positions
+    in, the mask words (i, j >> 5) of the pairs within r_list (each
+    distinct word once over all replicas), the list and dropped out.
+    Pair tests: the ordered pairs within r_list, each of which a build
+    has to test (distances formed in float32).  Stencil candidates: a
+    row's in-grid stencil cells' kept atoms, from the run's own bins
+    (``ref._bin_atoms``), what a build that culls nothing would test;
+    printed beside the bound, not part of it."""
+    from repro_torch.kernels import f32_square
+    from repro_torch.kernels.nlist_build import ref
+    (gx, gy, gz), cap = cells
+    n_rep, n = pos.shape[:2]
+    n_cells, dev = gx * gy * gz, pos.device
+    r2 = f32_square(r_list)
+    need = torch.zeros((n, nw), dtype=torch.bool, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    rows = max(1, (1 << 26) // (n * 3))
+    for r in range(n_rep):
+        p = pos[r].float()
+        for a in range(0, n, rows):
+            d = p[a:a + rows, None, :] - p[None, :, :]
+            d = d * d
+            within = (d[..., 0] + d[..., 1] + d[..., 2]) <= r2
+            i = torch.arange(a, a + within.shape[0], device=dev)
+            within[i - a, i] = False
+            pairs += within.sum()
+            pad = torch.nn.functional.pad(within, (0, nw * 32 - n))
+            need[a:a + rows] |= pad.view(-1, nw, 32).any(-1)
+    cc = ref._cell_coords(pos, r_list, (gx, gy, gz))
+    cell_id = ((cc[..., 0] * gy + cc[..., 1]) * gz + cc[..., 2]).long()
+    bins, _ = ref._bin_atoms(cell_id, n_cells, cap)     # (R, cells + 1, C)
+    kept = (bins < n).sum(-1)                           # (R, cells + 1)
+    dims = torch.tensor((gx, gy, gz), device=dev)
+    c = torch.arange(n_cells, device=dev)
+    own = torch.stack([c // (gy * gz), (c // gz) % gy, c % gz], -1)
+    st = torch.from_numpy(ref._stencil((gx, gy, gz))).to(dev)
+    ncc = own[:, None, :] + st                          # (cells, S, 3)
+    in_grid = torch.all((ncc >= 0) & (ncc < dims), dim=-1)
+    nid = torch.where(in_grid, (ncc[..., 0] * gy + ncc[..., 1]) * gz
+                      + ncc[..., 2], n_cells)           # padding: cells
+    per_cell = kept[:, nid].sum(-1)                     # (R, cells)
+    candidates = int(torch.gather(per_cell, 1, cell_id).sum())
+    mask_words = int(need.sum())
+    nbytes = (n_rep * n * 3 * 4 + mask_words * 4
+              + n_rep * n * k_max * (4 + 4) + n_rep * 4)
+    return nbytes, int(pairs), mask_words, candidates
+
+
+def cell_times(case, pos, bits, mask, r_list, k_max, cells, smi,
                dense: bool = False):
     """Device ms of the cell-build kernels on ``pos`` in both flag states
     (and of the dense build beside them where ``dense``), each beside its
-    plain version and its bytes bound: positions in, list and dropped out.
-    Returns (times, bounds) keyed by kernel name."""
+    plain version, its time before the current design (BEFORE_MS,
+    ``cell_build {case}``) and its bound: flag 1 the larger of the bytes
+    and the pair tests of ``cell_work``, flag 0 its copy's bytes.  Flag
+    1's split between its two CUDA kernels from profiled calls.  Returns
+    (times, bounds) keyed by kernel name."""
     from repro_torch.kernels.nlist_build import ops as nl_ops
     n_rep, n = pos.shape[:2]
     on = torch.ones(1, dtype=torch.int32, device="cuda")
@@ -3021,9 +3152,22 @@ def cell_times(tag, pos, bits, mask, r_list, k_max, cells, smi,
             "dense build (flag 0)": lambda: nl_ops.nlist_build_batched(
                 pos, off, old, bits, r_list, k_max)})
     table = n_rep * n * k_max * (4 + 4)
-    stack = n_rep * n * 3 * 4
-    need = {"cell_build": stack + table + n_rep * 4,
-            "cell_build (flag 0)": 4 + 2 * table + n_rep * 4}
+    nbytes, tests, words, candidates = cell_work(pos, r_list, k_max, cells,
+                                                 bits.shape[1])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = tests * DIST_TEST_OPS / FP32_FLOPS_PER_S * 1e3
+    need = {"cell_build": (max(t_bytes, t_ops),
+                           "bytes" if t_bytes >= t_ops else "operations"),
+            "cell_build (flag 0)": ((4 + 2 * table + n_rep * 4)
+                                    / HBM_BYTES_PER_S * 1e3, "bytes")}
+    print(f"{case} cell build, flag 1 bound: {nbytes / 1e6:.3f} MB "
+          f"(positions in, the {words} distinct mask words of the pairs "
+          f"within r_list, list and dropped out) -> {t_bytes:.5f} ms; "
+          f"{tests} pairs within r_list x {DIST_TEST_OPS} -> {t_ops:.5f} "
+          f"ms; flag 0: its copy's bytes; stencil candidates "
+          f"{candidates} (x {DIST_TEST_OPS} -> "
+          f"{candidates * DIST_TEST_OPS / FP32_FLOPS_PER_S * 1e3:.5f} ms, "
+          f"not the bound)")
     plain = {
         "cell_build": lambda: nl_ops.build_gated_plain(
             pos, on, old, mask, r_list, k_max, cells),
@@ -3032,18 +3176,74 @@ def cell_times(tag, pos, bits, mask, r_list, k_max, cells, smi,
     times, bound = {}, {}
     for name, fn in kernels.items():
         k_ms = graph_ms(fn, calls=5)
-        line = (f"{tag} {name}: kernel {k_ms:.4f} ms device (graph "
+        line = (f"{case} {name}: kernel {k_ms:.4f} ms device (graph "
                 f"replay), wrapper host {host_ms(fn, 10):.4f} ms/call")
         if name in need:
             p_ms = median_ms(plain[name], 1, 0)
-            b_ms = need[name] / HBM_BYTES_PER_S * 1e3
-            line += (f", plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-                     f"(bytes: {need[name] / 1e6:.3f} MB, positions in, "
-                     f"list and dropped out)")
+            before = BEFORE_MS[name.replace("cell_build", f"cell_build "
+                                                          f"{case}")]
+            line += (f", plain {p_ms:.4f} ms, bound {need[name][0]:.5f} ms "
+                     f"({need[name][1]}): {k_ms / need[name][0]:.2f}x the "
+                     f"bound; {before:.4f} ms before (PERF.md), "
+                     f"{before / k_ms:.2f}x faster")
             times[name] = (k_ms, p_ms)
-            bound[name] = (b_ms, "bytes")
+            bound[name] = need[name]
         print(line + f" [{smi}]")
+    split = profiled_split(kernels["cell_build"], r"cell_\w+_kernel")
+    print(f"{case} cell build, flag 1, split (profiled, ms a call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f" [{smi}]")
     return times, bound
+
+
+def gas_case():
+    """Phase 28's gas: (pos, mask bits, mask, r_list, k_max, (grid dims,
+    capacity)) of R_GAS seeded replicas of N_GAS atoms at the LJ fluid's
+    density, the grid and capacity as the suggest_* functions give
+    them."""
+    from repro_torch.md import neighbors as NB
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    side = (N_GAS / GAS_DENSITY) ** (1.0 / 3.0)
+    gas = side * torch.rand((R_GAS, N_GAS, 3), device="cuda", generator=gen)
+    host = gas.double().cpu().numpy()
+    gdims = NB.suggest_grid_dims(host[0].max(0) - host[0].min(0)
+                                 + 2 * GAS_R_LIST, GAS_R_LIST)
+    gcap = NB.suggest_cell_capacity(host, GAS_R_LIST, gdims)
+    gbits, gmask = gas_mask(N_GAS)
+    return gas, gbits, gmask, GAS_R_LIST, GAS_K_MAX, (gdims, gcap)
+
+
+def chain_case():
+    """Phase 28's chain: the TSU sparse positions at R_TSU on the cell
+    path's engine, in ``gas_case``'s form."""
+    sp = sparse_engine("fused", nlist_build="cell")
+    state = sparse_state(sp, tsu_grid(), R_TSU)
+    pk = sp._nb_pack
+    return (state["pos"], pk.mask_bits, pk.nb_mask, sp.r_list, sp.k_max,
+            (sp._grid_dims, sp._cell_capacity))
+
+
+def main_path_engine(dev: str):
+    """Phase 29's engine: the chain on the sparse path with the cell
+    build, a skin of 0.5 A (so the lists are rebuilt within the run)."""
+    from repro_torch.md import MDEngine
+    from repro_torch.md.system import chain_molecule
+    return MDEngine(chain_molecule(N_ATOMS), nonbonded="sparse",
+                    nlist_build="cell", skin=0.5, device=dev)
+
+
+def main_path_cfg():
+    """Phase 29's run: T-REMD 8 rungs, 10 MD steps a cycle, 4 cycles."""
+    from repro_torch.config import RepExConfig
+    return RepExConfig(dimensions=(("temperature", 8),),
+                       md_steps_per_cycle=10, n_cycles=4)
+
+
+def main_path_inputs(eng) -> tuple:
+    """(mask bits, mask, r_list, k_max, (grid dims, capacity)) of a cell
+    path engine."""
+    return (eng._nb_pack.mask_bits, eng._nb_pack.nb_mask, eng.r_list,
+            eng.k_max, (eng._grid_dims, eng._cell_capacity))
 
 
 def cell_build(smi: str):
@@ -3057,29 +3257,18 @@ def cell_build(smi: str):
           f"at R={R_TSU}, a gas N={N_GAS} at R={R_GAS}")
     from repro_torch.kernels.nlist_build import ops as nl_ops
     from repro_torch.md import neighbors as NB
-    sp = sparse_engine("fused", nlist_build="cell")
-    state = sparse_state(sp, tsu_grid(), R_TSU)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = {f"chain R={R_TSU}": chain_case(), "gas": gas_case()}
+    gdims, gcap = cases["gas"][5]
     side = (N_GAS / GAS_DENSITY) ** (1.0 / 3.0)
-    gas = side * torch.rand((R_GAS, N_GAS, 3), device="cuda", generator=gen)
-    host = gas.double().cpu().numpy()
-    gdims = NB.suggest_grid_dims(host[0].max(0) - host[0].min(0)
-                                 + 2 * GAS_R_LIST, GAS_R_LIST)
-    gcap = NB.suggest_cell_capacity(host, GAS_R_LIST, gdims)
     method = NB.suggest_build_method(N_GAS, gdims, gcap)
     print(f"gas: box {side:.2f} A, density {GAS_DENSITY:.5f} / A^3, "
           f"r_list {GAS_R_LIST}, grid {gdims}, cell capacity {gcap}, "
           f"k_max {GAS_K_MAX}, R = {R_GAS} (the plain version builds one "
           f"replica at a time), suggest_build_method -> {method!r}")
     check(method == "cell", "the gas takes the cell build")
-    gbits, gmask = gas_mask(N_GAS)
-    pk = sp._nb_pack
-    cases = {
-        "chain": (state["pos"], pk.mask_bits, pk.nb_mask, sp.r_list,
-                  sp.k_max, (sp._grid_dims, sp._cell_capacity)),
-        "gas": (gas, gbits, gmask, GAS_R_LIST, GAS_K_MAX, (gdims, gcap))}
-    print(f"chain: grid {sp._grid_dims}, cell capacity {sp._cell_capacity}, "
-          f"k_max {sp.k_max}, r_list {sp.r_list}")
+    _, _, _, r_list, k_max, (dims, cap) = cases[f"chain R={R_TSU}"]
+    print(f"chain: grid {dims}, cell capacity {cap}, k_max {k_max}, "
+          f"r_list {r_list}")
     err = 0.0
     for tag, (pos, bits, mask, r_list, k_max, cells) in cases.items():
         err = max(err, cell_bitwise(tag, pos, bits, mask, r_list, k_max,
@@ -3111,31 +3300,23 @@ def cell_against_cpu(libs, smi: str):
     card run for the kernels' record."""
     phase(f"29 card vs CPU: R=8, N={N_ATOMS}, nonbonded='sparse', "
           f"nlist_build='cell', run_fused, telemetry counters")
-    from repro_torch.config import RepExConfig
     from repro_torch.core import REMDDriver
-    from repro_torch.md import MDEngine
-    from repro_torch.md.system import chain_molecule
     from repro_torch.obs import Telemetry
-    # a skin of 0.5 A trips within the run, so the lists are rebuilt
-    cfg = RepExConfig(dimensions=(("temperature", 8),), md_steps_per_cycle=10,
-                      n_cycles=4)
+    cfg = main_path_cfg()
     runs, launches = {}, {}
     for dev in ("cuda", "cpu"):
         seen, restore = metropolis_spy()
         try:
-            eng = MDEngine(chain_molecule(N_ATOMS), nonbonded="sparse",
-                           nlist_build="cell", skin=0.5, device=dev)
+            eng = main_path_engine(dev)
             driver = REMDDriver(eng, cfg, device=dev,
                                 telemetry=Telemetry(phase_probe_every=0))
             ens = driver.init(SEED)
             if dev == "cuda":
-                inputs = (eng._nb_pack.mask_bits, eng._nb_pack.nb_mask,
-                          eng.r_list, eng.k_max,
-                          (eng._grid_dims, eng._cell_capacity))
+                inputs = main_path_inputs(eng)
                 pos0 = ens.state["pos"].contiguous()
                 err = cell_bitwise("R=8 chain, first positions", pos0,
                                    *inputs)
-                times, bound = cell_times("R=8 chain", pos0, *inputs, smi)
+                times, bound = cell_times("chain R=8", pos0, *inputs, smi)
                 reset(libs)
             t0 = time.perf_counter()
             ens = driver.run_fused(ens, chunk_cycles=2)
@@ -3155,6 +3336,10 @@ def cell_against_cpu(libs, smi: str):
         print(f"{dev}: grid {eng._grid_dims}, capacity {eng._cell_capacity}, "
               f"k_max {eng.k_max}; {wall:.1f} s; rebuilds by cycle "
               f"{runs[dev][2]}, overflow {hist[-1]['nb_overflow']}")
+        if dev == "cuda":
+            per_chunk = [round(h["t_step"] * 1e3, 2) for h in hist[::2]]
+            print(f"cuda ms/cycle by chunk of 2 {per_chunk} (the first "
+                  f"includes warm-up) [{smi}]")
     same = runs["cuda"][:3] == runs["cpu"][:3]
     dpos = float((runs["cuda"][3] - runs["cpu"][3]).abs().max())
     print(f"decisions and rebuilds identical {same}, max |dpos| {dpos:.2e} A "
@@ -3924,19 +4109,27 @@ def train_launcher(libs, smi: str) -> None:
     check(same, "train: resume is bitwise the uninterrupted run")
 
 
-def across_gpus() -> int:
-    """``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py``
-    with N > 1 GPUs: phase 33, run_sharded across the GPUs (one NCCL rank
-    each) and across half of them, against run_fused on one GPU."""
+def ready() -> bool:
+    """CUDA and the repository around the script (``src/repro_torch``),
+    which goes on ``sys.path``; else a message and False."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
+        return False
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
               file=sys.stderr)
-        return 1
+        return False
     sys.path.insert(0, str(src))
+    return True
+
+
+def across_gpus() -> int:
+    """``python3 -m torch.distributed.run --nproc-per-node N chip_smoke.py``
+    with N > 1 GPUs: phase 33, run_sharded across the GPUs (one NCCL rank
+    each) and across half of them, against run_fused on one GPU."""
+    if not ready():
+        return 1
     import torch.distributed as dist
     from repro_torch.kernels.chain_forces import ops as chain_ops
     from repro_torch.kernels.exchange_matrix import ops as x_ops
@@ -3993,15 +4186,8 @@ def across_gpus() -> int:
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
+    if not ready():
         return 1
-    src = ROOT / "src"
-    if not (src / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: no src/repro_torch beside {__file__}",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(src))
     from repro_torch.kernels.chain_forces import ops as chain_ops
     from repro_torch.kernels.exchange_matrix import ops as x_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4048,6 +4234,7 @@ def main() -> int:
     before_and_bound("fused_baoab", times["fused_baoab"][0], bound)
     before_and_bound("chain_forces_bias", times["chain_forces_bias"][0],
                      bound)
+    before_and_bound("exchange_matrix", times["exchange_matrix"][0], bound)
     del inputs
     no_ceiling_fused(smi)
 

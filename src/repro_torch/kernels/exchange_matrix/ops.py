@@ -8,9 +8,11 @@ PyTorch oracle ``ref.exchange_matrix``, which is also the kernel's plain
 version.  The kernel reads packed rows: features (4, R) [u_base, u_elec,
 phi_deg, psi_deg] and controls (6, C) [beta, salt, c0, c1, k0, k1], an
 absent field packed as zeros (inert in the formula).
-``empty_launch(r, c)`` launches an empty kernel on the same grid: the
-launch floor the kernel's time is measured against, on no path and not
-counted.
+``exchange_matrix_staged`` launches the kernel's staged design (a grid
+sized to the work, slower on an H100), and ``empty_launch(r, c, grid)``
+an empty kernel on the kernel's grid ("kernel"), on the staged design's
+("staged") or as one block ("one"): what the kernel's time is measured
+against, on no path and not counted.
 """
 from __future__ import annotations
 
@@ -74,12 +76,32 @@ def exchange_matrix_batched(feat: torch.Tensor, ctrl_rows: torch.Tensor
     return out
 
 
-def empty_launch(r: int, c: int) -> None:
-    """An empty kernel on ``exchange_matrix_kernel``'s grid for (R, C),
-    on the current stream: the launch floor.  Not counted."""
-    fn = LIBRARY.function("empty_launch", [ctypes.c_int] * 2
+def exchange_matrix_staged(feat: torch.Tensor, ctrl_rows: torch.Tensor
+                           ) -> torch.Tensor:
+    """The staged design of the kernel (at most one block per SM, the
+    control rows in shared memory, 16-byte stores), on the kernel's
+    inputs: (R, C), bitwise the kernel's.  On no path; not counted."""
+    check_cuda((feat, ctrl_rows), ("feat", "ctrl_rows"))
+    r, c = feat.shape[1], ctrl_rows.shape[1]
+    fn = LIBRARY.function("exchange_matrix_staged_launch", _ARGTYPES)
+    out = torch.empty((r, c), dtype=torch.float32, device=feat.device)
+    raise_on_error(fn(feat.data_ptr(), ctrl_rows.data_ptr(), out.data_ptr(),
+                      r, c, stream_ptr()), "exchange_matrix_staged")
+    return out
+
+
+EMPTY_GRIDS = ("kernel", "staged", "one")
+
+
+def empty_launch(r: int, c: int, grid: str) -> None:
+    """An empty kernel on the current stream, on the kernel's grid for (R,
+    C) ("kernel": C / 128 x R blocks of 128), on the staged design's
+    ("staged": at most 132 blocks) or as one block of 32 threads ("one").
+    A launch floor; not counted."""
+    fn = LIBRARY.function("empty_launch", [ctypes.c_int] * 3
                           + [ctypes.c_void_p])
-    raise_on_error(fn(r, c, stream_ptr()), "empty_launch")
+    raise_on_error(fn(r, c, EMPTY_GRIDS.index(grid), stream_ptr()),
+                   "empty_launch")
 
 
 def exchange_matrix(features, ctrl) -> torch.Tensor:

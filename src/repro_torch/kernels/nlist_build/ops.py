@@ -18,8 +18,9 @@ host read costs the CPU nothing).  On the card the kernels read the flag
 and build only where it is set: the dense kernels test only the tile
 pairs whose bounding boxes lie within the list radius
 (``ref.build_culled`` is that algorithm in PyTorch), the cell kernels
-bin the atoms by a counting sort and walk each row's stencil cells
-(``ref.build_cells_counting``).
+bin the atoms by a counting sort over up to 16 blocks a replica and
+test each cell's rows, a thread a row, against its stencil's atoms
+staged once for all of them (``ref.build_cells_counting``).
 """
 from __future__ import annotations
 
@@ -45,8 +46,8 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
              + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _CELL_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9
-                  + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+                  + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
                   + [ctypes.c_void_p])
 
 
@@ -161,19 +162,21 @@ def cell_build_batched(pos, take, old: Optional[Tuple], mask_bits,
                          f"capacity {cap}, {tuple(old_idx.shape)} "
                          f"{old_idx.dtype}")
     dev = pos.device
+    block = ref.bin_block(n)
+    n_blocks = -(-n // block)
     cell_of = torch.empty((r, n), dtype=torch.int32, device=dev)
-    order = torch.empty((r, n), dtype=torch.int32, device=dev)
-    start = torch.empty((r, n_cells), dtype=torch.int32, device=dev)
-    kept = torch.empty((r, n_cells), dtype=torch.int32, device=dev)
+    posc = torch.empty((r, n, 4), dtype=torch.float32, device=dev)
+    tab = torch.empty((r, n_cells, n_blocks, 2), dtype=torch.int32,
+                      device=dev)
     dropped = torch.empty(r, dtype=torch.int32, device=dev)
     fn = CELL_LIBRARY.function("cell_build_launch", _CELL_ARGTYPES)
     code = fn(pos.data_ptr(), mask_bits.data_ptr(), mask_bits.shape[1],
               flag.data_ptr(), 0 if flag.numel() == 1 else 1,
               old_idx.data_ptr(), old_valid.data_ptr(), idx.data_ptr(),
-              valid.data_ptr(), cell_of.data_ptr(), order.data_ptr(),
-              start.data_ptr(), kept.data_ptr(), dropped.data_ptr(), r, n,
-              k_max, gx, gy, gz, cap, float(np.float32(r_list)),
-              f32_square(r_list), stream_ptr())
+              valid.data_ptr(), cell_of.data_ptr(), posc.data_ptr(),
+              tab.data_ptr(), dropped.data_ptr(), r, n, k_max, gx, gy, gz,
+              cap, block, float(np.float32(r_list)), f32_square(r_list),
+              stream_ptr())
     raise_on_error(code, "cell_build")
     CELL_LIBRARY.count()
     return idx, valid, dropped

@@ -263,25 +263,79 @@ def build_cells(pos: torch.Tensor, nb_mask: torch.Tensor, r_list: float,
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+BIN_THREADS = 1024        # kBinThreads in csrc/cell_build.cu
+MAX_BIN_BLOCKS = 16       # kMaxBinBlocks: bin blocks a replica at most
+ROW_CHUNK = 32            # rows a warp of the row pass
+
+
+def bin_block(n: int) -> int:
+    """Atoms a bin block of the card's cell build: a multiple of
+    BIN_THREADS, the least that keeps N within MAX_BIN_BLOCKS blocks."""
+    return BIN_THREADS * max(1, -(-n // (BIN_THREADS * MAX_BIN_BLOCKS)))
+
+
+def bin_counting(pos: torch.Tensor, r_list: float, grid_dims,
+                 block_size: int):
+    """The card's bin pass, per replica and bin block of ``block_size``
+    atoms (block b takes atoms [b T, b T + T)): each block counts its
+    atoms per cell, scans the counts into each cell's start within its
+    segment of the cell order, and ranks its atoms stably (ascending
+    index).  Returns (order (R, N) int64: the atom at each position,
+    cell-sorted within each block's segment; table (R, cells, B, 2)
+    int64: each (cell, block)'s segment start and count; posc (R, N, 4)
+    float32: the atoms' positions in that order beside their indices'
+    bits)."""
+    r, n, _ = pos.shape
+    gx, gy, gz = grid_dims
+    n_cells = gx * gy * gz
+    cc = _cell_coords(pos, r_list, grid_dims)
+    cell_id = ((cc[..., 0] * gy + cc[..., 1]) * gz + cc[..., 2]).tolist()
+    n_blocks = -(-n // block_size)
+    order = torch.zeros((r, n), dtype=torch.int64)
+    table = torch.zeros((r, n_cells, n_blocks, 2), dtype=torch.int64)
+    for rep in range(r):
+        for b in range(n_blocks):
+            i0, i1 = b * block_size, min((b + 1) * block_size, n)
+            count = [0] * n_cells
+            for i in range(i0, i1):
+                count[cell_id[rep][i]] += 1
+            start = np.concatenate([[0], np.cumsum(count)[:-1]]).tolist()
+            table[rep, :, b, 0] = torch.tensor(start) + i0
+            table[rep, :, b, 1] = torch.tensor(count)
+            run = list(start)
+            for i in range(i0, i1):          # ascending atom index
+                c = cell_id[rep][i]
+                order[rep, i0 + run[c]] = i
+                run[c] += 1
+    gathered = torch.gather(pos, 1, order[..., None].expand(-1, -1, 3))
+    bits = order.to(torch.int32).view(torch.float32)[..., None]
+    return order, table, torch.cat([gathered, bits], dim=-1)
+
+
 def build_cells_counting(pos: torch.Tensor, mask_bits: torch.Tensor,
                          r_list: float, k_max: int, grid_dims,
-                         cell_capacity: int
+                         cell_capacity: int, block_size: int = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The card kernel's algorithm (csrc/cell_build.cu), step for step, in
-    Python loops for small tests: a counting sort (per-cell counts, each
-    cell's start at the running sum of the counts, ranks given by one pass
-    over the atoms in ascending index, the atoms put in cell order), then
-    each row walks its in-grid stencil cells in stencil order and each
-    cell's first min(count, capacity) atoms in rank order, testing the
-    mask bits (``mask_bits[i, j >> 5]`` bit ``j & 31``) and r2 <=
-    r_list^2.  Same outputs as :func:`build_cells`."""
+    """The card kernels' algorithm (csrc/cell_build.cu), step for step,
+    in Python loops for small tests.  The bin pass (``bin_counting``,
+    blocks of ``block_size`` atoms, the card's ``bin_block(N)`` by
+    default); then per cell: its rows are its atoms, its runs block by
+    block; its candidates the in-grid stencil cells' runs in stencil
+    order, each cell's clipped to its first ``cell_capacity`` atoms
+    across the blocks; the rows in chunks of 32 (a warp), each chunk's
+    candidates culled against the chunk's bounding box (gap^2 formed as
+    r2 is, dropped where > r_list^2) and the survivors tested in order
+    against the mask bits (``mask_bits[i, j >> 5]`` bit ``j & 31``) and
+    r2 <= r_list^2.  ``dropped``: each cell's atoms past the capacity,
+    and each row's hits past ``k_max``.  Same outputs as
+    :func:`build_cells`."""
     r, n, _ = pos.shape
     gx, gy, gz = grid_dims
     n_cells = gx * gy * gz
     cap = int(cell_capacity)
-    r2_max = f32_square(r_list)
-    cc = _cell_coords(pos, r_list, grid_dims)
-    cell_id = ((cc[..., 0] * gy + cc[..., 1]) * gz + cc[..., 2]).tolist()
+    r2_max = torch.tensor(f32_square(r_list), dtype=torch.float32)
+    _, table, posc = bin_counting(pos, r_list, grid_dims,
+                                  block_size or bin_block(n))
     bits = mask_bits.to(torch.int64) & 0xFFFFFFFF
     idx = torch.full((r, n, k_max), n, dtype=torch.int32)
     valid = torch.zeros((r, n, k_max), dtype=torch.float32)
@@ -290,41 +344,48 @@ def build_cells_counting(pos: torch.Tensor, mask_bits: torch.Tensor,
                for dx in ((-1, 0, 1) if gx > 1 else (0,))
                for dy in ((-1, 0, 1) if gy > 1 else (0,))
                for dz in ((-1, 0, 1) if gz > 1 else (0,))]
+    zero = torch.zeros((), dtype=torch.float32)
+
+    def gap(lo, hi, c):
+        return torch.maximum(torch.maximum(lo - c, c - hi), zero)
+
     for rep in range(r):
-        ids = cell_id[rep]
-        count = [0] * n_cells
-        for c in ids:
-            count[c] += 1
-        kept = [min(k, cap) for k in count]
-        start = np.concatenate([[0], np.cumsum(count)[:-1]]).tolist()
-        run = [0] * n_cells
-        order = [0] * n
-        for i, c in enumerate(ids):          # ascending atom index
-            order[start[c] + run[c]] = i
-            run[c] += 1
-        over = sum(k - m for k, m in zip(count, kept))
-        p = pos[rep]
-        for i in range(n):
-            c = ids[i]
+        tab, q = table[rep].tolist(), posc[rep]
+        over = 0
+        for c in range(n_cells):
+            rows = [s + t for s, k in tab[c] for t in range(k)]
+            if not rows:
+                continue
+            over += max(len(rows) - cap, 0)
             cx, cy, cz = c // (gy * gz), (c // gz) % gy, c % gz
-            hits = []
+            cand = []
             for dx, dy, dz in offsets:
                 nx, ny, nz = cx + dx, cy + dy, cz + dz
                 if not (0 <= nx < gx and 0 <= ny < gy and 0 <= nz < gz):
                     continue
-                nc = (nx * gy + ny) * gz + nz
-                js = torch.tensor(order[start[nc]:start[nc] + kept[nc]],
-                                  dtype=torch.int64)
-                if len(js) == 0:
-                    continue
-                on = ((bits[i, js >> 5] >> (js & 31)) & 1) > 0
-                d = p[i] - p[js]
-                r2 = ((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
-                      + d[:, 2] * d[:, 2])
-                hits += js[on & (r2 <= r2_max)].tolist()
-            idx[rep, i, :min(len(hits), k_max)] = torch.tensor(
-                hits[:k_max], dtype=torch.int32)
-            valid[rep, i, :min(len(hits), k_max)] = 1.0
-            over += max(len(hits) - k_max, 0)
+                seen = 0
+                for s, k in tab[(nx * gy + ny) * gz + nz]:
+                    cand += range(s, s + min(k, max(cap - seen, 0)))
+                    seen += k
+            cq = q[torch.tensor(cand, dtype=torch.int64)]
+            cj = cq[:, 3].view(torch.int32).to(torch.int64)
+            for c0 in range(0, len(rows), ROW_CHUNK):
+                rq = q[torch.tensor(rows[c0:c0 + ROW_CHUNK])]
+                lo, hi = rq[:, :3].amin(0), rq[:, :3].amax(0)
+                g = [gap(lo[a], hi[a], cq[:, a]) for a in range(3)]
+                keep = ~(((g[0] * g[0] + g[1] * g[1]) + g[2] * g[2])
+                         > r2_max)
+                sq, sj = cq[keep], cj[keep]
+                for p in rq:
+                    i = int(p[3:].view(torch.int32))
+                    d = p[:3] - sq[:, :3]
+                    r2 = ((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                          + d[:, 2] * d[:, 2])
+                    on = ((bits[i, sj >> 5] >> (sj & 31)) & 1) > 0
+                    hits = sj[(r2 <= r2_max) & on]
+                    m = min(len(hits), k_max)
+                    idx[rep, i, :m] = hits[:m].to(torch.int32)
+                    valid[rep, i, :m] = 1.0
+                    over += max(len(hits) - k_max, 0)
         dropped[rep] = over
     return idx, valid, dropped

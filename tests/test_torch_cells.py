@@ -16,8 +16,11 @@ as sets, on
     policies, counters included.
 
 The plain build equals the plain form of the card kernel's algorithm
-(``ref.build_cells_counting``: a counting sort, then each row walking
-its stencil cells); ``MDEngine(nonbonded="sparse", nlist_build="cell")``
+(``ref.build_cells_counting``: a counting sort over bin blocks, then
+each cell's rows against its stencil's runs, culled a warp's rows at a
+time), also with the bins split over blocks of 1, 7, 32 and N atoms and
+at pairs one ulp either side of r_list;
+``MDEngine(nonbonded="sparse", nlist_build="cell")``
 makes JAX's ``run_fused`` decisions at R = 8, chunk sizes 1 and 3, with
 its lists bitwise JAX's at the end.
 """
@@ -159,6 +162,104 @@ def test_plain_build_equals_the_kernel_algorithm(case):
     counting = nl_ref.build_cells_counting(p, _bits(mask), *args)
     for name, a, b in zip(("idx", "valid", "dropped"), plain, counting):
         assert torch.equal(a, b), name
+
+
+def _straddle(n_rep=2, n=40):
+    """Every other atom in one tight cluster (one cell, its atoms spread
+    over the index range and so over every bin block), the rest spread
+    over a 12 A box: with capacity 5 that cell's kept atoms lie in the
+    first blocks and its dropped ones in the later."""
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(0.0, 12.0, (n_rep, n, 3)).astype(np.float32)
+    pos[:, ::2] = (1.0 + 0.5 * rng.uniform(size=(n_rep, n // 2, 3))
+                   ).astype(np.float32)
+    return pos, np.ones((n, n), np.float32) - np.eye(n, dtype=np.float32)
+
+
+def _mirror_case(case):
+    """(pos, mask, (r_list, k_max, grid_dims, capacity)) of the counting
+    mirror's cases."""
+    if case == "gas":
+        pos, mask = _gas(n_rep=3, n=60, side=10.0, seed=3)
+        return pos, mask, (4.0, 59, (4, 3, 2), 12)
+    if case == "straddle":
+        pos, mask = _straddle()
+        return pos, mask, (4.0, 8, (3, 3, 3), 5)
+    jsys, pos = _chain(n_rep=3)
+    args = ((R_LIST, 39, _chain_dims(), 24) if case == "chain"
+            else (R_LIST, 5, _chain_dims(), 3))
+    return pos, np.asarray(jsys.nb_mask), args
+
+
+@pytest.mark.parametrize("block", [1, 7, 32, "N"])
+@pytest.mark.parametrize("case", ["gas", "chain", "overflow", "straddle"])
+def test_kernel_algorithm_over_bin_blocks_equals_jax(case, block):
+    """The card's algorithm with its bins split over blocks of 1, 7, 32
+    and N atoms (a cell's atoms, its kept ones and its capacity drops
+    spread over several blocks): bitwise JAX's build_cells and the plain
+    build; the position scratch is the positions in the bin order."""
+    pos, mask, args = _mirror_case(case)
+    n = pos.shape[1]
+    size = n if block == "N" else block
+    p = torch.from_numpy(pos.copy())
+    want = _check(pos, mask, *args)
+    plain = nl_ref.build_cells(p, torch.from_numpy(mask), *args)
+    got = nl_ref.build_cells_counting(p, _bits(mask), *args,
+                                      block_size=size)
+    for name, a, b, c in zip(("idx", "valid", "dropped"), got, plain, want):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+    if case in ("overflow", "straddle"):
+        assert int(got[2].min()) > 0
+    order, table, posc = nl_ref.bin_counting(p, args[0], args[2], size)
+    assert torch.equal(posc[..., :3], torch.gather(
+        p, 1, order[..., None].expand(-1, -1, 3)))
+    assert torch.equal(posc[..., 3].contiguous().view(torch.int32),
+                       order.to(torch.int32))
+    cc = nl_ref._cell_coords(p, args[0], args[2])
+    gx, gy, gz = args[2]
+    cell_id = (cc[..., 0] * gy + cc[..., 1]) * gz + cc[..., 2]
+    for rep in range(pos.shape[0]):
+        for c in range(gx * gy * gz):
+            atoms = torch.cat([order[rep, s:s + k]
+                               for s, k in table[rep, c].tolist()])
+            assert torch.equal(atoms, torch.nonzero(
+                cell_id[rep] == c).flatten())
+
+
+@pytest.mark.parametrize("block", [1, 32])
+def test_kernel_algorithm_cull_keeps_pairs_at_the_radius(block):
+    """The row pass's cull (a warp's rows' bounding box) on a lattice
+    whose atoms sit on cell borders and on pairs at r_list^2 and one ulp
+    either side: no pair within r_list is culled."""
+    r_list = 4.0
+    g = np.arange(6, dtype=np.float32) * np.float32(r_list)
+    lat = np.stack(np.meshgrid(g, g[:3], g[:2], indexing="ij"),
+                   -1).reshape(-1, 3)
+    r2 = np.float32(r_list * r_list)
+    ds = [np.sqrt(np.nextafter(r2, np.float32(np.inf))),
+          np.sqrt(r2), np.sqrt(np.nextafter(r2, np.float32(0)))]
+    extra = np.array([[1.0 + d, 2.0, 1.0] for d in ds]
+                     + [[1.0, 2.0, 1.0]], np.float32)
+    pos = np.concatenate([lat, extra])[None].repeat(2, 0)
+    pos[1] += np.float32(0.5)
+    n = pos.shape[1]
+    mask = np.ones((n, n), np.float32) - np.eye(n, dtype=np.float32)
+    for dims in ((6, 3, 2), (5, 3, 2), (7, 4, 3)):
+        want = _check(pos, mask, r_list, n - 1, dims, n)
+        got = nl_ref.build_cells_counting(torch.from_numpy(pos.copy()),
+                                          _bits(mask), r_list, n - 1, dims,
+                                          n, block_size=block)
+        for name, a, b in zip(("idx", "valid", "dropped"), got, want):
+            assert torch.equal(a, b), (dims, name)
+
+
+def test_bin_block_keeps_the_card_within_16_blocks():
+    """The card's bin block: 1024 atoms up to N = 16,384, then the least
+    multiple of 1024 that keeps the blocks at 16 or fewer."""
+    for n, block in ((1, 1024), (2881, 1024), (16384, 1024),
+                     (16385, 2048), (20000, 2048), (10 ** 6, 63488)):
+        assert nl_ref.bin_block(n) == block
+        assert -(-n // block) <= nl_ref.MAX_BIN_BLOCKS
 
 
 def _list_same(got, want):

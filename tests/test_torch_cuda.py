@@ -32,9 +32,10 @@ bitwise Mode I on both patterns; an asynchronous run with injected
 failures resumed from a checkpoint bitwise; the same run's decisions and
 failures as the CPU's; the oracle force paths ("batched", "vmap") within
 1e-3 A of "pallas" after 5 steps.  The seventh slice: the cell-build
-kernels bitwise their plain version (``ref.build_cells``) on the chain, on
-a chain whose cells overflow their capacity and on gases at the LJ
-fluid's density, in both states of the flag; the cell path through its
+kernels bitwise their plain version (``ref.build_cells``) on the chain at
+R = 1, 4 and 384, on a chain whose cells overflow their capacity and on
+gases at the LJ fluid's density (6,000, 16,385 and 20,000 atoms: six,
+nine and ten bin blocks), in both states of the flag; the cell path through its
 kernels under the sync guard and making the CPU's decisions; telemetry on
 and off bitwise on the card (the probes' launches only), its counters
 the CPU's; the ``repex_run`` CLI's report.
@@ -226,10 +227,16 @@ def test_fused_kernel_matches_plain_version(n_atoms, bias, salt, i):
     assert torch.equal(got[0][2], pos[2]) and torch.equal(got[1][2], vel[2])
 
 
+# (200, 130), one element, the TSU grid, and widths that end a 128-thread
+# column block ragged: 131 and 385.  The staged design (on no path; its
+# 16-byte stores need C % 4 == 0, else it stores floats) equals the kernel
+# on each, its launches not counted.
+@pytest.mark.parametrize("r,c", [(200, 130), (1, 1), (384, 384), (200, 131),
+                                 (3, 385)])
 @pytest.mark.parametrize("n_u,salt", [(0, False), (1, True), (2, True)])
-def test_exchange_matrix_kernel_matches_plain_version_bitwise(n_u, salt):
+def test_exchange_matrix_kernel_matches_plain_version_bitwise(n_u, salt, r,
+                                                              c):
     rng = np.random.default_rng(n_u)
-    r, c = 200, 130
     feats = {k: torch.from_numpy(v.astype(np.float32)).cuda() for k, v in (
         ("u_base", rng.normal(-50, 30, r)), ("u_elec", rng.normal(-200, 40, r)),
         ("phi", rng.uniform(-np.pi, np.pi, r)),
@@ -245,6 +252,10 @@ def test_exchange_matrix_kernel_matches_plain_version_bitwise(n_u, salt):
     got = x_ops.exchange_matrix(feats, ctrl)
     assert x_ops.LIBRARY.launches == n0 + 1
     assert torch.equal(got, x_ref.exchange_matrix(feats, ctrl))
+    staged = x_ops.exchange_matrix_staged(x_ops.pack_features(feats),
+                                          x_ops.pack_ctrl(ctrl))
+    assert x_ops.LIBRARY.launches == n0 + 1
+    assert torch.equal(staged, got)
 
 
 def _tsu_run(device, scheme, n_cycles=3, chunk=3, n_atoms=64,
@@ -812,14 +823,17 @@ def _gas_mask(n_atoms):
     return nb_ops.tile_flags(u8)[0], mask
 
 
-# The chain (whose cells hold ~180 atoms at N = 2881), a chain at a
-# capacity that drops atoms, a gas at the LJ fluid's density large enough
-# that suggest_build_method picks the cell build (the stencil's 27 cells
-# of ~160 slots undercut N) and a small one whose k_max drops pairs; each
-# with both flags and a flag row, every call counted once.
+# The chain (whose cells hold ~180 atoms at N = 2881) at R = 1, 4 and
+# 384, a chain at a capacity that drops atoms, gases at the LJ fluid's
+# density large enough that suggest_build_method picks the cell build
+# (the stencil's 27 cells of ~160 slots undercut N): 6,000 atoms, 16,385
+# (bin blocks of 2,048 atoms, the last holding one) and 20,000 at R = 4
+# (chip_smoke.py's); and a small gas whose k_max drops pairs; each with
+# both flags and a flag row, every call counted once.
 @pytest.mark.parametrize("kind,n_atoms,n_rep", [
-    ("chain", 2881, 4), ("chain_cap", 257, 3), ("gas", 6000, 2),
-    ("gas_kmax", 1000, 2)])
+    ("chain", 2881, 4), ("chain", 2881, 1), ("chain", 2881, 384),
+    ("chain_cap", 257, 3), ("gas", 6000, 2), ("gas", 16385, 2),
+    ("gas", 20000, 4), ("gas_kmax", 1000, 2)])
 def test_cell_build_kernel_equals_plain_build_bitwise(kind, n_atoms, n_rep):
     from repro_torch.md import neighbors as NB
     if kind.startswith("chain"):
