@@ -252,9 +252,30 @@ printed on its own lines:
                   checkpoint per step, killed after step 3 (its later
                   checkpoints removed) and resumed: bitwise the
                   uninterrupted run
- 33. GPUs         only under ``python3 -m torch.distributed.run
+ 36. examples     the fourteenth slice, the public surface: the port's
+                  four MD examples (``examples/quickstart_torch.py``,
+                  ``multidim_tsu_torch.py --full``, ``async_faults_torch.py``,
+                  ``sharded_ensemble_torch.py`` as a one-rank NCCL group),
+                  each in its own process on the card: exit 0, its
+                  closing check (multiset, and the sharded trace identical
+                  to run_fused), wall time, launches of kernels 1, 1b, 2
+ 37. MoE serving  ``serve.main`` on DeepSeek-MoE-16B at full width
+                  (float32 parameters, bf16 compute), 4 prompts x 2048
+                  tokens, 32 new tokens, twice on the same weights: 28
+                  flash launches per prefill on bf16_tc, none in decode,
+                  bitwise tokens, finite logits; init, prefill, decode
+                  ms/token, peak memory; the share of routed choices
+                  dropped at capacity; prefill(S) + decode vs
+                  prefill(S + 1) printed, not held; 37a: the device time
+                  of a warm prefill and of a decode step by kernel
+                  group, and their busy shares; 37c: one full-width
+                  MoE layer (B 4, S 2048, E 64, top 6, capacity 240) on
+                  the seeded weights at float32, card vs CPU: the same
+                  routing, y within TOL_MOE_LAYER; 37b: the deepseek-moe
+                  smoke config at float32 card vs CPU
+ 33. GPUs        only under ``python3 -m torch.distributed.run
                   --nproc-per-node N chip_smoke.py``, N > 1 GPUs of one
-                  host (without a launcher the script runs phases 1-32 on
+                  host (without a launcher the script runs phases 1-37 on
                   one card): ``run_sharded`` on N and on N/2 NCCL ranks
                   for T-REMD 64 (halo, gather, asynchronous + faults) and
                   TSU 384 (fused neighbor and matrix, sparse fused), each
@@ -406,6 +427,13 @@ CONSIST_LAYERS = 2
 # The smoke configs at float32 dtypes, card (kernel) vs CPU (plain), of
 # max |logit|: the same float32 formulas, summed in another order.
 TOL_LM_CPU = 1e-4
+# One full-width MoE layer at float32, card against CPU (phase 37c), of
+# max |y|: the same formulas summed in another order, as TOL_LM_CPU.  A
+# routing choice may differ only where the CPU's k-th and (k+1)-th
+# probabilities lie within MOE_FLIP_MARGIN (float32 router logits summed
+# in another order); a wrong dispatch or combine moves y by its own size.
+TOL_MOE_LAYER = 1e-4
+MOE_FLIP_MARGIN = 1e-5
 # The softcap of phase 19's added cases, and the factor on q that takes
 # the scores (std ~1 on unit normals) to where the cap bites.
 FA_SOFTCAP, FA_SOFTCAP_Q = 30.0, 20.0
@@ -2604,26 +2632,8 @@ def serve_against_cpu():
     """The smoke configs at float32 dtypes on the card (kernel) and on
     the CPU (plain): identical tokens, logits within TOL_LM_CPU."""
     phase("22 LM serving: card vs CPU (olmo-smoke, phi3-smoke, float32)")
-    from repro_torch.launch import serve
     for arch in ("olmo_1b", "phi3_medium_14b"):
-        argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
-                "16", "--tokens", "8", "--override", "compute_dtype=float32",
-                "cache_dtype=float32", "reduce_dtype=float32"]
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            rep = {}
-            gen = serve.main(argv + ["--device", dev], report=rep)
-            runs[dev] = (gen.cpu(), torch.stack(rep["logits"]).cpu())
-        same = torch.equal(runs["cuda"][0], runs["cpu"][0])
-        e = rel(runs["cuda"][1], runs["cpu"][1])
-        print(f"{arch} smoke: tokens identical {same}, logits max |diff| / "
-              f"max |logit| {e:.2e} (tol {TOL_LM_CPU})")
-        if not same:
-            top2 = runs["cpu"][1].topk(2, dim=-1).values
-            print(f"{arch} smoke: top-2 logit margins on the CPU "
-                  f"{(top2[..., 0] - top2[..., 1]).tolist()}")
-        check(same and e <= TOL_LM_CPU, f"{arch} smoke: the card makes the "
-                                        f"CPU's tokens")
+        serve_card_vs_cpu(arch)
 
 
 # The sixth slice: the driver's asynchronous pattern, Mode II and fault
@@ -4109,6 +4119,314 @@ def train_launcher(libs, smi: str) -> None:
     check(same, "train: resume is bitwise the uninterrupted run")
 
 
+# The fourteenth slice: the four MD examples (phase 36) and DeepSeek-MoE
+# 16B (arXiv:2401.06066) served at full width (phase 37): the serving
+# flags of phase 21, float32 parameters (the launcher's default) with
+# bf16 compute.
+EXAMPLES = (("quickstart_torch.py", ()), ("multidim_tsu_torch.py",
+                                          ("--full",)),
+            ("async_faults_torch.py", ()), ("sharded_ensemble_torch.py", ()))
+EXAMPLE_CHECKS = {
+    "quickstart_torch.py": ("control multiset preserved: True",),
+    "multidim_tsu_torch.py": ("multiset ok: True",),
+    "async_faults_torch.py": ("multiset ok after restart: True",),
+    "sharded_ensemble_torch.py": (
+        "control multiset preserved: True",
+        "assignment trace identical to run_fused: True")}
+# runs an example as ``__main__`` in a fresh process, then prints the
+# kernel launches that process made (its counts start at 0)
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "from repro_torch.kernels.chain_forces import ops as c\n"
+    "from repro_torch.kernels.lj_forces import ops as n\n"
+    "print('LAUNCHES ' + json.dumps({'chain_forces': c.LIBRARY.variants,"
+    " 'nonbonded': n.LIBRARY.launches}))\n")
+MOE_ARCH = "deepseek_moe_16b"
+
+
+def examples(smi: str) -> None:
+    """Phase 36: the port's four MD examples on the card, each in its own
+    process as a user runs it (``--device`` left at its default, the
+    card; multidim at the paper's 6 x 8 x 8 grid): exit 0, each one's
+    closing check printed, its wall time and the launches of kernels 1
+    (``chain_forces`` "plain"), 1b ("bias") and 2 (``nonbonded``)."""
+    phase("36 the four MD examples on the card, each in its own process")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for script, args in EXAMPLES:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_RUNNER,
+             str(ROOT / "examples" / script), *args],
+            capture_output=True, text=True, timeout=300, env=env)
+        wall = time.perf_counter() - t0
+        lines = out.stdout.splitlines()
+        tail = [ln for ln in lines if not ln.startswith(("chunk @", "cycle "))]
+        print(f"{script} {' '.join(args)}: exit {out.returncode}, wall "
+              f"{wall:.1f} s [{smi}]")
+        for ln in tail[-12:]:
+            print(f"  {ln}")
+        if out.returncode != 0:
+            print(out.stderr[-4000:])
+        launches = json.loads(lines[-1].split(" ", 1)[1]) \
+            if lines and lines[-1].startswith("LAUNCHES ") else None
+        check(out.returncode == 0 and launches is not None,
+              f"{script}: exits 0")
+        missing = [want for want in EXAMPLE_CHECKS[script]
+                   if want not in lines]
+        check(not missing, f"{script}: prints {missing}")
+        bonded = launches["chain_forces"]
+        need = "bias" if "--full" in args else "plain"
+        check(bonded.get(need, 0) > 0 and launches["nonbonded"] > 0,
+              f"{script}: kernels 1/1b and 2 launched")
+
+
+def moe_argv(*extra):
+    return ["--arch", MOE_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--tokens", str(LM_TOKENS), *extra]
+
+
+def serve_moe(libs, smi: str) -> int:
+    """Phase 37: ``serve.main`` on DeepSeek-MoE-16B at full width on one
+    card, twice from the same weights: the flash kernel once per layer of
+    the prefill on the tensor cores and never in decode, bitwise tokens,
+    finite logits; init, prefill, decode and peak memory; the share of
+    routed choices dropped at capacity (``forward``'s aux on the same
+    prompts); prefill(S) + decode against prefill(S + 1), printed, not
+    held (a choice prefill drops at capacity 240 decode keeps at 8).
+    Returns the first run's flash launches."""
+    from repro_torch import random as jr
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    cfg = registry.get_config(MOE_ARCH)
+    phase(f"37 LM serving: {MOE_ARCH} at full width, {LM_BATCH} prompts x "
+          f"{LM_PROMPT} tokens, {LM_TOKENS} new tokens (seeded weights, "
+          f"{cfg.param_dtype} parameters, {cfg.compute_dtype} compute)")
+    print(f"memory held before the phase {held:.2f} GiB")
+    # the earlier LM phases' state (OLMo-1B's 4.4 GiB of weights, RE-SGLD's
+    # 52.6 GiB) must be gone; the MD phases' engines may hold ~2 GiB
+    check(held < 4.0, "serve moe: the earlier LM phases' memory is freed")
+    reset(libs)
+    rep = {}
+    gen = serve.main(moe_argv(), report=rep)
+    launches = {lib.name: lib.launches for lib in libs}
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.n_layers
+    variants = dict(fa_ops.LIBRARY.variants)
+    dec = statistics.median(rep["decode_ms"])
+    print(f"params {registry.param_count(cfg)} ({cfg.param_dtype}); init "
+          f"{rep['init_s']:.2f} s; prefill {rep['prefill_ms']:.2f} ms; "
+          f"decode {dec:.3f} ms/token (median of {len(rep['decode_ms'])}; "
+          f"min {min(rep['decode_ms']):.3f}, max "
+          f"{max(rep['decode_ms']):.3f}), {LM_BATCH / dec * 1e3:.1f} "
+          f"tokens/s; peak memory {rep['peak_bytes'] / 2 ** 30:.2f} GiB "
+          f"[{smi}]")
+    print(f"launches {launches}, flash by variant {variants} (want "
+          f"{cfg.n_layers} flash on bf16_tc, one per layer of the one "
+          f"prefill, none in decode)")
+    check(launches == want and variants == {"bf16_tc": cfg.n_layers},
+          "serve moe: 28 flash launches on the tensor cores, nothing else")
+    check(gen.shape == (LM_BATCH, LM_TOKENS) and all(
+        bool(torch.isfinite(x).all()) for x in rep["logits"]),
+          "serve moe: tokens of the right shape, finite logits")
+    params = rep.pop("params")
+    reset(libs)
+    rep2 = {}
+    gen2 = serve.main(moe_argv(), params=params, report=rep2)
+    same = torch.equal(gen, gen2)
+    print(f"second run, same weights: tokens bitwise equal {same}; prefill "
+          f"{rep2['prefill_ms']:.2f} ms, decode "
+          f"{statistics.median(rep2['decode_ms']):.3f} ms/token (median of "
+          f"{len(rep2['decode_ms'])}) [{smi}]")
+    check(same and fa_ops.LIBRARY.launches == cfg.n_layers,
+          "serve moe: bitwise reproducible tokens")
+    del rep, rep2
+
+    lm = registry.build(cfg)
+    breakdown_moe(lm, params, smi)
+    moe_layer_card_vs_cpu(cfg, params, smi)
+    prompt = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
+                        cfg.vocab_size)
+    with torch.no_grad():
+        logits, aux = lm.forward(params, {"tokens": prompt})
+    del logits
+    print(f"forward on the served prompts: capacity "
+          f"{MOE.capacity(cfg, LM_PROMPT)} at S = {LM_PROMPT} "
+          f"({MOE.capacity(cfg, 1)} at decode); share of "
+          f"routed choices dropped {float(aux['moe_dropped']):.4f}; moe_aux "
+          f"{float(aux['moe_aux']):.5f}, moe_z {float(aux['moe_z']):.5f}")
+
+    toks = jr.randint(jr.key(2, "cuda"), (LM_BATCH, LM_PROMPT + 1), 0,
+                      cfg.vocab_size)
+    reset(libs)
+    _, state = lm.prefill(params, {"tokens": toks[:, :-1]},
+                          cache_len=LM_PROMPT + 1)
+    n_pre = fa_ops.LIBRARY.launches
+    dec_logits, _ = lm.decode_step(params, state, toks[:, -1:])
+    n_dec = fa_ops.LIBRARY.launches - n_pre
+    del state
+    full_logits, _ = lm.prefill(params, {"tokens": toks})
+    agree = float((dec_logits.argmax(-1) == full_logits.argmax(-1))
+                  .float().mean())
+    print(f"prefill({LM_PROMPT}) + decode vs prefill({LM_PROMPT + 1}): max "
+          f"|diff| / max |logit| {rel(dec_logits, full_logits):.2e}, argmax "
+          f"agreement {agree:.2f} (not held: routing at capacity "
+          f"{MOE.capacity(cfg, LM_PROMPT + 1)} drops choices that decode's "
+          f"{MOE.capacity(cfg, 1)} keeps); flash launches {n_pre} in "
+          f"prefill, {n_dec} in decode")
+    check(n_pre == cfg.n_layers and n_dec == 0,
+          "flash: one launch per layer per prefill, none in decode")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+# kernel groups of phase 37a, by the first pattern a kernel's name matches
+MOE_GROUPS = (("flash_attention kernel", r"flash_attention_kernel"),
+              ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
+              ("casts and copies", r"copy"),
+              ("routing (sort, scan, index, scatter, gather)",
+               r"sort|scan|index|scatter|gather"))
+
+
+def breakdown_moe(lm, params, smi: str) -> None:
+    """Phase 37a: where a warm full-width prefill's and a decode step's
+    device time goes, one profiled call each, by kernel group; the busy
+    share against the same call unprofiled (median of CUDA-event
+    times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import random as jr
+    phase("37a where a MoE prefill's and decode step's time goes")
+    cfg = lm.cfg
+    toks = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
+                      cfg.vocab_size)
+    _, state = lm.prefill(params, {"tokens": toks},
+                          cache_len=LM_PROMPT + LM_TOKENS)
+    tok = toks[:, -1:]
+    calls = {"prefill": lambda: lm.prefill(params, {"tokens": toks}),
+             "decode step": lambda: lm.decode_step(params, state, tok)}
+    for tag, fn in calls.items():
+        wall = median_ms(fn, n=5, warmup=1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        groups = dict.fromkeys([g for g, _ in MOE_GROUPS] + ["the rest"],
+                               0.0)
+        by_name = {}
+        n = 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            n += 1
+            key = next((g for g, pat in MOE_GROUPS
+                        if re.search(pat, e.name.lower())), "the rest")
+            groups[key] += e.device_time_total / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.device_time_total / 1e3
+        busy = sum(groups.values())
+        print(f"{tag}: {n} kernels, device time {busy:.3f} ms of "
+              f"{wall:.3f} ms (median of 5, unprofiled): busy share "
+              f"{busy / wall:.3f} [{smi}]")
+        for key, ms in groups.items():
+            print(f"  {key}: {ms:.3f} ms ({ms / busy:.3f})")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"  top: {ms:.3f} ms {name[:110]}")
+    del state
+
+
+def moe_layer_card_vs_cpu(cfg, params, smi: str) -> None:
+    """Phase 37c: ``moe_apply`` at full width (the served prompts' shape,
+    B 4, S 2048, E 64, top 6, capacity 240) on the first MoE layer's
+    seeded weights, float32 compute, on the card and on the CPU from the
+    same input, one that spills choices at capacity: the same expert ids
+    and keep wherever the CPU's top-k margin exceeds MOE_FLIP_MARGIN, y
+    within TOL_MOE_LAYER of max |y| at every token whose choices agree,
+    and the aux terms."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import tree_map
+    phase(f"37c one full-width MoE layer at float32, card vs CPU (B "
+          f"{LM_BATCH}, S {LM_PROMPT}, E {cfg.moe.num_experts}, top "
+          f"{cfg.moe.top_k}, capacity {MOE.capacity(cfg, LM_PROMPT)})")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cap = MOE.capacity(cfg, LM_PROMPT)
+    # unit normals plus a direction shared by a row's tokens, which
+    # biases the row's router logits alike, so experts overfill and
+    # choices spill at capacity as the served prompts' do
+    gen = torch.Generator().manual_seed(37)
+    x = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen) + \
+        torch.randn((LM_BATCH, 1, cfg.d_model), generator=gen)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t[0].to(dev), params["layers"]["moe"])
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y, aux = MOE.moe_apply(p, f32, x.to(dev))
+            logits = (x.to(dev).reshape(-1, cfg.d_model) @ p["router"]
+                      ).reshape(LM_BATCH, LM_PROMPT, e)
+            probs, _, ids, _, keep = MOE.route(logits, k, e, cap)
+        runs[dev] = [t.cpu() for t in (y, probs, ids, keep)] + [
+            {key: float(v) for key, v in aux.items()},
+            time.perf_counter() - t0]
+        del p
+    (yc, _, ids_c, keep_c, aux_c, s_c), (y, probs, ids, keep, aux, s) = (
+        runs["cuda"], runs["cpu"])
+    top = torch.sort(probs, -1, descending=True).values
+    margin = (top[..., k - 1] - top[..., k]).reshape(LM_BATCH, -1)
+    flip = (ids_c != ids).reshape(LM_BATCH, LM_PROMPT, k).any(-1)
+    moved = flip | (keep_c != keep).reshape(LM_BATCH, LM_PROMPT, k).any(-1)
+    worst = float(margin[flip].max()) if flip.any() else 0.0
+    ok_tok = ~moved
+    err = float((yc - y).abs()[ok_tok].max() / y.abs().max())
+    print(f"card {s_c:.2f} s, CPU {s:.2f} s [{smi}]; tokens with another "
+          f"expert choice {int(flip.sum())} (largest CPU top-k margin "
+          f"among them {worst:.3e}, limit {MOE_FLIP_MARGIN}), with another "
+          f"keep {int((moved & ~flip).sum())}, of {flip.numel()}; y max "
+          f"|diff| / max |y| over the rest {err:.3e} (tol {TOL_MOE_LAYER}); "
+          f"aux card {aux_c}, CPU {aux}")
+    check(worst <= MOE_FLIP_MARGIN and int(ok_tok.sum()) > 0.99 *
+          ok_tok.numel() and err <= TOL_MOE_LAYER and
+          all(abs(aux_c[key] - aux[key]) <= TOL_MOE_LAYER * abs(aux[key])
+              for key in ("moe_aux", "moe_z")) and
+          aux["moe_dropped"] > 0 and
+          (flip.any() or aux_c["moe_dropped"] == aux["moe_dropped"]),
+          "moe layer: the card routes and combines as the CPU at full "
+          "width")
+
+
+def serve_card_vs_cpu(arch: str) -> None:
+    """``arch``'s smoke config at float32 dtypes on the card (kernel) and
+    on the CPU (plain): identical tokens, logits within TOL_LM_CPU."""
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+            "16", "--tokens", "8", "--override", "compute_dtype=float32",
+            "cache_dtype=float32", "reduce_dtype=float32"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        rep = {}
+        gen = serve.main(argv + ["--device", dev], report=rep)
+        runs[dev] = (gen.cpu(), torch.stack(rep["logits"]).cpu())
+    same = torch.equal(runs["cuda"][0], runs["cpu"][0])
+    e = rel(runs["cuda"][1], runs["cpu"][1])
+    print(f"{arch} smoke: tokens identical {same}, logits max |diff| / "
+          f"max |logit| {e:.2e} (tol {TOL_LM_CPU})")
+    if not same:
+        top2 = runs["cpu"][1].topk(2, dim=-1).values
+        print(f"{arch} smoke: top-2 logit margins on the CPU "
+              f"{(top2[..., 0] - top2[..., 1]).tolist()}")
+    check(same and e <= TOL_LM_CPU, f"{arch} smoke: the card makes the "
+                                    f"CPU's tokens")
+
+
 def ready() -> bool:
     """CUDA and the repository around the script (``src/repro_torch``),
     which goes on ``sys.path``; else a message and False."""
@@ -4314,6 +4632,10 @@ def main() -> int:
     dist.destroy_process_group()
     sgld_launches, err34 = re_sgld(libs, smi)
     train_launcher(libs, smi)
+    examples(smi)
+    moe_launches = serve_moe(libs, smi)
+    phase("37b LM serving: card vs CPU (deepseek-moe-smoke, float32)")
+    serve_card_vs_cpu(MOE_ARCH)
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",
@@ -4369,7 +4691,7 @@ def main() -> int:
               "lj_forces": sum(r["variants"]["forces"]
                                for r in lj_runs.values()),
               "flash_attention": serve_launches["flash_attention"]
-              + sgld_launches["flash_attention"],
+              + sgld_launches["flash_attention"] + moe_launches,
               "cell_build": cell_launches["cell_build"]}
     errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3,
                 **errs4, flash_attention=max(err5, err34),

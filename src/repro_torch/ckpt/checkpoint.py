@@ -198,7 +198,7 @@ def _candidate_steps(directory: str) -> List[str]:
     return candidates + [n for n in _step_dirs(directory) if n != first]
 
 
-def _load_step(path: str, flat_like: Dict[str, Any]):
+def _load_step(path: str, flat_like: Dict[str, Any], verify: bool):
     """Load + verify one step dir against the template's flat keys.
 
     Raises :class:`CheckpointCorruptError` for integrity problems
@@ -242,7 +242,7 @@ def _load_step(path: str, flat_like: Dict[str, Any]):
             raise CheckpointCorruptError(
                 f"array {fpath!r} shape {list(arr.shape)} != manifest "
                 f"{meta['shape']}")
-        if versioned and "crc32" in meta:
+        if verify and versioned and "crc32" in meta:
             got = _crc32(arr)
             if got != meta["crc32"]:
                 raise CheckpointCorruptError(
@@ -253,7 +253,8 @@ def _load_step(path: str, flat_like: Dict[str, Any]):
 
 
 def load_checkpoint(directory: str, tree_like, step: Optional[int] = None,
-                    shardings=None):
+                    shardings=None, verify: bool = True,
+                    fallback: bool = True):
     """Restore into the structure of ``tree_like``, each leaf on the
     device and in the dtype of the template's leaf.  ``shardings``: a
     tree of the same structure (``None`` subtrees allowed) whose leaves
@@ -261,23 +262,27 @@ def load_checkpoint(directory: str, tree_like, step: Optional[int] = None,
     so each rank of a replica mesh loads its own block
     (``repro_torch.sharding.ensemble_shardings``).
 
-    Every array's CRC32 is verified against the manifest (version-1
-    manifests have none).  When ``step`` is None the newest intact
-    checkpoint is restored: a corrupt or truncated newest step (or a
-    stale ``latest`` pointer) walks back to the previous step; an
-    explicit ``step`` loads that step or raises.  A tree/manifest key
-    mismatch raises :class:`CheckpointError` naming the keys —
+    Every array's CRC32 is verified against the manifest (``verify``;
+    version-1 manifests have none).  When ``step`` is None the newest
+    intact checkpoint is restored: a corrupt or truncated newest step (or
+    a stale ``latest`` pointer) walks back to the previous step
+    (``fallback``); ``fallback=False`` tries the newest step only, and
+    an explicit ``step`` loads that step; either raises
+    :class:`CheckpointCorruptError` if it is not intact.  A tree/manifest
+    key mismatch raises :class:`CheckpointError` naming the keys —
     structural, never walked back.  Returns (tree, step, extra)."""
     flat_like = _flatten(tree_like)
-    fallback = step is None
-    if fallback:
+    if step is not None:
+        candidates = [f"step-{step:08d}"]
+        fallback = False
+    else:
         candidates = _candidate_steps(directory)
         if not candidates:
             raise CheckpointError(
                 f"no checkpoint found in {directory!r} (no 'latest' "
                 f"pointer and no step-* directories)")
-    else:
-        candidates = [f"step-{step:08d}"]
+        if not fallback:
+            candidates = candidates[:1]
 
     reasons: List[str] = []
     out = manifest = None
@@ -287,7 +292,7 @@ def load_checkpoint(directory: str, tree_like, step: Optional[int] = None,
             reasons.append(f"{name}: directory missing")
             continue
         try:
-            out, manifest = _load_step(path, flat_like)
+            out, manifest = _load_step(path, flat_like, verify)
             break
         except CheckpointCorruptError as e:
             reasons.append(f"{name}: {e}")

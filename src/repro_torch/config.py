@@ -2,10 +2,10 @@
 model and of its training.
 
 The port keeps its own copies of the JAX package's ``RepExConfig``,
-``TrainConfig`` and ``ModelConfig`` (same fields, same defaults) and of
-``apply_overrides``, so that it imports nothing of that package.  dtype
-fields stay strings (``"bfloat16"``, ``"float32"``); ``torch_dtype``
-maps them.
+``TrainConfig``, ``ModelConfig`` and ``MeshConfig`` (same fields, same
+defaults) and of ``apply_overrides`` and ``to_dict``, so that it imports
+nothing of that package.  dtype fields stay strings (``"bfloat16"``,
+``"float32"``); ``torch_dtype`` maps them.
 """
 from __future__ import annotations
 
@@ -162,6 +162,15 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
 
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names (the LM meshes; the replica
+    meshes of ``run_sharded`` are ``launch.mesh.make_replica_mesh``)."""
+    shape: Tuple[int, ...] = (1, 1)
+    axes: Tuple[str, ...] = ("data", "model")
+    multi_pod: bool = False
+
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -172,7 +181,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
-# Overrides
+# Overrides / serialization
 # ---------------------------------------------------------------------------
 
 
@@ -210,3 +219,7 @@ def _apply_one(cfg: Any, parts: Sequence[str], value: str) -> Any:
     else:
         new = _coerce(value, current)
     return dataclasses.replace(cfg, **{head: new})
+
+
+def to_dict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)

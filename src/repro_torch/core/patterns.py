@@ -11,9 +11,15 @@ are *ready*; a pair with an un-ready member auto-rejects and the
 un-ready replica keeps simulating.  A straggler delays only its ladder
 neighbours, never the ensemble.
 
-``fused_cycle`` derives the sweep's (dim, parity) from ``ens.cycle`` on
-the device, so a chunk of cycles runs with no host read; every mask of
-either pattern is a device tensor.  The exchange is the DEO neighbor
+``dim_index`` / ``parity`` come in two flavours:
+
+  * ``sync_cycle`` / ``async_cycle``: host ints, the caller's schedule
+    (the paper's M-REMD round robin: one dimension at a time);
+  * ``fused_cycle``: derived from ``ens.cycle`` on the device, so a chunk
+    of cycles runs with no host read.
+
+Both run the one cycle body, ``_cycle_core``; every mask of either
+pattern is a device tensor.  The exchange is the DEO neighbor
 sweep of that (dim, parity), or with ``scheme="matrix"`` the Gibbs
 exchange over the whole grid.
 
@@ -183,6 +189,67 @@ def _pop_pair_rows(stats: Dict[str, Any], keep: bool):
     if keep and pa is not None:
         return pa.to(torch.float32), pc.to(torch.float32)
     return None, None
+
+
+def _host_sweep(ens: Ensemble, dim_index: int, parity: int):
+    """A host-scheduled sweep's (dim, parity) as device scalars."""
+    dev = ens.assignment.device
+    return (torch.tensor(dim_index, device=dev),
+            torch.tensor(parity, device=dev))
+
+
+def _with_pair_rows(out_stats: Dict[str, Any], pa, pc) -> Dict[str, Any]:
+    if pa is not None:
+        out_stats["pair_attempt"], out_stats["pair_accept"] = pa, pc
+    return out_stats
+
+
+def sync_cycle(engine, grid: ControlGrid, ens: Ensemble, md_steps: int,
+               dim_index: int, parity: int, scheme: str = "neighbor",
+               execution=None, telemetry_rows: bool = False
+               ) -> Tuple[Ensemble, Dict[str, Any]]:
+    """One synchronous cycle: every replica propagates ``md_steps``, then
+    one exchange sweep along dimension ``dim_index`` at DEO ``parity``
+    (host ints).  Paper Fig 1a.
+
+    Returns (new_ens, stats) in the JAX package's layout: ``{"dim{d}":
+    {"attempted", "accepted", "mean_delta"}}``, plus the per-pair rows
+    ``pair_attempt`` / ``pair_accept`` when ``telemetry_rows`` (the
+    neighbor scheme only).  The JAX package's ``mesh`` (device
+    placement, values unchanged) has no counterpart on one device; a
+    replica-sharded cycle is ``fused_cycle(mesh=...)``."""
+    execution = execution or {"mode": "mode1", "n_waves": 1}
+    d, p = _host_sweep(ens, dim_index, parity)
+    new_ens, stats, _ = _cycle_core(
+        engine, grid, ens, pattern="synchronous", md_steps=md_steps,
+        window_steps=0, dim_index=d, parity=p, scheme=scheme,
+        execution=execution)
+    pa, pc = _pop_pair_rows(stats, telemetry_rows)
+    return new_ens, _with_pair_rows({f"dim{dim_index}": stats}, pa, pc)
+
+
+def async_cycle(engine, grid: ControlGrid, ens: Ensemble, md_steps: int,
+                window_steps: int, dim_index: int, parity: int,
+                scheme: str = "neighbor", execution=None,
+                telemetry_rows: bool = False
+                ) -> Tuple[Ensemble, Dict[str, Any]]:
+    """One asynchronous real-time window.  Paper Fig 1b.
+
+    Each replica advances by its own speed; replicas whose banked
+    progress reaches ``md_steps`` become ready, exchange, and bank the
+    remainder; a pair with an un-ready member auto-rejects.  The stats
+    are :func:`sync_cycle`'s plus ``ready_frac``, the share of replicas
+    ready this window."""
+    execution = execution or {"mode": "mode1", "n_waves": 1}
+    d, p = _host_sweep(ens, dim_index, parity)
+    new_ens, stats, ready = _cycle_core(
+        engine, grid, ens, pattern="asynchronous", md_steps=md_steps,
+        window_steps=window_steps, dim_index=d, parity=p, scheme=scheme,
+        execution=execution)
+    pa, pc = _pop_pair_rows(stats, telemetry_rows)
+    return new_ens, _with_pair_rows(
+        {f"dim{dim_index}": stats,
+         "ready_frac": torch.mean(ready.to(torch.float32))}, pa, pc)
 
 
 def fused_cycle(engine, grid: ControlGrid, ens: Ensemble, *, pattern: str,

@@ -4,13 +4,16 @@
         --batch 4 --prompt-len 2048 --tokens 32
     PYTHONPATH=src python3 -m repro_torch.launch.serve --arch olmo_1b \\
         --smoke --device cpu
+    PYTHONPATH=src python3 -m repro_torch.launch.serve \\
+        --arch deepseek_moe_16b --batch 4 --prompt-len 2048 --tokens 32
 
 The port of the JAX package's ``repro/launch/serve.py``: the same flags,
 the same seeded weights (``init_params(key(0))``) and prompts
 (``randint(key(1))``), the same printed line and tokens, plus
 ``--device`` (``cuda`` unless asked).  The decode index stays on the
-device: no host read between tokens.  Dense family only; the encdec and
-vlm inputs wait for their families.
+device: no host read between tokens.  Runs the families ``LM`` runs: the
+dense architectures and ``--arch deepseek_moe_16b`` (moe on GQA
+attention); the encdec and vlm inputs wait for their families.
 """
 from __future__ import annotations
 

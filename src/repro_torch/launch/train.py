@@ -12,8 +12,9 @@ block, microbatching) on synthetic data, with checkpoint and restart in
 the port's checkpoint format.  A restart restores the newest intact
 checkpoint and advances the data stream past the batches the restored
 steps consumed, so a killed-then-resumed run is bitwise the
-uninterrupted one (the JAX launcher starts its stream over).  Dense
-family only.
+uninterrupted one (the JAX launcher starts its stream over).  Runs the
+families ``LM`` runs (dense, and moe on GQA attention, whose aux losses
+join the loss).
 """
 from __future__ import annotations
 

@@ -1,3 +1,4 @@
-"""Language models, dense family: ``params`` (ParamDef trees and the
-bitwise draw), ``layers`` (norms, RoPE, attention, MLPs), ``lm`` (the
-``LM`` facade: prefill and decode) and ``registry``."""
+"""Language models, dense and moe families: ``params`` (ParamDef trees and
+the bitwise draw), ``layers`` (norms, RoPE, attention, MLPs), ``moe``
+(the routed + shared expert FFN), ``lm`` (the ``LM`` facade: prefill and
+decode) and ``registry``."""

@@ -1,5 +1,5 @@
-"""Language-model assembly, dense family: the port of the JAX package's
-``repro/models/lm.py`` for training and serving.
+"""Language-model assembly, dense and moe families: the port of the JAX
+package's ``repro/models/lm.py`` for training and serving.
 
 One functional ``LM`` facade per ModelConfig:
 
@@ -17,9 +17,15 @@ slice by slice; the ``lax.scan`` over layers is a Python loop over the
 stacks.  The gradient is ``torch.autograd``'s: under autograd the
 attention takes the plain path (``layers.gqa_apply``), as JAX's training
 forward does, and ``remat`` recomputes each block in the backward pass
-(``torch.utils.checkpoint``, JAX's ``nothing_saveable`` policy).  The
-other families (moe, ssm, hybrid, encdec, vlm) are still to port
-(ROADMAP.md, queue 1 item 8).
+(``torch.utils.checkpoint``, JAX's ``nothing_saveable`` policy).
+
+The moe family (DeepSeek-MoE) on GQA attention stacks its first
+``moe.first_dense_layers`` blocks as ``dense_layers`` (a dense MLP of
+the JAX package's width) and the rest as ``layers`` (the MoE FFN,
+``models/moe.py``), with caches ``dense_cache`` and ``cache``; its aux
+losses are averaged over the MoE layers.  Still to port (ROADMAP.md,
+queue 1 item 8): moe with MLA attention, and the ssm, hybrid, encdec and
+vlm families.
 """
 from __future__ import annotations
 
@@ -32,16 +38,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.params import ParamDef, stack
 from repro_torch.tree import tree_map, tree_paths, tree_unflatten
 
 Params = Dict[str, Any]
 
 
-def _not_ported(fam: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"family {fam!r}: only the dense family is ported (ROADMAP.md, "
-        f"queue 1 item 8)")
+        f"{what}: only the dense family and moe on GQA attention are "
+        f"ported; moe with MLA, ssm, hybrid, encdec and vlm are not yet "
+        f"(ROADMAP.md, queue 1 item 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -122,21 +130,33 @@ def _maybe_remat(fn, enable: bool):
 
 
 # ---------------------------------------------------------------------------
-# dense family
+# blocks: dense, and the moe family's (dense FFN or MoE FFN)
 # ---------------------------------------------------------------------------
 
 
-def _dense_block_defs(cfg: ModelConfig) -> Params:
-    return {
-        "attn_norm": L.norm_defs(cfg, "scale"),
-        "attn": L.gqa_defs(cfg),
-        "mlp_norm": L.norm_defs(cfg, "scale"),
-        "mlp": L.mlp_defs(cfg),
-    }
+def _block_defs(cfg: ModelConfig, ffn: Optional[Params] = None) -> Params:
+    """One block: attention and its norm, then the FFN's norm and ``ffn``
+    (by default the dense MLP of width ``cfg.d_ff``)."""
+    return {"attn_norm": L.norm_defs(cfg, "scale"), "attn": L.gqa_defs(cfg),
+            "mlp_norm": L.norm_defs(cfg, "scale"),
+            **(ffn or {"mlp": L.mlp_defs(cfg)})}
 
 
-def _dense_block(p: Params, cfg: ModelConfig, x, positions, cache=None,
-                 cache_index=None, return_kv=False):
+def _moe_ffn_defs(cfg: ModelConfig, dense_ffn: bool) -> Params:
+    """A moe-family block's FFN: a dense MLP of the JAX package's width
+    for the first layers, else the MoE FFN."""
+    m = cfg.moe
+    if dense_ffn:
+        f = m.d_ff_expert * (m.num_shared_experts + m.num_experts) // 8
+        return {"mlp": L.mlp_defs(cfg, d_ff=max(f, m.d_ff_expert * 4))}
+    return {"moe": MOE.moe_defs(cfg)}
+
+
+def _block(p: Params, cfg: ModelConfig, x, positions, cache=None,
+           cache_index=None, return_kv=False):
+    """One pre-norm block, attention then the FFN (``p["mlp"]`` dense,
+    ``p["moe"]`` the MoE layer).  Returns (x, the cache or the new kv,
+    the FFN's aux losses)."""
     h = L.apply_norm(p["attn_norm"], cfg, x, "scale")
     a, new_cache = L.gqa_apply(p["attn"], cfg, h, positions=positions,
                                cache=cache, cache_index=cache_index,
@@ -145,8 +165,11 @@ def _dense_block(p: Params, cfg: ModelConfig, x, positions, cache=None,
     # across the fusion) and rounds it for the second residual add
     x32 = x.float() + a.float()
     h = L.apply_norm(p["mlp_norm"], cfg, x32, "scale").to(x.dtype)
-    x = x32.to(x.dtype) + L.mlp_apply(p["mlp"], cfg, h)
-    return x, new_cache
+    if "moe" in p:
+        y, aux = MOE.moe_apply(p["moe"], cfg, h)
+    else:
+        y, aux = L.mlp_apply(p["mlp"], cfg, h), {}
+    return x32.to(x.dtype) + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -158,16 +181,29 @@ def _dense_block(p: Params, cfg: ModelConfig, x, positions, cache=None,
 class LM:
     cfg: ModelConfig
 
-    def _check_family(self) -> None:
-        if self.cfg.family != "dense":
-            raise _not_ported(self.cfg.family)
+    def _stacks(self) -> Tuple[Tuple[str, str, int], ...]:
+        """The layer stacks in depth order: (parameter key, cache key,
+        depth), for the families the port runs."""
+        cfg = self.cfg
+        if cfg.family == "dense":
+            return (("layers", "cache", cfg.n_layers),)
+        if cfg.family == "moe":
+            if cfg.attention == "mla":
+                raise _not_ported("family 'moe' with attention 'mla'")
+            nd = cfg.moe.first_dense_layers
+            return tuple(st for st in (
+                ("dense_layers", "dense_cache", nd),
+                ("layers", "cache", cfg.n_layers - nd)) if st[2])
+        raise _not_ported(f"family {cfg.family!r}")
 
     def param_defs(self) -> Params:
         cfg = self.cfg
-        self._check_family()
         defs: Params = _embed_defs(cfg)
         defs["final_norm"] = L.norm_defs(cfg, "scale")
-        defs["layers"] = stack(_dense_block_defs(cfg), cfg.n_layers)
+        for key, _, n in self._stacks():
+            ffn = (None if cfg.family == "dense"
+                   else _moe_ffn_defs(cfg, key == "dense_layers"))
+            defs[key] = stack(_block_defs(cfg, ffn), n)
         return defs
 
     # ----- forward (training) -----
@@ -175,21 +211,28 @@ class LM:
     def forward(self, params: Params, batch: Dict[str, torch.Tensor],
                 remat: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(B, S) tokens -> ((B, S, V) float32 logits, aux losses)."""
+        """(B, S) tokens -> ((B, S, V) float32 logits, aux losses: the moe
+        family's averaged over its MoE layers)."""
         cfg = self.cfg
-        self._check_family()
+        stacks = self._stacks()
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = _embed_tokens(params, cfg, tokens, positions)
 
         def block(h, lp):
-            h, _ = _dense_block(lp, cfg, h, positions)
-            return h
+            h, _, aux = _block(lp, cfg, h, positions)
+            return h, aux
         block = _maybe_remat(block, remat)
-        for lp in _unstack(params["layers"], cfg.n_layers):
-            x = block(x, lp)
+        auxs = []
+        for key, _, n in stacks:
+            for lp in _unstack(params[key], n):
+                x, aux = block(x, lp)
+                if aux:
+                    auxs.append(aux)
+        aux = ({k: torch.mean(torch.stack([a[k] for a in auxs]))
+                for k in auxs[0]} if auxs else {})
         x = L.apply_norm(params["final_norm"], cfg, x, "scale")
-        return _logits(params, cfg, x), {}
+        return _logits(params, cfg, x), aux
 
     # ----- loss -----
 
@@ -225,31 +268,34 @@ class LM:
 
     def decode_state_defs(self, batch: int, cache_len: int) -> Params:
         cfg = self.cfg
-        self._check_family()
         clen = self._attn_cache_len(cache_len)
-        return {"index": ParamDef((), (), "zeros", dtype=torch.int32),
-                "cache": stack(L.gqa_cache_defs(cfg, batch, clen),
-                               cfg.n_layers)}
+        state: Params = {"index": ParamDef((), (), "zeros",
+                                           dtype=torch.int32)}
+        for _, ckey, n in self._stacks():
+            state[ckey] = stack(L.gqa_cache_defs(cfg, batch, clen), n)
+        return state
 
     # ----- decode step (one token against the state) -----
 
     def decode_step(self, params: Params, state: Params,
                     tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
         """(B, 1) tokens -> ((B, 1, V) float32 logits, the new state).  The
-        cache is written in place: the new state holds the same cache
+        caches are written in place: the new state holds the same cache
         tensors as ``state``."""
         cfg = self.cfg
-        self._check_family()
+        stacks = self._stacks()
         idx = state["index"]
         positions = idx.reshape(1)
         x = _embed_tokens(params, cfg, tokens, positions)
-        cache = state["cache"]
-        for i in range(cfg.n_layers):
-            x, _ = _dense_block(_layer(params["layers"], i), cfg, x,
-                                positions, cache=_layer(cache, i),
-                                cache_index=idx)
+        new_state: Params = {"index": idx + 1}
+        for key, ckey, n in stacks:
+            cache = state[ckey]
+            for i in range(n):
+                x, _, _ = _block(_layer(params[key], i), cfg, x, positions,
+                                 cache=_layer(cache, i), cache_index=idx)
+            new_state[ckey] = cache
         x = L.apply_norm(params["final_norm"], cfg, x, "scale")
-        return _logits(params, cfg, x), {"index": idx + 1, "cache": cache}
+        return _logits(params, cfg, x), new_state
 
     # ----- prefill (forward + build decode state) -----
 
@@ -257,28 +303,30 @@ class LM:
                 cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
         """(B, S) prompt tokens -> ((B, 1, V) float32 logits of the last
-        position, the decode state: ``index`` = S and the (L, B, clen, G,
-        hd) cache, zero past S, or its last clen positions for a ring)."""
+        position, the decode state: ``index`` = S and each stack's (L, B,
+        clen, G, hd) cache, zero past S, or its last clen positions for a
+        ring)."""
         cfg = self.cfg
-        self._check_family()
         tokens = batch["tokens"]
         b, s = tokens.shape
         dev = tokens.device
         positions = torch.arange(s, device=dev)
         x = _embed_tokens(params, cfg, tokens, positions)
-        defs = self.decode_state_defs(b, cache_len or s)["cache"]
-        cache = {name: torch.zeros(d.shape, dtype=d.dtype, device=dev)
-                 for name, d in defs.items()}
-        clen = cache["k"].shape[2]
-        for i in range(cfg.n_layers):
-            x, kv = _dense_block(_layer(params["layers"], i), cfg, x,
-                                 positions, return_kv=True)
-            for name in ("k", "v"):
-                if clen <= s:     # ring buffer: the last clen positions
-                    cache[name][i] = kv[name][:, s - clen:]
-                else:
-                    cache[name][i, :, :s] = kv[name]
+        defs = self.decode_state_defs(b, cache_len or s)
+        state: Params = {"index": torch.tensor(s, dtype=torch.int32,
+                                               device=dev)}
+        for key, ckey, n in self._stacks():
+            cache = {name: torch.zeros(d.shape, dtype=d.dtype, device=dev)
+                     for name, d in defs[ckey].items()}
+            clen = cache["k"].shape[2]
+            for i in range(n):
+                x, kv, _ = _block(_layer(params[key], i), cfg, x, positions,
+                                  return_kv=True)
+                for name in ("k", "v"):
+                    if clen <= s:     # ring buffer: the last clen positions
+                        cache[name][i] = kv[name][:, s - clen:]
+                    else:
+                        cache[name][i, :, :s] = kv[name]
+            state[ckey] = cache
         x = L.apply_norm(params["final_norm"], cfg, x[:, -1:], "scale")
-        state = {"index": torch.tensor(s, dtype=torch.int32, device=dev),
-                 "cache": cache}
         return _logits(params, cfg, x), state

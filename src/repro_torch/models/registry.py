@@ -9,10 +9,11 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.lm import LM
 from repro_torch.models.params import param_count as _count_defs
 
-# the dense architectures of the JAX package's registry; the others wait
-# for their families (ROADMAP.md, queue 1 item 8)
+# the architectures of the JAX package's registry whose families are
+# ported (dense, and moe on GQA attention); the others wait for theirs
+# (ROADMAP.md, queue 1 item 8)
 ARCH_IDS = ("mistral_large_123b", "phi3_medium_14b", "olmo_1b",
-            "nemotron_4_15b")
+            "nemotron_4_15b", "deepseek_moe_16b")
 
 
 def normalize(arch: str) -> str:

@@ -38,7 +38,11 @@ gases at the LJ fluid's density (6,000, 16,385 and 20,000 atoms: six,
 nine and ten bin blocks), in both states of the flag; the cell path through its
 kernels under the sync guard and making the CPU's decisions; telemetry on
 and off bitwise on the card (the probes' launches only), its counters
-the CPU's; the ``repex_run`` CLI's report.
+the CPU's; the ``repex_run`` CLI's report.  The moe family: routing on
+the card identical to the CPU's on tie-heavy logits (the stable sort),
+and the deepseek-moe smoke model's float32 prefill and decode step on
+the card within 1e-4 of max |logit| of the CPU's, one flash launch per
+layer of the prefill and none in decode.
 """
 import numpy as np
 import pytest
@@ -739,6 +743,46 @@ def test_softcap_prefill_runs_through_the_kernel(dtype):
             tree_map(lambda t: t.cpu(), params), {"tokens": tokens.cpu()})
         scale = float(cpu.abs().max())
         assert float((logits.cpu() - cpu).abs().max()) <= 1e-4 * scale
+
+
+def test_moe_route_on_the_card_is_the_cpus():
+    from repro_torch.models import moe as MOE
+    rng = np.random.default_rng(0)
+    logits = torch.tensor(rng.integers(-2, 3, (2, 64, 64)),
+                          dtype=torch.float32)
+    cpu = MOE.route(logits, 6, 64, 8)
+    card = MOE.route(logits.cuda(), 6, 64, 8)
+    for name, a, b in zip(("ids", "slot", "keep"), cpu[2:], card[2:]):
+        assert torch.equal(a, b.cpu()), name
+    assert not bool(cpu[4].all())                # choices spilled
+
+
+def test_moe_smoke_model_on_the_card_is_the_cpus():
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import registry
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(
+        registry.get_smoke_config("deepseek_moe_16b"),
+        compute_dtype="float32", cache_dtype="float32",
+        reduce_dtype="float32")
+    lm = registry.build(cfg)
+    params = init_params(jr.key(0, "cuda"), lm.param_defs())
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    tokens = jr.randint(jr.key(1, "cuda"), (2, 20), 0, cfg.vocab_size)
+    n0 = fa_ops.LIBRARY.variants.get("f32", 0)
+    logits, state = lm.prefill(params, {"tokens": tokens}, cache_len=24)
+    assert fa_ops.LIBRARY.variants["f32"] == n0 + cfg.n_layers
+    cpu, cpu_state = lm.prefill(cpu_params, {"tokens": tokens.cpu()},
+                                cache_len=24)
+    tok = torch.argmax(cpu[:, -1], -1)[:, None]
+    step, _ = lm.decode_step(params, state, tok.cuda())
+    cpu_step, _ = lm.decode_step(cpu_params, cpu_state, tok)
+    assert fa_ops.LIBRARY.variants["f32"] == n0 + cfg.n_layers
+    for got, want in ((logits, cpu), (step, cpu_step)):
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
 
 
 # -- the driver's patterns, modes and fault tolerance on the card --------

@@ -1,6 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package (``repro``), not even its
-JAX-free modules."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's example scripts (``examples/*_torch.py``) import neither JAX nor
+anything of the JAX package (``repro``), not even its JAX-free
+modules."""
 import re
 import subprocess
 import sys
@@ -20,8 +21,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for i, path in enumerate([{smoke!r}] + {examples!r}):
+    spec = importlib.util.spec_from_file_location(f"script{{i}}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 print(" ".join(names))
@@ -32,7 +34,8 @@ print(" ".join(names))
 # observability slice (telemetry, the report, the repex_run CLI), of
 # the replica-sharded slice (sharding, the mesh, the exchange) and of the
 # LM training slice (data, optimizers, the RE-SGLD engine, the train step
-# and launcher)
+# and launcher), and of the public surface and the moe family (the engine
+# protocol, the MoE layer, DeepSeek-MoE's config)
 SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.core.patterns", "repro_torch.core.modes",
                  "repro_torch.core.failures", "repro_torch.core.repex",
@@ -47,16 +50,24 @@ SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.optim", "repro_torch.optim.adamw",
                  "repro_torch.optim.sgld", "repro_torch.optim.compression",
                  "repro_torch.models.lm_engine", "repro_torch.launch.steps",
-                 "repro_torch.launch.train")
+                 "repro_torch.launch.train",
+                 "repro_torch.core.engine", "repro_torch.models.moe",
+                 "repro_torch.configs.deepseek_moe_16b")
+
+
+def _examples():
+    return sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + _examples())
 
 
 def test_port_imports_without_jax_or_repro():
     code = _PROBE.format(src=str(ROOT / "src"),
-                         smoke=str(ROOT / "chip_smoke.py"))
+                         smoke=str(ROOT / "chip_smoke.py"),
+                         examples=[str(p) for p in _examples()])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -69,6 +80,7 @@ def test_port_imports_without_jax_or_repro():
 def test_no_source_names_jax_or_repro():
     assert len(_sources()) > 17
     assert PORT / "ckpt" / "checkpoint.py" in _sources()
+    assert len(_examples()) == 5
     for path in _sources():
         hits = IMPORT_RE.findall(path.read_text())
         assert not hits, f"{path} imports {hits}"

@@ -1,0 +1,361 @@
+"""The moe family on GQA attention (DeepSeek-MoE): the port's
+``models/moe.py``, the moe branches of ``models/lm.py`` and
+``serve.main`` against the JAX package's, on the CPU, on
+deepseek-moe-smoke (3 layers, the first dense; 8 routed experts + 2
+shared, top-2).
+
+  * ``init_params`` bitwise (``dense_layers`` / ``layers`` and the
+    nested ``moe`` / ``shared`` leaves in JAX's order);
+  * routing (``moe.route``) identical to ``_route_row`` on the same
+    logits: expert ids, slots and keep, ties included (lower expert
+    first) and with tokens spilling at capacity;
+  * ``moe_apply`` within 1e-5 of max |y| in float32 and 2e-2 in
+    bfloat16, its three aux terms within float32 rounding; on a routing
+    flip between the two runs the k-th / (k+1)-th probability margin is
+    printed (a rounding flip shows a tiny one);
+  * ``LM.prefill`` + 8 ``decode_step``s and ``LM.loss`` with its aux
+    terms: float32 within 5e-5 of max |logit| and identical greedy
+    tokens, bfloat16 within 2e-2 (fed JAX's tokens).  float32 seen: up
+    to 1.0e-5 on this model (and 2.3e-5 with every layer an MoE layer,
+    8.4e-6 with none): per-ulp differences of the expert sums, which the
+    dense family's tests see at 5e-6; bfloat16 seen bitwise;
+  * ``LM.value_and_grad`` (``torch.autograd`` through the router, the
+    slot scatter and gather, and the combine; with and without remat of
+    the ``(h, aux)`` block) against ``jax.value_and_grad(loss)`` leaf by
+    leaf: float32 within 1e-4 of max |JAX| and bfloat16 within 3e-2, as
+    the dense family's gradients in ``test_torch_train.py``; remat
+    bitwise the plain backward;
+  * ``make_train_step`` over 3 AdamW steps (remat on, as the train
+    launcher runs) against JAX's jitted step: the parameters absolutely
+    within 1e-4 (float32) and 2 x the sum of the rates (bfloat16), as
+    ``test_torch_train.py`` holds the dense family's; each step's loss
+    within 1e-5 of JAX's step (float32), and within 1e-3 of JAX's loss
+    on the port's parameters of that step (bfloat16: that drift flips
+    bf16 routing choices);
+  * ``serve.main(--arch deepseek_moe_16b --smoke --device cpu)`` makes
+    JAX ``serve.main``'s tokens.
+"""
+import contextlib
+import dataclasses
+import io
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import TrainConfig as JTrainConfig
+from repro.data import SyntheticLMDataset as JDataset
+from repro.launch import serve as j_serve
+from repro.launch import steps as j_steps
+from repro.models import moe as JM
+from repro.models import registry as j_registry
+from repro.models.params import init_params as j_init_params
+from repro_torch import convert
+from repro_torch import random as jr
+from repro_torch.config import TrainConfig, torch_dtype
+from repro_torch.launch import serve, steps
+from repro_torch.models import moe as TM
+from repro_torch.models import params as P
+from repro_torch.models import registry
+from repro_torch.tree import tree_paths
+
+ARCH = "deepseek_moe_16b"
+EXACT = dict(compute_dtype="float32", cache_dtype="float32",
+             reduce_dtype="float32")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfgs(exact=False, **kw):
+    kw = dict(EXACT, **kw) if exact else kw
+    return (dataclasses.replace(j_registry.get_smoke_config(ARCH), **kw),
+            dataclasses.replace(registry.get_smoke_config(ARCH), **kw))
+
+
+def _t(a):
+    return convert.lm_params_from_arrays({"a": np.asarray(a)}, "cpu")["a"]
+
+
+def _np(x):
+    return np.asarray(x.float() if torch.is_tensor(x) else
+                      jnp.asarray(x).astype(jnp.float32))
+
+
+def _err(got, want):
+    want, got = _np(want), _np(got)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+# -- parameters ---------------------------------------------------------------
+
+
+def test_config_and_init_params_bitwise():
+    jc, tc = _cfgs()
+    assert dataclasses.asdict(registry.get_config(ARCH)) == \
+        dataclasses.asdict(j_registry.get_config(ARCH))
+    want = j_init_params(jax.random.key(0), j_registry.build(jc).param_defs())
+    got = P.init_params(jr.key(0), registry.build(tc).param_defs())
+    leaves = jax.tree_util.tree_leaves_with_path(want)
+    assert len(leaves) == len(P._leaves_sorted(
+        registry.build(tc).param_defs())) == 25
+    for path, leaf in leaves:
+        t = got
+        for k in path:
+            t = t[k.key]
+        np.testing.assert_array_equal(t.numpy(), np.asarray(leaf),
+                                      err_msg=jax.tree_util.keystr(path))
+    assert registry.param_count(tc) == j_registry.param_count(jc)
+    full = registry.get_config(ARCH)
+    assert registry.param_count(full) == j_registry.param_count(
+        j_registry.get_config(ARCH)) == 16_379_856_896
+
+
+@pytest.mark.parametrize("s,cap", [(2048, 240), (1, 8), (16, 8)])
+def test_capacity(s, cap):
+    assert TM.capacity(registry.get_config(ARCH), s) == cap == JM.capacity(
+        j_registry.get_config(ARCH), s)
+
+
+# -- routing ------------------------------------------------------------------
+
+
+def _logits(case, s, e, seed):
+    rng = np.random.default_rng(seed)
+    if case == "ties":                  # few distinct values: ties everywhere
+        return rng.integers(-2, 3, (s, e)).astype(np.float32)
+    if case == "bf16":                  # bf16-rounded, as a bf16 router makes
+        a = rng.standard_normal((s, e)).astype(np.float32)
+        return np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                          .astype(jnp.float32))
+    return rng.standard_normal((s, e)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["normal", "ties", "bf16"])
+@pytest.mark.parametrize("s,e,k,cap", [(16, 8, 2, 8), (64, 8, 2, 8),
+                                       (48, 64, 6, 8)])
+def test_route_matches_jax(case, s, e, k, cap):
+    a = _logits(case, s, e, seed=s + e)
+    probs, w, ids, slot, keep = JM._route_row(jnp.asarray(a), k, e, cap)
+    tp, tw, tids, tslot, tkeep = TM.route(torch.from_numpy(a.copy())[None],
+                                          k, e, cap)
+    np.testing.assert_array_equal(tids[0].numpy(), np.asarray(ids))
+    np.testing.assert_array_equal(tslot[0].numpy(), np.asarray(slot))
+    np.testing.assert_array_equal(tkeep[0].numpy(), np.asarray(keep))
+    assert _err(tp[0], probs) <= 1e-6 and _err(tw[0], w) <= 1e-6
+    if case == "ties":
+        assert (np.diff(np.sort(a, -1), axis=-1) == 0).any()
+    if s * k > e * cap:
+        assert not np.asarray(keep).all()     # tokens spilled
+
+
+# -- the layer ---------------------------------------------------------------
+
+
+def _flip_margins(jc, tc, jp, tp, jx, tx):
+    """Route both runs' own router logits; where the ids differ, print
+    the k-th / (k+1)-th probability margin of those tokens."""
+    cd = jnp.dtype(jc.compute_dtype)
+    jl = jnp.einsum("bsd,de->bse", jx.astype(cd), jp["router"].astype(cd))
+    b, s, _ = tx.shape
+    e, k = jc.moe.num_experts, jc.moe.top_k
+    cap = JM.capacity(jc, s)
+    jids = np.stack([np.asarray(JM._route_row(jl[i], k, e, cap)[2])
+                     for i in range(b)])
+    tcd = torch_dtype(tc.compute_dtype)
+    tl = (tx.to(tcd).reshape(b * s, -1) @ tp["router"].to(tcd)).reshape(
+        b, s, e)
+    probs, _, tids, _, _ = TM.route(tl, k, e, cap)
+    flips = np.argwhere(tids.numpy() != jids)
+    for row, j in flips:
+        srt = torch.sort(probs[row, j // k], descending=True).values
+        print(f"routing flip at row {row} token {j // k}: k-th - (k+1)-th "
+              f"probability {float(srt[k - 1] - srt[k]):.3e}")
+    return len(flips)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("s", [1, 16, 64])
+def test_moe_apply_matches_jax(exact, s):
+    jc, tc = _cfgs(exact)
+    jp = j_init_params(jax.random.key(3), JM.moe_defs(jc))
+    tp = convert.lm_params_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
+    a = np.random.default_rng(s).standard_normal((2, s, 64))
+    jx = jnp.asarray(a.astype(np.float32)).astype(
+        jnp.float32 if exact else jnp.bfloat16)
+    tx = _t(jx)
+    jy, jaux = jax.jit(lambda p, x: JM.moe_apply(p, jc, x))(jp, jx)
+    ty, taux = TM.moe_apply(tp, tc, tx)
+    assert ty.dtype == tx.dtype
+    _flip_margins(jc, tc, jp, tp, jx, tx)
+    assert _err(ty, jy) <= (1e-5 if exact else 2e-2)
+    assert set(taux) == set(jaux) == {"moe_aux", "moe_z", "moe_dropped"}
+    for key in ("moe_aux", "moe_z"):
+        assert _err(taux[key], jaux[key]) <= 1e-6
+    assert float(taux["moe_dropped"]) == float(jaux["moe_dropped"])
+    if s == 64:
+        assert float(jaux["moe_dropped"]) > 0      # capacity 32 spills
+
+
+# -- the model ---------------------------------------------------------------
+
+
+def _model(exact):
+    jc, tc = _cfgs(exact)
+    jlm, tlm = j_registry.build(jc), registry.build(tc)
+    jp = j_init_params(jax.random.key(0), jlm.param_defs())
+    tp = convert.lm_params_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
+    return jc, jlm, tlm, jp, tp
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_prefill_and_decode(exact):
+    jc, jlm, tlm, jp, tp = _model(exact)
+    tol = 5e-5 if exact else 2e-2
+    tokens = jax.random.randint(jax.random.key(1), (2, 16), 0, jc.vocab_size)
+    jlog, jst = jax.jit(lambda p, t: jlm.prefill(p, {"tokens": t},
+                                                 cache_len=24))(jp, tokens)
+    tlog, tst = tlm.prefill(tp, {"tokens": _t(tokens).long()}, cache_len=24)
+    assert set(tst) == set(jst) == {"index", "dense_cache", "cache"}
+    for ckey in ("dense_cache", "cache"):
+        for name in ("k", "v"):
+            assert tst[ckey][name].shape == jst[ckey][name].shape
+            assert _err(tst[ckey][name], jst[ckey][name]) <= tol
+    decode = jax.jit(jlm.decode_step)
+    for step in range(9):
+        assert _err(tlog, jlog) <= tol
+        jtok = jnp.argmax(jlog[:, -1], -1)[:, None]
+        if exact:
+            np.testing.assert_array_equal(
+                torch.argmax(tlog[:, -1], -1)[:, None].numpy(),
+                np.asarray(jtok))
+        if step == 8:
+            break
+        jlog, jst = decode(jp, jst, jtok)
+        tlog, tst = tlm.decode_step(tp, tst, _t(jtok).long())
+    assert int(tst["index"]) == int(jst["index"]) == 24
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_loss_with_aux_terms(exact):
+    jc, jlm, tlm, jp, tp = _model(exact)
+    tokens = jax.random.randint(jax.random.key(2), (2, 32), 0, jc.vocab_size)
+    batch = {"tokens": tokens, "labels": jnp.roll(tokens, -1, 1)}
+    jl, jm = jax.jit(jlm.loss)(jp, batch)
+    tl, tm = tlm.loss(tp, {k: _t(v).long() for k, v in batch.items()})
+    assert set(tm) == set(jm) == {"loss", "ce", "acc", "moe_aux", "moe_z",
+                                  "moe_dropped"}
+    tol = 1e-5 if exact else 1e-3
+    for key in ("loss", "ce", "moe_aux", "moe_z"):
+        assert _err(tm[key], jm[key]) <= tol, key
+    for key in ("acc", "moe_dropped"):
+        assert float(tm[key]) == float(jm[key]), key
+    # the total leaves the dropped share out
+    assert abs(float(tm["loss"]) - float(tm["ce"] + tm["moe_aux"]
+                                         + tm["moe_z"])) <= 1e-6
+
+
+# -- training -------------------------------------------------------------
+
+
+def _batch(jc, seq=32, batch=4, seed=0):
+    return JDataset(jc.vocab_size, seq, batch, seed=seed).next_batch()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_value_and_grad_per_leaf(exact):
+    """The gradient through the MoE layers (routing weights, the slot
+    scatter and gather, the combine and the aux losses) against JAX's,
+    leaf by leaf, with and without remat."""
+    jc, jlm, tlm, jp, tp = _model(exact)
+    b = _batch(jc)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jlm.loss, has_aux=True))(
+        jp, jax.tree.map(jnp.asarray, b))
+    tb = {k: torch.as_tensor(v) for k, v in b.items()}
+    tol = 1e-4 if exact else 3e-2
+    runs = []
+    for remat in (False, True):
+        (tl, tm), tg = tlm.value_and_grad(tp, tb, remat=remat)
+        runs.append(tg)
+        assert float(jm["moe_dropped"]) > 0       # tokens spill at capacity
+        for key in ("loss", "ce", "moe_aux", "moe_z"):
+            assert _err(tm[key], jm[key]) <= (1e-5 if exact else 1e-3), key
+        assert float(tm["moe_dropped"]) == float(jm["moe_dropped"])
+        want = jax.tree_util.tree_leaves_with_path(jg)
+        got = tree_paths(tg)
+        assert len(got) == len(want) == 25
+        for (path, w), (_, g) in zip(want, got):
+            name = jax.tree_util.keystr(path)
+            assert g.shape == w.shape, name
+            assert float(np.abs(_np(w)).max()) > 0, name
+            assert _err(g, w) <= tol, (remat, name, _err(g, w))
+    for (_, a), (_, c) in zip(tree_paths(runs[0]), tree_paths(runs[1])):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_train_step_matches_jax(exact):
+    """3 AdamW steps of ``make_train_step`` with remat against JAX's."""
+    jc, tc = _cfgs(exact)
+    kw = dict(learning_rate=1e-3, warmup_steps=10, total_steps=50,
+              remat_policy="block")
+    jstep = jax.jit(j_steps.make_train_step(j_registry.build(jc),
+                                            JTrainConfig(**kw)))
+    tstep = steps.make_train_step(registry.build(tc), TrainConfig(**kw))
+    js = j_steps.init_train_state(jax.random.key(0), j_registry.build(jc))
+    ts = steps.init_train_state(jr.key(0), registry.build(tc))
+    jloss = jax.jit(j_registry.build(jc).loss)
+    ds = JDataset(jc.vocab_size, 32, 4)
+    lr_sum = 0.0
+    for _ in range(3):
+        b = ds.next_batch()
+        jb = jax.tree.map(jnp.asarray, b)
+        # bfloat16: JAX's loss on the port's own parameters (the AdamW
+        # drift below flips bf16 routing choices, which moves the loss
+        # of the two trajectories apart: seen 1.9e-3 at step 3, while
+        # one set of parameters gives 6.4e-6)
+        on_port = jloss(jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                                     ts["params"]), jb)[1]
+        js, jm = jstep(js, jb)
+        ts, tm = tstep(ts, {k: torch.as_tensor(v) for k, v in b.items()})
+        want = jm if exact else on_port
+        assert abs(float(tm["loss"]) - float(want["loss"])) <= \
+            (1e-5 if exact else 1e-3) * abs(float(want["loss"]))
+        assert float(tm["moe_dropped"]) == float(want["moe_dropped"])
+        lr_sum += float(jm["lr"])
+    assert int(ts["step"]) == int(js["step"]) == 3
+    ptol = 1e-4 if exact else 2 * lr_sum
+    want = jax.tree_util.tree_leaves_with_path(js["params"])
+    for (path, w), (_, g) in zip(want, tree_paths(ts["params"])):
+        d = float(np.abs(g.numpy() - np.asarray(w)).max())
+        assert d <= ptol, (jax.tree_util.keystr(path), d)
+
+
+def test_serve_main_makes_jax_tokens(monkeypatch):
+    argv = ["--arch", ARCH, "--smoke", "--batch", "2", "--prompt-len", "16",
+            "--tokens", "8", "--override", "compute_dtype=float32",
+            "cache_dtype=float32", "reduce_dtype=float32"]
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        j_serve.main()
+    jax_line, *rows = out.getvalue().splitlines()
+    want = np.array([[int(v) for v in r.strip(" []").split()] for r in rows])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = serve.main(argv + ["--device", "cpu"])
+    assert got.shape == (2, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert out.getvalue().splitlines()[0].split(" in ")[0] == \
+        jax_line.split(" in ")[0]

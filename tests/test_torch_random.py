@@ -95,3 +95,30 @@ def test_stacked_step_noise_matches(n_steps):
     want = np.asarray(jI.stacked_step_noise(jkeys, n_steps, (5, 3)))
     assert got.shape == want.shape
     assert _ulps(got, want).max() <= 1
+
+
+@pytest.mark.parametrize("k0", [0, 5, 2 ** 31 - 3])
+def test_random_bits_past_two_to_the_32(k0):
+    """Element i of a draw hashes the counter words (i >> 32, i &
+    0xffffffff) under JAX's partitionable threefry
+    (``prng.iota_2x32_shape``): the port's words at flat index 2^32 + k
+    are JAX's threefry2x32 on (1, k), called on those words directly (a
+    DeepSeek-MoE-16B expert leaf holds 4.98e9 elements)."""
+    from jax._src import prng
+    hi, lo = prng.iota_2x32_shape((3, 4))
+    np.testing.assert_array_equal(np.asarray(hi), 0)
+    np.testing.assert_array_equal(np.asarray(lo).ravel(), np.arange(12))
+    key = jax.random.fold_in(jax.random.key(0), 17)
+    k1, k2 = (jnp.asarray(w, jnp.uint32) for w in _data(key))
+    lo = jnp.arange(k0, k0 + 8, dtype=jnp.uint32)
+    b1, b2 = prng.threefry2x32_p.bind(k1, k2, jnp.ones_like(lo), lo)
+    want = np.asarray(b1 ^ b2).astype(np.int64)
+    got = jr.random_bits(torch.from_numpy(_data(key)), (8,), 2 ** 32 + k0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # across the boundary: the high word steps from 0 to 1
+    got = jr.random_bits(torch.from_numpy(_data(key)), (4,), 2 ** 32 - 2)
+    b1, b2 = prng.threefry2x32_p.bind(
+        k1, k2, jnp.asarray([0, 0, 1, 1], jnp.uint32),
+        jnp.asarray([2 ** 32 - 2, 2 ** 32 - 1, 0, 1], jnp.uint32))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(b1 ^ b2).astype(np.int64))
