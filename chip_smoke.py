@@ -119,13 +119,22 @@ printed on its own lines:
                   100, 2048; D = 16, 64, 128) and at OLMo-1B's prefill
                   shape (4, 2048, 16, 128) in bfloat16, then 32 softcap
                   cases (c = 30, scores scaled up so the cap bites; float32
-                  and bfloat16; causal and windowed); the launches by
+                  and bfloat16; causal and windowed); then the fifteenth
+                  slice's 52: MLA's prefill (D 192, Dv 128, H = G = 16)
+                  and RecurrentGemma's local attention (D = Dv = 256, one
+                  kv head, window 2048, softcap 30) at the served shape,
+                  and (D, Dv) = (192, 128), (256, 256), (24, 16), (64,
+                  128) at S = 16, 100, 300 with a window and the softcap,
+                  G = H and G = 1, float32 and bfloat16; the launches by
                   variant ("bf16_tc" on the tensor cores, "f32")
  20. timing       the kernel at that shape as in phase 4, with PyTorch's
                   ``scaled_dot_product_attention`` on the same tensors as
                   the yardstick call (and the share of phase 19's
                   allowance its output uses, printed only), the bound and
-                  the kernel's time before the tensor-core design
+                  the kernel's time before the tensor-core design; 20b:
+                  the same at the MLA and RecurrentGemma prefill shapes
+                  (SDPA where it computes the function: not with the
+                  softcap)
  21. serve        ``repro_torch.launch.serve.main`` on OLMo-1B at full
                   width (seeded weights): 4 prompts of 2048 tokens, 32
                   greedy tokens; init, prefill and decode times, peak
@@ -273,9 +282,24 @@ printed on its own lines:
                   the seeded weights at float32, card vs CPU: the same
                   routing, y within TOL_MOE_LAYER; 37b: the deepseek-moe
                   smoke config at float32 card vs CPU
+ 38. MLA serving  the fifteenth slice: ``serve.main`` on DeepSeek-V2-Lite
+                  16B at full width (float32 parameters, bf16 compute), 4
+                  prompts x 2048 tokens, 32 new tokens, twice on the same
+                  weights, once the earlier LM phases' memory is freed: 27
+                  flash launches per prefill on bf16_tc (MLA's D 192, Dv
+                  128), none in decode, bitwise tokens, finite logits;
+                  init, cold and warm prefill, decode ms/token, peak
+                  memory; 38a: a warm prefill and a decode step by kernel
+                  group; 38b: deepseek-v2-lite-smoke at float32 card vs
+                  CPU
+ 39. hybrid       the same for RecurrentGemma-9B, after phase 38's state
+                  is freed: 12 flash launches per prefill (its attention
+                  blocks: D 256, one kv head, window 2048, softcap 30),
+                  none in decode; 39a, and 39b on recurrentgemma-smoke
+                  (its ring buffer wrapping)
  33. GPUs        only under ``python3 -m torch.distributed.run
                   --nproc-per-node N chip_smoke.py``, N > 1 GPUs of one
-                  host (without a launcher the script runs phases 1-37 on
+                  host (without a launcher the script runs phases 1-39 on
                   one card): ``run_sharded`` on N and on N/2 NCCL ranks
                   for T-REMD 64 (halo, gather, asynchronous + faults) and
                   TSU 384 (fused neighbor and matrix, sparse fused), each
@@ -437,6 +461,10 @@ MOE_FLIP_MARGIN = 1e-5
 # The softcap of phase 19's added cases, and the factor on q that takes
 # the scores (std ~1 on unit normals) to where the cap bites.
 FA_SOFTCAP, FA_SOFTCAP_Q = 30.0, 20.0
+# Kernel 8's (D, Dv) past its first 128-dim design (phase 19): MLA's
+# prefill, RecurrentGemma's local attention, and q/k and v head dims apart
+# either way (the tensor-core variant's zero halves past D or Dv)
+FA_WIDE_DIMS = ((192, 128), (256, 256), (24, 16), (64, 128))
 # Kernel times before the current designs, at the same shapes: kernel 3
 # (fused BAOAB, R = 384, N = 2881; every ordered pair, divisions),
 # kernel 8 (flash attention, OLMo-1B prefill shape, bf16 on the CUDA
@@ -2304,7 +2332,8 @@ def invariance_lj():
 
 
 def fa_cases():
-    """Phase 19's cases: (dtype, mask, H / G, S = T, D, B, H, softcap)."""
+    """Phase 19's cases: (dtype, mask, H / G, S = T, D, B, H, softcap,
+    Dv); Dv = D but in the fifteenth slice's cases."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for causal, window in ((True, 0), (False, 0), (True, 64)):
@@ -2312,29 +2341,43 @@ def fa_cases():
                 for s in (16, 100, 2048):
                     for d in (16, 64, 128):
                         cases.append((dtype, causal, window, rep, s, d, 1, 8,
-                                      0.0))
+                                      0.0, d))
     # the OLMo-1B prefill shape, and the energy evaluations of phase 34
     # (OLMo-1B) and 34b (the float32 smoke preset)
     cases.append((torch.bfloat16, True, 0, 1, LM_PROMPT, 128, LM_BATCH, 16,
-                  0.0))
-    cases.append((torch.bfloat16, True, 0, 1, 64, 128, 8, 16, 0.0))
-    cases.append((torch.float32, True, 0, 1, 64, 32, 8, 4, 0.0))
+                  0.0, 128))
+    cases.append((torch.bfloat16, True, 0, 1, 64, 128, 8, 16, 0.0, 128))
+    cases.append((torch.float32, True, 0, 1, 64, 32, 8, 4, 0.0, 32))
     for dtype in (torch.float32, torch.bfloat16):
         for window in (0, 64):
             for rep in (1, 4):
                 for s in (100, 2048):
                     for d in (64, 128):
                         cases.append((dtype, True, window, rep, s, d, 1, 8,
-                                      FA_SOFTCAP))
+                                      FA_SOFTCAP, d))
+    # the fifteenth slice: MLA's prefill (D 192, Dv 128, H = G = 16) and
+    # RecurrentGemma's local attention (D = Dv = 256, one kv head, window
+    # 2048, softcap 30) at the served shape; then a small-S sweep with a
+    # window and the softcap, q/k and v head dims apart either way
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((dtype, True, 0, 1, LM_PROMPT, 192, LM_BATCH, 16, 0.0,
+                      128))
+        cases.append((dtype, True, LM_PROMPT, 16, LM_PROMPT, 256, LM_BATCH,
+                      16, FA_SOFTCAP, 256))
+        for d, dv in FA_WIDE_DIMS:
+            for rep in (1, 16):
+                for s in (16, 100, 300):
+                    cases.append((dtype, True, 64, rep, s, d, 1, 16,
+                                  FA_SOFTCAP, dv))
     return cases
 
 
-def fa_inputs(dtype, rep, s, d, b, h, seed=SEED):
+def fa_inputs(dtype, rep, s, d, b, h, seed=SEED, dv=None):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, s, h // rep, d), generator=gen,
                     device="cuda").to(dtype)
-    v = torch.randn((b, s, h // rep, d), generator=gen,
+    v = torch.randn((b, s, h // rep, dv or d), generator=gen,
                     device="cuda").to(dtype)
     return q, k, v
 
@@ -2349,13 +2392,14 @@ def fa_allowance_used(got, want, dtype) -> float:
 
 def compare_fifth():
     """Kernel 8 against its plain version on every case; returns the max
-    absolute error at the OLMo-1B prefill shape."""
+    absolute error at the served prefill shapes (B = 4, S = 2048,
+    bfloat16: OLMo-1B's, MLA's, RecurrentGemma's)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     worst, used = {}, {}
-    err_olmo = None
+    err_olmo, err_served = None, 0.0
     fa_ops.LIBRARY.reset()
-    for dtype, causal, window, rep, s, d, b, h, cap in fa_cases():
-        q, k, v = fa_inputs(dtype, rep, s, d, b, h)
+    for dtype, causal, window, rep, s, d, b, h, cap, dv in fa_cases():
+        q, k, v = fa_inputs(dtype, rep, s, d, b, h, dv=dv)
         if cap:
             q = FA_SOFTCAP_Q * q
         got = fa_ops.flash_attention_kernel(q, k, v, causal=causal,
@@ -2365,14 +2409,21 @@ def compare_fifth():
         e = rel(got.float(), want.float())
         u = fa_allowance_used(got, want, dtype)
         tag = (f"{str(dtype)[6:]} causal={causal} window={window} H/G={rep} "
-               f"S=T={s} D={d} B={b} H={h} softcap={cap}")
+               f"S=T={s} D={d} Dv={dv} B={b} H={h} softcap={cap}")
         check(got.dtype == dtype and bool(torch.isfinite(got).all())
               and u <= 1.0, f"flash_attention vs plain: {tag}: {u:.3f} of "
                             f"the allowance (max |diff| / max |plain| "
                             f"{e:.2e})")
-        key = str(dtype)[6:] + (f" softcap {cap}" if cap else "")
+        key = str(dtype)[6:] + (f" softcap {cap}" if cap else "") + (
+            f" D {d} Dv {dv}" if (d, dv) in FA_WIDE_DIMS else "")
         worst[key] = max(worst.get(key, 0.0), e)
         used[key] = max(used.get(key, 0.0), u)
+        if s == LM_PROMPT and b == LM_BATCH and dtype == torch.bfloat16:
+            err_served = max(err_served, float(
+                (got.float() - want.float()).abs().max()))
+        if s == LM_PROMPT and b == LM_BATCH and d > 128:
+            print(f"fifteenth-slice prefill shape {tag}: max |diff| / max "
+                  f"|plain| {e:.2e}, {u:.3f} of the allowance")
         if (b, s, h, d) == (LM_BATCH, LM_PROMPT, 16, 128):
             err_olmo = float((got.float() - want.float()).abs().max())
             late = (got.float() - want.float())[:, s // 2:].abs() / \
@@ -2393,16 +2444,21 @@ def compare_fifth():
     check(fa_ops.LIBRARY.variants == {"bf16_tc": n_bf16, "f32": n - n_bf16},
           "flash_attention: bfloat16 on the tensor-core variant, float32 "
           "on the f32 variant")
-    return err_olmo
+    print(f"max |diff| at the served prefill shapes {err_served:.3e} "
+          f"(OLMo-1B's {err_olmo:.3e})")
+    return err_served
 
 
-def bounds_fifth(b: int, s: int, h: int, g: int, d: int, elem: int):
-    """(bound_ms, bound_by) of causal attention at these shapes: 4 B H D
-    x the kept (query, key) pairs S (S + 1) / 2 operations at the bf16
-    tensor-core rate; q, k, v, out read or written once."""
+def bounds_fifth(b: int, s: int, h: int, g: int, d: int, elem: int,
+                 dv: int = 0):
+    """(bound_ms, bound_by) of causal attention at these shapes: 2 B H (D
+    + Dv) x the kept (query, key) pairs S (S + 1) / 2 operations at the
+    bf16 tensor-core rate (a window of S or more keeps them all); q, k,
+    v, out read or written once."""
+    dv = dv or d
     kept = s * (s + 1) // 2
-    ops = 4 * b * h * d * kept
-    nbytes = (2 * b * s * h * d + 2 * b * s * g * d) * elem
+    ops = 2 * b * h * (d + dv) * kept
+    nbytes = (b * s * h * (d + dv) + b * s * g * (d + dv)) * elem
     t_ops, t_bytes = ops / BF16_TC_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     bound = (max(t_ops, t_bytes) * 1e3,
              "operations" if t_ops >= t_bytes else "bytes")
@@ -2451,6 +2507,61 @@ def timing_fifth(smi: str):
           f"its bound, {lib_ms / k_ms:.3f} x the library call's time")
     before_and_bound("flash_attention", k_ms, bound)
     return {"flash_attention": (k_ms, p_ms)}, bound, lib_ms
+
+
+# Phase 20's fifteenth-slice prefill shapes of kernel 8: (tag, D, Dv, kv
+# heads, window, softcap), B = 4, S = 2048, H = 16, bfloat16, causal
+FA_WIDE_SHAPES = (("DeepSeek-V2-Lite MLA", 192, 128, 16, 0, 0.0),
+                  ("RecurrentGemma-9B local", 256, 256, 1, LM_PROMPT,
+                   FA_SOFTCAP),
+                  ("RecurrentGemma-9B local, no softcap", 256, 256, 1,
+                   LM_PROMPT, 0.0))
+
+
+def timing_wide(smi: str) -> dict:
+    """Phase 20 at the fifteenth slice's prefill shapes: the kernel's
+    device time (graph replays), the plain version's, the bound, and
+    ``scaled_dot_product_attention`` where it computes the same function
+    (no softcap; a window of S keys or more is the causal mask alone).
+    Returns {tag: (kernel ms, plain ms, bound ms, bound by, library ms or
+    None)}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    phase(f"20b timing at the MLA and RecurrentGemma prefill shapes (B="
+          f"{LM_BATCH}, S={LM_PROMPT}, H=16, bfloat16, causal)")
+    out = {}
+    for tag, d, dv, g, window, cap in FA_WIDE_SHAPES:
+        q, k, v = fa_inputs(torch.bfloat16, 16 // g, LM_PROMPT, d, LM_BATCH,
+                            16, dv=dv)
+        kw = dict(causal=True, window=window, softcap=cap)
+        k_ms = graph_ms(lambda: fa_ops.flash_attention_kernel(q, k, v, **kw),
+                        calls=5)
+        p_ms = median_ms(lambda: fa_ops.ref.attention(q, k, v, **kw), 5, 1)
+        lib_ms = None
+        if not cap:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_ms = graph_ms(sdpa, calls=5)
+            u_lib = fa_allowance_used(sdpa().transpose(1, 2),
+                                      fa_ops.ref.attention(q, k, v, **kw),
+                                      torch.bfloat16)
+        bound = bounds_fifth(LM_BATCH, LM_PROMPT, 16, g, d, 2, dv=dv)[
+            "flash_attention"]
+        lib = ("none (no softcap in scaled_dot_product_attention)"
+               if lib_ms is None else
+               f"{lib_ms:.4f} ms (its share of phase 19's allowance "
+               f"{u_lib:.3f})")
+        print(f"{tag} (D={d}, Dv={dv}, G={g}, window={window}, softcap="
+              f"{cap}): kernel {k_ms:.4f} ms device (graph replay), plain "
+              f"{p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"{bound[0] / k_ms:.4f} of it; scaled_dot_product_attention "
+              f"{lib} [{smi}]")
+        out[tag] = (k_ms, p_ms, bound[0], bound[1], lib_ms)
+        del q, k, v
+    return out
 
 
 def serve_argv(*extra):
@@ -4182,113 +4293,51 @@ def examples(smi: str) -> None:
               f"{script}: kernels 1/1b and 2 launched")
 
 
-def moe_argv(*extra):
-    return ["--arch", MOE_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
-            str(LM_PROMPT), "--tokens", str(LM_TOKENS), *extra]
-
-
 def serve_moe(libs, smi: str) -> int:
-    """Phase 37: ``serve.main`` on DeepSeek-MoE-16B at full width on one
-    card, twice from the same weights: the flash kernel once per layer of
-    the prefill on the tensor cores and never in decode, bitwise tokens,
-    finite logits; init, prefill, decode and peak memory; the share of
-    routed choices dropped at capacity (``forward``'s aux on the same
-    prompts); prefill(S) + decode against prefill(S + 1), printed, not
-    held (a choice prefill drops at capacity 240 decode keeps at 8).
-    Returns the first run's flash launches."""
+    """Phase 37: ``serve_wide`` on DeepSeek-MoE-16B (28 flash launches a
+    prefill), then 37c, the share of routed choices dropped at capacity
+    (``forward``'s aux on the served prompts) and prefill(S) + decode
+    against prefill(S + 1), printed, not held (a choice prefill drops at
+    capacity 240 decode keeps at 8).  Returns the first run's flash
+    launches."""
     from repro_torch import random as jr
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.launch import serve
     from repro_torch.models import moe as MOE
     from repro_torch.models import registry
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2 ** 30
-    cfg = registry.get_config(MOE_ARCH)
-    phase(f"37 LM serving: {MOE_ARCH} at full width, {LM_BATCH} prompts x "
-          f"{LM_PROMPT} tokens, {LM_TOKENS} new tokens (seeded weights, "
-          f"{cfg.param_dtype} parameters, {cfg.compute_dtype} compute)")
-    print(f"memory held before the phase {held:.2f} GiB")
-    # the earlier LM phases' state (OLMo-1B's 4.4 GiB of weights, RE-SGLD's
-    # 52.6 GiB) must be gone; the MD phases' engines may hold ~2 GiB
-    check(held < 4.0, "serve moe: the earlier LM phases' memory is freed")
-    reset(libs)
-    rep = {}
-    gen = serve.main(moe_argv(), report=rep)
-    launches = {lib.name: lib.launches for lib in libs}
-    want = dict.fromkeys(launches, 0)
-    want["flash_attention"] = cfg.n_layers
-    variants = dict(fa_ops.LIBRARY.variants)
-    dec = statistics.median(rep["decode_ms"])
-    print(f"params {registry.param_count(cfg)} ({cfg.param_dtype}); init "
-          f"{rep['init_s']:.2f} s; prefill {rep['prefill_ms']:.2f} ms; "
-          f"decode {dec:.3f} ms/token (median of {len(rep['decode_ms'])}; "
-          f"min {min(rep['decode_ms']):.3f}, max "
-          f"{max(rep['decode_ms']):.3f}), {LM_BATCH / dec * 1e3:.1f} "
-          f"tokens/s; peak memory {rep['peak_bytes'] / 2 ** 30:.2f} GiB "
-          f"[{smi}]")
-    print(f"launches {launches}, flash by variant {variants} (want "
-          f"{cfg.n_layers} flash on bf16_tc, one per layer of the one "
-          f"prefill, none in decode)")
-    check(launches == want and variants == {"bf16_tc": cfg.n_layers},
-          "serve moe: 28 flash launches on the tensor cores, nothing else")
-    check(gen.shape == (LM_BATCH, LM_TOKENS) and all(
-        bool(torch.isfinite(x).all()) for x in rep["logits"]),
-          "serve moe: tokens of the right shape, finite logits")
-    params = rep.pop("params")
-    reset(libs)
-    rep2 = {}
-    gen2 = serve.main(moe_argv(), params=params, report=rep2)
-    same = torch.equal(gen, gen2)
-    print(f"second run, same weights: tokens bitwise equal {same}; prefill "
-          f"{rep2['prefill_ms']:.2f} ms, decode "
-          f"{statistics.median(rep2['decode_ms']):.3f} ms/token (median of "
-          f"{len(rep2['decode_ms'])}) [{smi}]")
-    check(same and fa_ops.LIBRARY.launches == cfg.n_layers,
-          "serve moe: bitwise reproducible tokens")
-    del rep, rep2
 
-    lm = registry.build(cfg)
-    breakdown_moe(lm, params, smi)
-    moe_layer_card_vs_cpu(cfg, params, smi)
-    prompt = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
-                        cfg.vocab_size)
-    with torch.no_grad():
-        logits, aux = lm.forward(params, {"tokens": prompt})
-    del logits
-    print(f"forward on the served prompts: capacity "
-          f"{MOE.capacity(cfg, LM_PROMPT)} at S = {LM_PROMPT} "
-          f"({MOE.capacity(cfg, 1)} at decode); share of "
-          f"routed choices dropped {float(aux['moe_dropped']):.4f}; moe_aux "
-          f"{float(aux['moe_aux']):.5f}, moe_z {float(aux['moe_z']):.5f}")
-
-    toks = jr.randint(jr.key(2, "cuda"), (LM_BATCH, LM_PROMPT + 1), 0,
-                      cfg.vocab_size)
-    reset(libs)
-    _, state = lm.prefill(params, {"tokens": toks[:, :-1]},
-                          cache_len=LM_PROMPT + 1)
-    n_pre = fa_ops.LIBRARY.launches
-    dec_logits, _ = lm.decode_step(params, state, toks[:, -1:])
-    n_dec = fa_ops.LIBRARY.launches - n_pre
-    del state
-    full_logits, _ = lm.prefill(params, {"tokens": toks})
-    agree = float((dec_logits.argmax(-1) == full_logits.argmax(-1))
-                  .float().mean())
-    print(f"prefill({LM_PROMPT}) + decode vs prefill({LM_PROMPT + 1}): max "
-          f"|diff| / max |logit| {rel(dec_logits, full_logits):.2e}, argmax "
-          f"agreement {agree:.2f} (not held: routing at capacity "
-          f"{MOE.capacity(cfg, LM_PROMPT + 1)} drops choices that decode's "
-          f"{MOE.capacity(cfg, 1)} keeps); flash launches {n_pre} in "
-          f"prefill, {n_dec} in decode")
-    check(n_pre == cfg.n_layers and n_dec == 0,
-          "flash: one launch per layer per prefill, none in decode")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches["flash_attention"]
+    def then(lm, params):
+        cfg = lm.cfg
+        moe_layer_card_vs_cpu(cfg, params, smi)
+        prompt = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
+                            cfg.vocab_size)
+        with torch.no_grad():
+            logits, aux = lm.forward(params, {"tokens": prompt})
+        del logits
+        print(f"forward on the served prompts: capacity "
+              f"{MOE.capacity(cfg, LM_PROMPT)} at S = {LM_PROMPT} "
+              f"({MOE.capacity(cfg, 1)} at decode); share of routed choices "
+              f"dropped {float(aux['moe_dropped']):.4f}; moe_aux "
+              f"{float(aux['moe_aux']):.5f}, moe_z "
+              f"{float(aux['moe_z']):.5f}")
+        toks = jr.randint(jr.key(2, "cuda"), (LM_BATCH, LM_PROMPT + 1), 0,
+                          cfg.vocab_size)
+        _, state = lm.prefill(params, {"tokens": toks[:, :-1]},
+                              cache_len=LM_PROMPT + 1)
+        dec_logits, _ = lm.decode_step(params, state, toks[:, -1:])
+        del state
+        full_logits, _ = lm.prefill(params, {"tokens": toks})
+        agree = float((dec_logits.argmax(-1) == full_logits.argmax(-1))
+                      .float().mean())
+        print(f"prefill({LM_PROMPT}) + decode vs prefill({LM_PROMPT + 1}): "
+              f"max |diff| / max |logit| {rel(dec_logits, full_logits):.2e}, "
+              f"argmax agreement {agree:.2f} (not held: routing at capacity "
+              f"{MOE.capacity(cfg, LM_PROMPT + 1)} drops choices that "
+              f"decode's {MOE.capacity(cfg, 1)} keeps)")
+    return serve_wide(libs, smi, MOE_ARCH, "37",
+                      registry.get_config(MOE_ARCH).n_layers, then)
 
 
-# kernel groups of phase 37a, by the first pattern a kernel's name matches
+# kernel groups of phases 37a, 38a, 39a, by the first pattern a kernel's
+# name matches
 MOE_GROUPS = (("flash_attention kernel", r"flash_attention_kernel"),
               ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
               ("casts and copies", r"copy"),
@@ -4296,15 +4345,15 @@ MOE_GROUPS = (("flash_attention kernel", r"flash_attention_kernel"),
                r"sort|scan|index|scatter|gather"))
 
 
-def breakdown_moe(lm, params, smi: str) -> None:
-    """Phase 37a: where a warm full-width prefill's and a decode step's
-    device time goes, one profiled call each, by kernel group; the busy
-    share against the same call unprofiled (median of CUDA-event
-    times)."""
+def breakdown_by_group(lm, params, smi: str, label: str) -> None:
+    """Phases 37a, 38a, 39a: where a warm full-width prefill's and a
+    decode step's device time goes, one profiled call each, by kernel
+    group; the busy share against the same call unprofiled (median of
+    CUDA-event times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import random as jr
-    phase("37a where a MoE prefill's and decode step's time goes")
+    phase(label)
     cfg = lm.cfg
     toks = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
                       cfg.vocab_size)
@@ -4401,6 +4450,99 @@ def moe_layer_card_vs_cpu(cfg, params, smi: str) -> None:
           (flip.any() or aux_c["moe_dropped"] == aux["moe_dropped"]),
           "moe layer: the card routes and combines as the CPU at full "
           "width")
+
+
+# The fifteenth slice: DeepSeek-V2-Lite-16B (arXiv:2405.04434; moe on MLA
+# attention, phase 38) and RecurrentGemma-9B (arXiv:2402.19427; the hybrid
+# family, phase 39) served at full width with phase 21's flags, float32
+# parameters, bf16 compute; one after the other, the first one's state
+# freed before the second starts.
+V2_ARCH, RG_ARCH = "deepseek_v2_lite_16b", "recurrentgemma_9b"
+
+
+def serve_wide(libs, smi: str, arch: str, label: str, n_flash: int,
+               then=None) -> int:
+    """Phases 37, 38 and 39: ``serve.main`` on ``arch`` at full width on
+    one card, once the earlier LM phases' memory is freed (less than 4
+    GiB held: the MD phases' engines hold ~2 GiB), twice from the same
+    weights: ``n_flash`` flash launches (one per attention layer of the
+    prefill) on the tensor cores and nothing else, bitwise tokens, finite
+    logits; init, the cold and the warm prefill, decode ms per token,
+    peak memory; then a prefill and a decode step counted apart
+    (``n_flash`` and 0), the breakdown by kernel group and ``then(lm,
+    params)``.  Returns the first run's flash launches."""
+    from repro_torch import random as jr
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    cfg = registry.get_config(arch)
+    phase(f"{label} LM serving: {arch} at full width, {LM_BATCH} prompts x "
+          f"{LM_PROMPT} tokens, {LM_TOKENS} new tokens (seeded weights, "
+          f"{cfg.param_dtype} parameters, {cfg.compute_dtype} compute)")
+    print(f"memory held before the phase {held:.2f} GiB")
+    check(held < 4.0, f"serve {arch}: the earlier LM phases' memory is freed")
+    argv = ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--tokens", str(LM_TOKENS)]
+    reset(libs)
+    rep = {}
+    gen = serve.main(argv, report=rep)
+    launches = {lib.name: lib.launches for lib in libs}
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = n_flash
+    variants = dict(fa_ops.LIBRARY.variants)
+    dec = statistics.median(rep["decode_ms"])
+    print(f"params {registry.param_count(cfg)} ({cfg.param_dtype}); init "
+          f"{rep['init_s']:.2f} s; prefill {rep['prefill_ms']:.2f} ms "
+          f"(cold); decode {dec:.3f} ms/token (median of "
+          f"{len(rep['decode_ms'])}; min {min(rep['decode_ms']):.3f}, max "
+          f"{max(rep['decode_ms']):.3f}); peak memory "
+          f"{rep['peak_bytes'] / 2 ** 30:.2f} GiB [{smi}]")
+    print(f"launches {launches}, flash by variant {variants} (want "
+          f"{n_flash} flash on bf16_tc)")
+    check(launches == want and variants == {"bf16_tc": n_flash},
+          f"serve {arch}: {n_flash} flash launches on the tensor cores, "
+          f"nothing else")
+    check(gen.shape == (LM_BATCH, LM_TOKENS) and all(
+        bool(torch.isfinite(x).all()) for x in rep["logits"]),
+          f"serve {arch}: tokens of the right shape, finite logits")
+    params = rep.pop("params")
+    reset(libs)
+    rep2 = {}
+    gen2 = serve.main(argv, params=params, report=rep2)
+    same = torch.equal(gen, gen2)
+    print(f"second run, same weights: tokens bitwise equal {same}; warm "
+          f"prefill {rep2['prefill_ms']:.2f} ms, decode "
+          f"{statistics.median(rep2['decode_ms']):.3f} ms/token (median of "
+          f"{len(rep2['decode_ms'])}) [{smi}]")
+    check(same and fa_ops.LIBRARY.launches == n_flash,
+          f"serve {arch}: bitwise reproducible tokens")
+    del rep, rep2
+    lm = registry.build(cfg)
+    toks = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
+                      cfg.vocab_size)
+    reset(libs)
+    _, state = lm.prefill(params, {"tokens": toks},
+                          cache_len=LM_PROMPT + 1)
+    n_pre = fa_ops.LIBRARY.launches
+    lm.decode_step(params, state, toks[:, -1:])
+    n_dec = fa_ops.LIBRARY.launches - n_pre
+    del state
+    print(f"flash launches {n_pre} in a prefill, {n_dec} in a decode step")
+    check(n_pre == n_flash and n_dec == 0,
+          f"serve {arch}: one flash launch per attention layer per prefill, "
+          f"none in decode")
+    breakdown_by_group(lm, params, smi,
+                       f"{label}a where a prefill's and a decode step's "
+                       f"time goes ({arch})")
+    if then is not None:
+        then(lm, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
 
 
 def serve_card_vs_cpu(arch: str) -> None:
@@ -4606,6 +4748,7 @@ def main() -> int:
           f"{len(fa_cases())} cases")
     err5 = compare_fifth()
     times5, bound5, lib_ms = timing_fifth(smi)
+    timing_wide(smi)
     times.update(times5)
     bound.update(bound5)
     serve_rep, serve_launches = run_serve(libs, smi)
@@ -4636,6 +4779,15 @@ def main() -> int:
     moe_launches = serve_moe(libs, smi)
     phase("37b LM serving: card vs CPU (deepseek-moe-smoke, float32)")
     serve_card_vs_cpu(MOE_ARCH)
+    from repro_torch.models import registry
+    v2_launches = serve_wide(libs, smi, V2_ARCH, "38",
+                             registry.get_config(V2_ARCH).n_layers)
+    phase("38b LM serving: card vs CPU (deepseek-v2-lite-smoke, float32)")
+    serve_card_vs_cpu(V2_ARCH)
+    rg_launches = serve_wide(libs, smi, RG_ARCH, "39",
+                             registry.get_config(RG_ARCH).n_layers // 3)
+    phase("39b LM serving: card vs CPU (recurrentgemma-smoke, float32)")
+    serve_card_vs_cpu(RG_ARCH)
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",
@@ -4691,7 +4843,8 @@ def main() -> int:
               "lj_forces": sum(r["variants"]["forces"]
                                for r in lj_runs.values()),
               "flash_attention": serve_launches["flash_attention"]
-              + sgld_launches["flash_attention"] + moe_launches,
+              + sgld_launches["flash_attention"] + moe_launches
+              + v2_launches + rg_launches,
               "cell_build": cell_launches["cell_build"]}
     errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3,
                 **errs4, flash_attention=max(err5, err34),

@@ -1,6 +1,8 @@
 // Causal / sliding-window attention, forward only, written for Hopper
 // (sm_90a): blockwise online softmax over key tiles, grouped kv heads read
-// in place, an optional logit softcap.  Two variants, one entry point:
+// in place, an optional logit softcap.  q and k share a head dim D, v and
+// the output have their own, Dv (MLA attends at D = 192, Dv = 128); each
+// up to 256.  Two variants, one entry point:
 //   * bfloat16 in and out: the products on the tensor cores (wgmma, bf16
 //     operands, float32 accumulators), tiles brought in by TMA;
 //   * float32 in and out: float32 FMAs on the CUDA cores (TF32 products
@@ -20,7 +22,7 @@
 // Shared by both variants: the key loop of a q-tile is bounded by the
 // causal diagonal and the window (the TPU kernel's relevant() tile skip
 // as loop bounds); q-tiles are issued last first, so the long causal rows
-// start early; each score is scaled by 1 / sqrt(D) (the true D), then
+// start early; each score is scaled by 1 / sqrt(D) (q's true D), then
 // softcapped, s = tanh(s / c) c, then masked: masked keys (causal, window,
 // the tail past T) get -inf, so they add exp(-inf) = 0 while the running
 // max m starts at -1e30 and stays finite; m, the sum l and the output
@@ -29,24 +31,32 @@
 // are not stored.  IEEE expf and division, no fast math; no atomics, so a
 // launch is bitwise reproducible.
 //
-// The bf16 variant (flash_attention_kernel_tc): one block per (q-tile of
-// 64 rows, head h, batch b): a consumer warpgroup that owns the q-tile
-// and a producer warp.  One producer lane brings Q once, then the K and V
-// tiles (64 keys) into a ring of two stages, by TMA from the (B, S, H, D)
-// and (B, T, G, D) layouts at kv head h / (H / G) (4-D tensor maps, boxes
-// of 64 dims x 64 rows, 128-byte swizzle, zeros past S, T and D: D is
-// padded to 64 or 128 in shared memory only), each stage signalled on a
-// "full" mbarrier with its byte count and handed back on an "empty" one.
+// The bf16 variant (flash_attention_kernel_tc<NQ, NV>): one block per
+// (q-tile of 64 rows, head h, batch b): a consumer warpgroup that owns the
+// q-tile and a producer warp.  One producer lane brings Q once, then the K
+// and V tiles (64 keys) into a ring of two stages, by TMA from the (B, S,
+// H, D), (B, T, G, D) and (B, T, G, Dv) layouts at kv head h / (H / G)
+// (4-D tensor maps, boxes of 64 dims x 64 rows, 128-byte swizzle, zeros
+// past S, T, D and Dv: Q and K are NQ 64-dim halves in shared memory, V
+// and the output NV, and the halves past D or Dv are zeros), each stage
+// signalled on a "full" mbarrier with its byte count and handed back on an
+// "empty" one.  Four (NQ, NV) are compiled, (1, 1), (2, 2), (3, 2) and
+// (4, 4); a call takes the first that covers its D and Dv.  At (4, 4) the
+// output accumulator is 128 float32 registers a thread and Q plus two K/V
+// stages 160 KB of shared memory, so that instantiation runs one block per
+// SM (the others two).
 // The warpgroup forms S = Q K^T with wgmma (both operands from shared
 // memory, exact bf16 x bf16 products, float32 sums), runs the online
 // softmax on the accumulator fragments (a row lives in 4 lanes: two xor
 // shuffles), and adds P V with wgmma, P from registers, V from shared
-// memory (MN-major).  P is split into two bf16 terms, P = P_hi + P_lo,
+// memory (MN-major), NV / 2 products of 128 dims (and one of 64 for an odd
+// NV).  P is split into two bf16 terms, P = P_hi + P_lo,
 // and both are multiplied into V: one bf16 rounding of P (2^-9 relative)
 // breaks the per-element allowance of the plain version by up to 20x on
 // short rows (tests/test_torch_flash.py emulates both), the split leaves
 // 2^-17.  l sums the float32 P.  The output goes through the Q tile's
-// shared memory to 16-byte stores.  Needs D % 8 == 0 and 16-byte aligned
+// shared memory (NQ or NV halves, whichever is more) to 16-byte stores.
+// Needs D % 8 == 0, Dv % 8 == 0 and 16-byte aligned
 // tensors (TMA's row strides).  The warpgroup waits for each product:
 // overlapping one tile's softmax with the next tile's Q K^T (two score
 // arrays in flight) left too few registers, ptxas serialized the wgmma
@@ -54,12 +64,15 @@
 // shape; two blocks per SM overlap each other's softmax and products.
 //
 // The float32 variant (flash_attention_kernel_f32): one block per (q-tile
-// of 64 rows, h, b); each query row belongs to TPR = max(1, DP / 32)
-// adjacent lanes, each holding 32 of its DP dims of q and of the output
-// accumulator in registers; K and V tiles of 32 keys are staged in shared
-// memory as float32; the 32 partial dot products are summed across the
-// row's lanes with xor shuffles.  Two blocks per SM are asked of the
-// register allocator (__launch_bounds__).
+// of 64 rows, h, b); DP is max(D, Dv) rounded up to a power of two from 8
+// to 256; each query row belongs to TPR = max(1, DP / 32) adjacent lanes,
+// each holding 32 of its DP dims of q and of the output accumulator in
+// registers (zeros past D and Dv); K and V tiles of BK keys (32, or 16 at
+// DP = 256, so that both stay within 48 KB of static shared memory) are
+// staged in shared memory as float32; the BK partial dot products are
+// summed across the row's lanes with xor shuffles.  Two blocks per SM are
+// asked of the register allocator (__launch_bounds__), one at DP = 256
+// (512 threads).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +86,7 @@ constexpr int kBQ = 64;   // query rows per block (both variants)
 constexpr float kMInit = -1e30f;
 
 struct Shape {
-  int B, S, T, H, G, D, causal, window;
+  int B, S, T, H, G, D, Dv, causal, window;   // D: q, k; Dv: v, out
   float scale, cap, inv_cap;   // cap = 0: no softcap
 };
 
@@ -113,11 +126,16 @@ constexpr int kConsumers = 128; // one warpgroup
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
 constexpr int kHalf = 64 * 64;  // bf16 of one 64-row x 128-byte block
 
-template <int NH>               // 64-dim halves of DP = 64 NH
+template <int NQ, int NV>       // 64-dim halves of q, k (NQ) and v, out (NV)
 struct Smem {
-  static constexpr int kTile = NH * kHalf;             // bf16 per tile
+  // bf16 per tile: Q (later the output), a K stage, a V stage
+  static constexpr int kQ = (NQ > NV ? NQ : NV) * kHalf;
+  static constexpr int kK = NQ * kHalf;
+  static constexpr int kV = NV * kHalf;
   static constexpr int kBytes =
-      1024 + (1 + 2 * kStages) * kTile * 2 + 8 * (1 + 2 * kStages);
+      1024 + (kQ + kStages * (kK + kV)) * 2 + 8 * (1 + 2 * kStages);
+  // the (4, 4) accumulator and 160 KB of tiles leave room for one block
+  static constexpr int kMinBlocks = NV <= 2 ? 2 : 1;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -281,27 +299,44 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x - __low2float(h), y - __high2float(h));
 }
-// element (r, c) of a tile stored as NH blocks of 64 rows x 128 bytes,
+// acc (+)= P V over 16 keys, V at vj: MN-major (rows of keys, 64 dims to a
+// swizzled row, the dim halves kHalf apart); the output's halves X, X + 1
+// are the 64 consecutive accumulators of one m64n128 product, an odd last
+// half those of one m64n64 product
+template <int NV, int X = 0>
+__device__ __forceinline__ void pv_product(float* acc, const uint32_t (&p)[4],
+                                           const __nv_bfloat16* vj) {
+  if constexpr (X + 1 < NV) {
+    wgmma_rs(*reinterpret_cast<float(*)[64]>(acc + 32 * X), p,
+             desc(vj + X * kHalf, 2 * kHalf, 1024), 1);
+    pv_product<NV, X + 2>(acc, p, vj);
+  } else if constexpr (X < NV) {
+    wgmma_rs(*reinterpret_cast<float(*)[32]>(acc + 32 * X), p,
+             desc(vj + X * kHalf, 2 * kHalf, 1024), 1);
+  }
+}
+
+// element (r, c) of a tile stored as 64-dim blocks of 64 rows x 128 bytes,
 // 16-byte chunks swizzled by r % 8 (TMA's and wgmma's 128-byte swizzle)
 __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 6) * kHalf + r * 64 + ((((c & 63) >> 3) ^ (r & 7)) << 3) +
          (c & 7);
 }
 
-template <int NH>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int NQ, int NV>
+__global__ void __launch_bounds__(kThreads, (Smem<NQ, NV>::kMinBlocks))
     flash_attention_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
                               __nv_bfloat16* __restrict__ o, Shape sh) {
-  using L = Smem<NH>;
-  constexpr int NO = 8 * NH;      // 8-dim n-tiles of the output
+  using L = Smem<NQ, NV>;
+  constexpr int NO = 8 * NV;      // 8-dim n-tiles of the output
   extern __shared__ unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  __nv_bfloat16* sk = sq + L::kTile;                 // kStages tiles
-  __nv_bfloat16* sv = sk + kStages * L::kTile;       // kStages tiles
-  uint64_t* q_bar = reinterpret_cast<uint64_t*>(sv + kStages * L::kTile);
+  __nv_bfloat16* sk = sq + L::kQ;                    // kStages tiles
+  __nv_bfloat16* sv = sk + kStages * L::kK;          // kStages tiles
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(sv + kStages * L::kV);
   uint64_t* full = q_bar + 1;
   uint64_t* empty = full + kStages;
 
@@ -325,19 +360,19 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   if (warp == kConsumers / 32) {   // the producer warp: one lane issues TMA
     if (lane == 0) {
-      mbar_expect_tx(q_bar, L::kTile * 2);
-      for (int x = 0; x < NH; ++x)
+      mbar_expect_tx(q_bar, L::kK * 2);
+      for (int x = 0; x < NQ; ++x)
         tma_load(sq + x * kHalf, &tm_q, q_bar, 64 * x, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages, k0 = k_begin + it * kBK;
         if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * L::kTile * 2);
-        for (int x = 0; x < NH; ++x) {
-          tma_load(sk + s * L::kTile + x * kHalf, &tm_k, &full[s], 64 * x, g,
+        mbar_expect_tx(&full[s], (L::kK + L::kV) * 2);
+        for (int x = 0; x < NQ; ++x)
+          tma_load(sk + s * L::kK + x * kHalf, &tm_k, &full[s], 64 * x, g,
                    k0, b);
-          tma_load(sv + s * L::kTile + x * kHalf, &tm_v, &full[s], 64 * x, g,
+        for (int x = 0; x < NV; ++x)
+          tma_load(sv + s * L::kV + x * kHalf, &tm_v, &full[s], 64 * x, g,
                    k0, b);
-        }
       }
     }
     return;
@@ -354,15 +389,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % kStages, k0 = k_begin + it * kBK;
-    const __nv_bfloat16* ks = sk + st * L::kTile;
-    const __nv_bfloat16* vs = sv + st * L::kTile;
+    const __nv_bfloat16* ks = sk + st * L::kK;
+    const __nv_bfloat16* vs = sv + st * L::kV;
     mbar_wait(&full[st], (it / kStages) & 1);
 
     // S = Q K^T, 64 x 64, k-steps of 16 dims (32 bytes along a swizzled row)
     float s[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NH; ++kk)
+    for (int kk = 0; kk < 4 * NQ; ++kk)
       wgmma_ss(s, desc(sq + (kk >> 2) * kHalf + (kk & 3) * 16, 16, 1024),
                desc(ks + (kk >> 2) * kHalf + (kk & 3) * 16, 16, 1024),
                kk > 0);
@@ -398,8 +433,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < 4 * NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
     // O += (P_hi + P_lo) V; the C fragments of key tiles 2j, 2j + 1 are the
-    // A fragment of keys 16 j .. 16 j + 15; V is MN-major (rows of keys,
-    // 64 dims to a swizzled row, the dim halves kHalf apart)
+    // A fragment of keys 16 j .. 16 j + 15
     uint32_t ph[4][4], pl[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -411,9 +445,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     wg_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint64_t dv = desc(vs + j * 16 * 64, 2 * kHalf, 1024);
-      wgmma_rs(acc, ph[j], dv, 1);
-      wgmma_rs(acc, pl[j], dv, 1);
+      pv_product<NV>(acc, ph[j], vs + j * 16 * 64);
+      pv_product<NV>(acc, pl[j], vs + j * 16 * 64);
     }
     wg_commit();
     wg_wait();
@@ -445,9 +478,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int idx = lane; idx < 16 * NO; idx += 32) {
     const int r = warp * 16 + idx / NO, c = idx % NO;
     const int qpos = q0 + r;
-    if (qpos >= sh.S || 8 * c >= sh.D) continue;
+    if (qpos >= sh.S || 8 * c >= sh.Dv) continue;
     *reinterpret_cast<uint4*>(o + (((size_t)b * sh.S + qpos) * sh.H + h) *
-                                      sh.D + 8 * c) =
+                                      sh.Dv + 8 * c) =
         *reinterpret_cast<const uint4*>(sq + swz(r, 8 * c));
   }
 }
@@ -489,38 +522,43 @@ int tensor_map(CUtensorMap* map, const void* x, int D, int heads, int rows,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int NH>
+template <int NQ, int NV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Shape& sh, cudaStream_t st) {
+  using L = Smem<NQ, NV>;
   static bool attr_set = false;   // before any graph capture: first call
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel_tc<NH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<NH>::kBytes);
+        flash_attention_kernel_tc<NQ, NV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, sh.D, sh.H, sh.S, sh.B);
   if (!err) err = tensor_map(&tk, k, sh.D, sh.G, sh.T, sh.B);
-  if (!err) err = tensor_map(&tv, v, sh.D, sh.G, sh.T, sh.B);
+  if (!err) err = tensor_map(&tv, v, sh.Dv, sh.G, sh.T, sh.B);
   if (err) return err;
   const dim3 grid((sh.S + kBQ - 1) / kBQ, sh.H, sh.B);
-  flash_attention_kernel_tc<NH><<<grid, kThreads, Smem<NH>::kBytes, st>>>(
+  flash_attention_kernel_tc<NQ, NV><<<grid, kThreads, L::kBytes, st>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), sh);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D rounded up to 64 or 128; TMA needs 16-byte rows and base addresses.
+// The first compiled (NQ, NV) whose halves cover D and Dv; TMA needs
+// 16-byte rows and base addresses.
 int dispatch(const void* q, const void* k, const void* v, void* o,
              const Shape& sh, cudaStream_t st) {
-  if (sh.D % 8 != 0 || ((reinterpret_cast<uintptr_t>(q) |
-                         reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) |
-                         reinterpret_cast<uintptr_t>(o)) & 15) != 0)
+  if (sh.D % 8 != 0 || sh.Dv % 8 != 0 ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+       15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (sh.D <= 64) return launch<1>(q, k, v, o, sh, st);
-  if (sh.D <= 128) return launch<2>(q, k, v, o, sh, st);
+  const int nq = (sh.D + 63) / 64, nv = (sh.Dv + 63) / 64;
+  if (nq <= 1 && nv <= 1) return launch<1, 1>(q, k, v, o, sh, st);
+  if (nq <= 2 && nv <= 2) return launch<2, 2>(q, k, v, o, sh, st);
+  if (nq <= 3 && nv <= 2) return launch<3, 2>(q, k, v, o, sh, st);
+  if (nq <= 4 && nv <= 4) return launch<4, 4>(q, k, v, o, sh, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -532,24 +570,27 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 
 namespace f32 {
 
-constexpr int kBK = 32;   // keys per staged tile
-
 template <int DP>
 struct Layout {
   static constexpr int kTPR = DP >= 32 ? DP / 32 : 1;  // lanes per row
   static constexpr int kDT = DP / kTPR;                // dims per lane
   static constexpr int kNCH = kDT / 4;                 // float4 chunks
   static constexpr int kThreads = kBQ * kTPR;
+  // keys per staged tile: K and V tiles within 48 KB of static shared
+  // memory
+  static constexpr int kBK = DP >= 256 ? 16 : 32;
+  static constexpr int kMinBlocks = DP >= 256 ? 1 : 2;
 };
 
 template <int DP>
-__global__ void __launch_bounds__(Layout<DP>::kThreads, 2)
+__global__ void __launch_bounds__(Layout<DP>::kThreads,
+                                  Layout<DP>::kMinBlocks)
     flash_attention_kernel_f32(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
                                float* __restrict__ o, Shape sh) {
   using L = Layout<DP>;
-  constexpr int TPR = L::kTPR, DT = L::kDT, NCH = L::kNCH;
+  constexpr int TPR = L::kTPR, DT = L::kDT, NCH = L::kNCH, kBK = L::kBK;
   __shared__ __align__(16) float ks[kBK][DP];
   __shared__ __align__(16) float vs[kBK][DP];
 
@@ -581,18 +622,17 @@ __global__ void __launch_bounds__(Layout<DP>::kThreads, 2)
   int k_begin, k_end;
   key_range(sh, q0, kBK, k_begin, k_end);
 
-  const size_t kv_row = (size_t)sh.G * sh.D;
-  const float* kb = k + (size_t)b * sh.T * kv_row + (size_t)g * sh.D;
-  const float* vb = v + (size_t)b * sh.T * kv_row + (size_t)g * sh.D;
+  const size_t k_row = (size_t)sh.G * sh.D, v_row = (size_t)sh.G * sh.Dv;
+  const float* kb = k + (size_t)b * sh.T * k_row + (size_t)g * sh.D;
+  const float* vb = v + (size_t)b * sh.T * v_row + (size_t)g * sh.Dv;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();
     for (int idx = tid; idx < kBK * DP; idx += L::kThreads) {
       const int j = idx / DP, d = idx % DP;
       const int kp = k0 + j;
-      const bool ok = kp < sh.T && d < sh.D;
-      ks[j][d] = ok ? kb[kp * kv_row + d] : 0.f;
-      vs[j][d] = ok ? vb[kp * kv_row + d] : 0.f;
+      ks[j][d] = kp < sh.T && d < sh.D ? kb[kp * k_row + d] : 0.f;
+      vs[j][d] = kp < sh.T && d < sh.Dv ? vb[kp * v_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -647,14 +687,14 @@ __global__ void __launch_bounds__(Layout<DP>::kThreads, 2)
 
   if (!live) return;
   const float denom = fmaxf(l, 1e-30f);
-  float* orow = o + (((size_t)b * sh.S + qpos) * sh.H + h) * sh.D;
+  float* orow = o + (((size_t)b * sh.S + qpos) * sh.H + h) * sh.Dv;
 #pragma unroll
   for (int i = 0; i < NCH; ++i) {
     const int c = part + TPR * i;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 4 * c + e;
-      if (d < sh.D) orow[d] = acc[4 * i + e] / denom;
+      if (d < sh.Dv) orow[d] = acc[4 * i + e] / denom;
     }
   }
 }
@@ -669,14 +709,16 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// D rounded up to the next compiled width: 8, 16, 32, 64 or 128.
+// max(D, Dv) rounded up to the next compiled width: 8, 16, ..., 256.
 int dispatch(const void* q, const void* k, const void* v, void* o,
              const Shape& sh, cudaStream_t st) {
-  if (sh.D <= 8) return launch<8>(q, k, v, o, sh, st);
-  if (sh.D <= 16) return launch<16>(q, k, v, o, sh, st);
-  if (sh.D <= 32) return launch<32>(q, k, v, o, sh, st);
-  if (sh.D <= 64) return launch<64>(q, k, v, o, sh, st);
-  if (sh.D <= 128) return launch<128>(q, k, v, o, sh, st);
+  const int d = sh.D > sh.Dv ? sh.D : sh.Dv;
+  if (d <= 8) return launch<8>(q, k, v, o, sh, st);
+  if (d <= 16) return launch<16>(q, k, v, o, sh, st);
+  if (d <= 32) return launch<32>(q, k, v, o, sh, st);
+  if (d <= 64) return launch<64>(q, k, v, o, sh, st);
+  if (d <= 128) return launch<128>(q, k, v, o, sh, st);
+  if (d <= 256) return launch<256>(q, k, v, o, sh, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -684,16 +726,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// q (B, S, H, D), k (B, T, G, D), v (B, T, G, Dv) -> o (B, S, H, Dv);
 // softcap: c > 0 applies s = tanh(s / c) c to every scaled score; 0 off.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
-                                      int T, int H, int G, int D, int causal,
-                                      int window, int is_bf16, float softcap,
-                                      void* stream) {
+                                      int T, int H, int G, int D, int Dv,
+                                      int causal, int window, int is_bf16,
+                                      float softcap, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (G <= 0 || H % G != 0 || D <= 0 || softcap < 0.f)
+  if (G <= 0 || H % G != 0 || D <= 0 || Dv <= 0 || softcap < 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape sh{B, S, T, H, G, D, causal, window,
+  const Shape sh{B, S, T, H, G, D, Dv, causal, window,
                  static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))),
                  softcap, softcap > 0.f ? 1.0f / softcap : 0.f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

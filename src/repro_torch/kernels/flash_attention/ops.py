@@ -1,8 +1,13 @@
 """Dispatch and the ctypes wrapper of the flash attention kernel.
 
 ``flash_attention(q, k, v, *, causal, window, softcap)`` takes the model
-layout, q (B, S, H, D) and k, v (B, T, G, D) with G | H, and returns
-(B, S, H, D) in q's dtype (float32 or bfloat16).  A CUDA tensor goes to
+layout, q (B, S, H, Dqk), k (B, T, G, Dqk) and v (B, T, G, Dv) with G | H
+and Dqk, Dv <= 256 each, and returns (B, S, H, Dv) in q's dtype (float32
+or bfloat16); each score is scaled by 1 / sqrt(Dqk).  MLA's prefill
+attends at Dqk = 192, Dv = 128 (v at its own width: the JAX package pads
+it to 192 and slices the output, which gives the same values),
+RecurrentGemma's local attention at 256 with one kv head.  A CUDA tensor
+goes to
 the kernel (``flash_attention_kernel``, which launches
 ``csrc/flash_attention.cu`` and counts the launch on ``LIBRARY`` under
 its variant: "bf16_tc" for bfloat16, on the tensor cores, "f32" for
@@ -27,8 +32,8 @@ from repro_torch.kernels.flash_attention import ref
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
 
-MAX_HEAD_DIM = 128
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
+MAX_HEAD_DIM = 256
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
@@ -36,11 +41,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            window: int = 0,
                            softcap: float = 0.0) -> torch.Tensor:
-    """The kernel alone: CUDA, contiguous q (B, S, H, D) and k, v
-    (B, T, G, D) of one dtype (float32 or bfloat16), G | H, D <= 128 (in
-    bfloat16 a multiple of 8, 16-byte aligned tensors), softcap >= 0,
-    none recording a gradient (the kernel has no backward); anything else
-    raises."""
+    """The kernel alone: CUDA, contiguous q (B, S, H, Dqk), k (B, T, G,
+    Dqk) and v (B, T, G, Dv) of one dtype (float32 or bfloat16), G | H,
+    Dqk, Dv <= 256 (in bfloat16 multiples of 8, 16-byte aligned tensors),
+    softcap >= 0, none recording a gradient (the kernel has no backward);
+    anything else raises.  Returns (B, S, H, Dv)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention_kernel has no backward: its output would "
@@ -51,26 +56,28 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share a float32 or bfloat16 dtype, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"q must be (B, S, H, D), k and v (B, T, G, D), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"q must be (B, S, H, Dqk), k (B, T, G, Dqk), v "
+                         f"(B, T, G, Dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, d = q.shape
-    t, g = k.shape[1], k.shape[2]
+    t, g, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != d or h % g or not 0 < d <= \
-            MAX_HEAD_DIM or window < 0 or softcap < 0:
+            MAX_HEAD_DIM or not 0 < dv <= MAX_HEAD_DIM or window < 0 or \
+            softcap < 0:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, window {window}, softcap "
-                         f"{softcap}")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, window "
+                         f"{window}, softcap {softcap}")
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and (d % 8 or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError(f"the bfloat16 kernel reads rows by TMA: D must be "
-                         f"a multiple of 8 (got {d}) and q, k, v 16-byte "
-                         f"aligned")
-    out = torch.empty_like(q)
+    if bf16 and (d % 8 or dv % 8 or
+                 any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError(f"the bfloat16 kernel reads rows by TMA: Dqk and "
+                         f"Dv must be multiples of 8 (got {d}, {dv}) and "
+                         f"q, k, v 16-byte aligned")
+    out = q.new_empty((b, s, h, dv))
     fn = LIBRARY.function("flash_attention_launch", _ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              b, s, t, h, g, d, int(causal), int(window), int(bf16),
+              b, s, t, h, g, d, dv, int(causal), int(window), int(bf16),
               float(softcap), stream_ptr())
     raise_on_error(code, "flash_attention")
     LIBRARY.count("bf16_tc" if bf16 else "f32")
@@ -80,8 +87,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
-    """(B, S, H, D), (B, T, G, D) x 2 -> (B, S, H, D): the kernel on the
-    card, the plain version on the CPU."""
+    """(B, S, H, Dqk), (B, T, G, Dqk), (B, T, G, Dv) -> (B, S, H, Dv): the
+    kernel on the card, the plain version on the CPU."""
     if default_use_kernel(q):
         return flash_attention_kernel(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=causal,

@@ -35,9 +35,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               kv_len: Optional[torch.Tensor] = None,
               softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, T, G, D) with G | H -> (B, S, H, D).
+    """q: (B, S, H, D); k: (B, T, G, D), v: (B, T, G, Dv) with G | H ->
+    (B, S, H, Dv).
 
-    float32 scores scaled by 1/sqrt(D) (the true D), masked to -1e30,
+    float32 scores scaled by 1/sqrt(D) (q's true D), masked to -1e30,
     softmax, times v in float32, cast to ``q.dtype``."""
     b, s, h, d = q.shape
     t, g = k.shape[1], k.shape[2]
@@ -55,4 +56,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.where(keep, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bghst,btgd->bsghd", probs, v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)

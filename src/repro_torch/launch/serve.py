@@ -6,14 +6,23 @@
         --smoke --device cpu
     PYTHONPATH=src python3 -m repro_torch.launch.serve \\
         --arch deepseek_moe_16b --batch 4 --prompt-len 2048 --tokens 32
+    PYTHONPATH=src python3 -m repro_torch.launch.serve \\
+        --arch deepseek_v2_lite_16b --batch 4 --prompt-len 2048 --tokens 32
+    PYTHONPATH=src python3 -m repro_torch.launch.serve \\
+        --arch recurrentgemma_9b --batch 4 --prompt-len 2048 --tokens 32
 
 The port of the JAX package's ``repro/launch/serve.py``: the same flags,
 the same seeded weights (``init_params(key(0))``) and prompts
 (``randint(key(1))``), the same printed line and tokens, plus
 ``--device`` (``cuda`` unless asked).  The decode index stays on the
 device: no host read between tokens.  Runs the families ``LM`` runs: the
-dense architectures and ``--arch deepseek_moe_16b`` (moe on GQA
-attention); the encdec and vlm inputs wait for their families.
+dense architectures, ``--arch deepseek_moe_16b`` (moe on GQA attention),
+``--arch deepseek_v2_lite_16b`` (moe on MLA attention: absorbed decode
+against the latent cache) and ``--arch recurrentgemma_9b`` (the hybrid
+family: a 2048-token ring buffer for its local attention, whose window
+must divide the prompt length when the prompt is longer); the encdec and
+vlm inputs wait for their families.  Each of the three names also runs
+with ``--smoke --device cpu``.
 """
 from __future__ import annotations
 

@@ -13,9 +13,14 @@ evaluation under ``torch.no_grad``) is the flash kernel on the card
 has none; everywhere else, and under autograd on the card too, it is
 ``full_attention``, or ``chunked_attention`` from 8192 tokens, as in
 the JAX package, whose training forward takes the plain path for its
-standard attention backward.  Decode attention against the cache stays
-plain PyTorch on both.  The JAX package's ``shardctx.constrain_*`` calls
-are identities without a mesh; the port leaves them out until the
+standard attention backward.  The kernel takes q and k at one head dim
+and v at its own, each up to 256, and scales by 1 / sqrt(q's head dim):
+GQA here (RecurrentGemma's local attention at 256 with one kv head, a
+window and a softcap) and MLA's prefill (``models/mla.py``, 192 and 128)
+dispatch to it the same way (``prefill_attention``), and the plain cores
+take v's head dim too.  Decode attention against the cache stays plain
+PyTorch on both.  The JAX package's ``shardctx.constrain_*`` calls are
+identities without a mesh; the port leaves them out until the
 multi-device slice.
 """
 from __future__ import annotations
@@ -126,7 +131,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                              NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         outs.append(torch.einsum("bghct,btgd->bcghd", probs, v32))
-    return torch.cat(outs, 1).reshape(b, s, h, d).to(q.dtype)
+    return torch.cat(outs, 1).reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *,
@@ -175,6 +180,19 @@ def _records_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def prefill_attention(q, k, v, *, causal: bool, window: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
+    """Attention without a cache (prefill, training): the flash kernel
+    on the card unless autograd records, else ``chunked_attention`` from
+    8192 tokens, else ``full_attention``."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if default_use_kernel(q) and not _records_grad(q, k, v):
+        return flash_attention(q, k, v, **kw)
+    if q.shape[1] >= 8192:
+        return chunked_attention(q, k, v, **kw)
+    return full_attention(q, k, v, **kw)
+
+
 def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor, causal: bool = True,
               cache: Optional[Params] = None,
@@ -217,16 +235,10 @@ def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         kv_len = torch.clamp(cache_index + s_new, max=cache_len)
         out = decode_attention(q, cache["k"].to(cd), cache["v"].to(cd),
                                kv_len=kv_len, softcap=cfg.logit_softcap)
-    elif default_use_kernel(q) and not _records_grad(q, k, v):
-        out = flash_attention(q, k, v, causal=causal, window=cfg.window_size,
-                              softcap=cfg.logit_softcap)
-    elif x.shape[1] >= 8192:
-        out = chunked_attention(q, k, v, causal=causal,
+    else:
+        out = prefill_attention(q, k, v, causal=causal,
                                 window=cfg.window_size,
                                 softcap=cfg.logit_softcap)
-    else:
-        out = full_attention(q, k, v, causal=causal, window=cfg.window_size,
-                             softcap=cfg.logit_softcap)
     if return_kv and cache is None:
         new_cache = {"k": k, "v": v}
     rd = torch_dtype(cfg.reduce_dtype)

@@ -1,5 +1,5 @@
-"""Language-model assembly, dense and moe families: the port of the JAX
-package's ``repro/models/lm.py`` for training and serving.
+"""Language-model assembly, dense, moe and hybrid families: the port of
+the JAX package's ``repro/models/lm.py`` for training and serving.
 
 One functional ``LM`` facade per ModelConfig:
 
@@ -19,17 +19,29 @@ attention takes the plain path (``layers.gqa_apply``), as JAX's training
 forward does, and ``remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``, JAX's ``nothing_saveable`` policy).
 
-The moe family (DeepSeek-MoE) on GQA attention stacks its first
-``moe.first_dense_layers`` blocks as ``dense_layers`` (a dense MLP of
-the JAX package's width) and the rest as ``layers`` (the MoE FFN,
-``models/moe.py``), with caches ``dense_cache`` and ``cache``; its aux
-losses are averaged over the MoE layers.  Still to port (ROADMAP.md,
-queue 1 item 8): moe with MLA attention, and the ssm, hybrid, encdec and
-vlm families.
+The moe family (DeepSeek-MoE on GQA attention, DeepSeek-V2-Lite on MLA,
+``models/mla.py``) stacks its first ``moe.first_dense_layers`` blocks as
+``dense_layers`` (a dense MLP of the JAX package's width) and the rest as
+``layers`` (the MoE FFN, ``models/moe.py``), with caches ``dense_cache``
+and ``cache`` (GQA's ``k``, ``v``; MLA's latent ``c_kv`` and RoPE key
+``k_rope``); its aux losses are averaged over the MoE layers.
+
+The hybrid family (RecurrentGemma) scales the embedding by
+sqrt(d_model), then runs ``groups`` of [RG-LRU block, RG-LRU block,
+local-attention block] and a ``tail`` of RG-LRU blocks
+(``models/recurrent.py``); the attention block is the dense block, its
+local attention the flash kernel on the card (window, softcap, one kv
+head).  Its decode state holds each RG-LRU block's convolution buffer and
+float32 h (written in place each step) and each attention block's ring
+buffer of the window's k, v; prefill fills the ring with the prompt's
+last ``window`` positions, which needs the window to divide the prompt
+length, as in the JAX package.  Still to port (ROADMAP.md, queue 1 item
+8): the ssm, encdec and vlm families.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -38,7 +50,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import recurrent as R
 from repro_torch.models.params import ParamDef, stack
 from repro_torch.tree import tree_map, tree_paths, tree_unflatten
 
@@ -47,8 +61,8 @@ Params = Dict[str, Any]
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: only the dense family and moe on GQA attention are "
-        f"ported; moe with MLA, ssm, hybrid, encdec and vlm are not yet "
+        f"{what}: only the dense, moe (GQA and MLA attention) and hybrid "
+        f"families are ported; ssm, encdec and vlm are not yet "
         f"(ROADMAP.md, queue 1 item 8)")
 
 
@@ -83,10 +97,13 @@ def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     """The rows of the table (``F.embedding``: its backward sums the
     rows' gradients in a fixed order, where indexing's accumulating
-    ``index_put_`` does not)."""
+    ``index_put_`` does not); the hybrid family scales them by
+    sqrt(d_model) (gemma)."""
     x = F.embedding(tokens, p["embed"])
     if cfg.pos_embed == "learned":
         x = x + F.embedding(positions, p["pos_embed"])
+    if cfg.family == "hybrid":
+        x = x * math.sqrt(cfg.d_model)
     return x.to(torch_dtype(cfg.compute_dtype))
 
 
@@ -130,14 +147,16 @@ def _maybe_remat(fn, enable: bool):
 
 
 # ---------------------------------------------------------------------------
-# blocks: dense, and the moe family's (dense FFN or MoE FFN)
+# blocks: dense, the moe family's (dense FFN or MoE FFN), the hybrid's
 # ---------------------------------------------------------------------------
 
 
 def _block_defs(cfg: ModelConfig, ffn: Optional[Params] = None) -> Params:
-    """One block: attention and its norm, then the FFN's norm and ``ffn``
-    (by default the dense MLP of width ``cfg.d_ff``)."""
-    return {"attn_norm": L.norm_defs(cfg, "scale"), "attn": L.gqa_defs(cfg),
+    """One block: attention (MLA where ``cfg.attention`` says so, else
+    GQA) and its norm, then the FFN's norm and ``ffn`` (by default the
+    dense MLP of width ``cfg.d_ff``)."""
+    attn = MLA.mla_defs(cfg) if cfg.attention == "mla" else L.gqa_defs(cfg)
+    return {"attn_norm": L.norm_defs(cfg, "scale"), "attn": attn,
             "mlp_norm": L.norm_defs(cfg, "scale"),
             **(ffn or {"mlp": L.mlp_defs(cfg)})}
 
@@ -158,9 +177,10 @@ def _block(p: Params, cfg: ModelConfig, x, positions, cache=None,
     ``p["moe"]`` the MoE layer).  Returns (x, the cache or the new kv,
     the FFN's aux losses)."""
     h = L.apply_norm(p["attn_norm"], cfg, x, "scale")
-    a, new_cache = L.gqa_apply(p["attn"], cfg, h, positions=positions,
-                               cache=cache, cache_index=cache_index,
-                               return_kv=return_kv)
+    attend = MLA.mla_apply if cfg.attention == "mla" else L.gqa_apply
+    a, new_cache = attend(p["attn"], cfg, h, positions=positions,
+                          cache=cache, cache_index=cache_index,
+                          return_kv=return_kv)
     # XLA keeps this sum in float32 for the norm (its excess precision
     # across the fusion) and rounds it for the second residual add
     x32 = x.float() + a.float()
@@ -170,6 +190,68 @@ def _block(p: Params, cfg: ModelConfig, x, positions, cache=None,
     else:
         y, aux = L.mlp_apply(p["mlp"], cfg, h), {}
     return x32.to(x.dtype) + y, new_cache, aux
+
+
+def _rg_block_defs(cfg: ModelConfig) -> Params:
+    w = cfg.recurrent.lru_width or cfg.d_model
+    return {
+        "norm": L.norm_defs(cfg, "scale"),
+        "w_x": ParamDef((cfg.d_model, w), ("embed", "rec_state")),
+        "w_y": ParamDef((cfg.d_model, w), ("embed", "rec_state")),
+        "conv": R.conv_defs(w, cfg.recurrent.conv_width),
+        "lru": R.rg_lru_defs(w, cfg.n_heads),
+        "w_out": ParamDef((w, cfg.d_model), ("rec_state", "embed"),
+                          scale=1.0 / math.sqrt(2 * cfg.n_layers)),
+        "mlp_norm": L.norm_defs(cfg, "scale"),
+        "mlp": L.mlp_defs(cfg),
+    }
+
+
+def _rg_block(p: Params, cfg: ModelConfig, x, *, state=None):
+    """One RG-LRU block: the gated recurrence (a GELU gate times the
+    RG-LRU of the causal convolution), then the MLP.  ``state`` None runs
+    the sequence; "collect" runs it and returns the decode state (the
+    last k - 1 inputs of the convolution and the last h, float32); a
+    state dict runs one token against it and returns the new state."""
+    h = L.apply_norm(p["norm"], cfg, x, "scale")
+    gate = L._gelu(h @ p["w_x"].to(h.dtype))
+    y = h @ p["w_y"].to(h.dtype)
+    new_state = None
+    if state is None or state == "collect":
+        rec = R.rg_lru_scan(p["lru"], R.causal_conv(p["conv"], y),
+                            cfg.n_heads)
+        if state == "collect":
+            kw = cfg.recurrent.conv_width - 1
+            new_state = {"conv": y[:, -kw:].float(),
+                         "h": rec[:, -1].float()}
+    else:
+        yc, conv_buf = R.causal_conv_step(p["conv"], state["conv"], y[:, 0])
+        rec_h, h32 = R.rg_lru_step(p["lru"], state["h"], yc, cfg.n_heads)
+        rec = rec_h[:, None, :]
+        new_state = {"conv": conv_buf, "h": h32}
+    out = (rec * gate) @ p["w_out"].to(x.dtype)
+    # the first residual in float32 for the norm, rounded for the second
+    # add, as in ``_block``
+    x32 = x.float() + out.float()
+    h = L.apply_norm(p["mlp_norm"], cfg, x32, "scale").to(x.dtype)
+    return x32.to(x.dtype) + L.mlp_apply(p["mlp"], cfg, h), new_state
+
+
+def _rg_group_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(#full [rec, rec, attn] groups, #tail rec blocks)."""
+    groups = cfg.n_layers // 3
+    return groups, cfg.n_layers - 3 * groups
+
+
+def _to_cache_(buf: torch.Tensor, kv: torch.Tensor) -> None:
+    """One layer's (B, clen, ...) cache from the prompt's (B, S, ...)
+    values: zero past S, or the last clen positions for a ring buffer
+    (aligned with the decode slots index % clen when clen | S)."""
+    s, clen = kv.shape[1], buf.shape[1]
+    if clen <= s:
+        buf.copy_(kv[:, s - clen:])
+    else:
+        buf[:, :s] = kv
 
 
 # ---------------------------------------------------------------------------
@@ -182,24 +264,34 @@ class LM:
     cfg: ModelConfig
 
     def _stacks(self) -> Tuple[Tuple[str, str, int], ...]:
-        """The layer stacks in depth order: (parameter key, cache key,
-        depth), for the families the port runs."""
+        """The homogeneous layer stacks in depth order: (parameter key,
+        cache key, depth), for the dense and moe families (the hybrid
+        family's groups have methods of their own)."""
         cfg = self.cfg
         if cfg.family == "dense":
             return (("layers", "cache", cfg.n_layers),)
         if cfg.family == "moe":
-            if cfg.attention == "mla":
-                raise _not_ported("family 'moe' with attention 'mla'")
             nd = cfg.moe.first_dense_layers
             return tuple(st for st in (
                 ("dense_layers", "dense_cache", nd),
                 ("layers", "cache", cfg.n_layers - nd)) if st[2])
         raise _not_ported(f"family {cfg.family!r}")
 
+    @property
+    def _hybrid(self) -> bool:
+        return self.cfg.family == "hybrid"
+
     def param_defs(self) -> Params:
         cfg = self.cfg
         defs: Params = _embed_defs(cfg)
         defs["final_norm"] = L.norm_defs(cfg, "scale")
+        if self._hybrid:
+            groups, tail = _rg_group_layout(cfg)
+            defs["groups"] = stack({"rec": stack(_rg_block_defs(cfg), 2),
+                                    "attn": _block_defs(cfg)}, groups)
+            if tail:
+                defs["tail"] = stack(_rg_block_defs(cfg), tail)
+            return defs
         for key, _, n in self._stacks():
             ffn = (None if cfg.family == "dense"
                    else _moe_ffn_defs(cfg, key == "dense_layers"))
@@ -214,25 +306,51 @@ class LM:
         """(B, S) tokens -> ((B, S, V) float32 logits, aux losses: the moe
         family's averaged over its MoE layers)."""
         cfg = self.cfg
-        stacks = self._stacks()
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = _embed_tokens(params, cfg, tokens, positions)
+        if self._hybrid:
+            x = self._hybrid_forward(params, x, positions, remat)
+            aux = {}
+        else:
+            x, aux = self._stacks_forward(params, x, positions, remat)
+        x = L.apply_norm(params["final_norm"], cfg, x, "scale")
+        return _logits(params, cfg, x), aux
+
+    def _stacks_forward(self, params, x, positions, remat):
+        cfg = self.cfg
 
         def block(h, lp):
             h, _, aux = _block(lp, cfg, h, positions)
             return h, aux
         block = _maybe_remat(block, remat)
         auxs = []
-        for key, _, n in stacks:
+        for key, _, n in self._stacks():
             for lp in _unstack(params[key], n):
                 x, aux = block(x, lp)
                 if aux:
                     auxs.append(aux)
         aux = ({k: torch.mean(torch.stack([a[k] for a in auxs]))
                 for k in auxs[0]} if auxs else {})
-        x = L.apply_norm(params["final_norm"], cfg, x, "scale")
-        return _logits(params, cfg, x), aux
+        return x, aux
+
+    def _hybrid_forward(self, params, x, positions, remat):
+        """JAX's scan over groups, each group rematerialized as one
+        (remat), then the tail's blocks."""
+        cfg = self.cfg
+        groups, tail = _rg_group_layout(cfg)
+
+        def group(h, gp):
+            for lp in _unstack(gp["rec"], 2):
+                h, _ = _rg_block(lp, cfg, h)
+            return _block(gp["attn"], cfg, h, positions)[0]
+        group = _maybe_remat(group, remat)
+        for gp in _unstack(params["groups"], groups):
+            x = group(x, gp)
+        if tail:
+            for lp in _unstack(params["tail"], tail):
+                x, _ = _rg_block(lp, cfg, x)
+        return x
 
     # ----- loss -----
 
@@ -271,8 +389,25 @@ class LM:
         clen = self._attn_cache_len(cache_len)
         state: Params = {"index": ParamDef((), (), "zeros",
                                            dtype=torch.int32)}
+        if self._hybrid:
+            groups, tail = _rg_group_layout(cfg)
+            w = cfg.recurrent.lru_width or cfg.d_model
+            kw = cfg.recurrent.conv_width - 1
+            rstate = {
+                "conv": ParamDef((batch, kw, w),
+                                 ("batch", "conv_k", "rec_state"), "zeros"),
+                "h": ParamDef((batch, w), ("batch", "rec_state"), "zeros"),
+            }
+            state["groups"] = stack({
+                "rec": stack(rstate, 2),
+                "attn": L.gqa_cache_defs(cfg, batch, clen)}, groups)
+            if tail:
+                state["tail"] = stack(rstate, tail)
+            return state
+        mk = (MLA.mla_cache_defs if cfg.attention == "mla"
+              else L.gqa_cache_defs)
         for _, ckey, n in self._stacks():
-            state[ckey] = stack(L.gqa_cache_defs(cfg, batch, clen), n)
+            state[ckey] = stack(mk(cfg, batch, clen), n)
         return state
 
     # ----- decode step (one token against the state) -----
@@ -280,22 +415,50 @@ class LM:
     def decode_step(self, params: Params, state: Params,
                     tokens: torch.Tensor) -> Tuple[torch.Tensor, Params]:
         """(B, 1) tokens -> ((B, 1, V) float32 logits, the new state).  The
-        caches are written in place: the new state holds the same cache
-        tensors as ``state``."""
+        state is written in place: the new state holds the same tensors
+        as ``state``, and a new ``index``."""
         cfg = self.cfg
-        stacks = self._stacks()
         idx = state["index"]
         positions = idx.reshape(1)
         x = _embed_tokens(params, cfg, tokens, positions)
         new_state: Params = {"index": idx + 1}
-        for key, ckey, n in stacks:
-            cache = state[ckey]
-            for i in range(n):
-                x, _, _ = _block(_layer(params[key], i), cfg, x, positions,
-                                 cache=_layer(cache, i), cache_index=idx)
-            new_state[ckey] = cache
+        if self._hybrid:
+            groups, tail = _rg_group_layout(cfg)
+            gs = state["groups"]
+            for g in range(groups):
+                gp = _layer(params["groups"], g)
+                for j in range(2):
+                    x = self._rg_into(_layer(gp["rec"], j), x,
+                                      _layer(_layer(gs["rec"], g), j))
+                x, _, _ = _block(gp["attn"], cfg, x, positions,
+                                 cache=_layer(gs["attn"], g),
+                                 cache_index=idx)
+            new_state["groups"] = gs
+            if tail:
+                for i in range(tail):
+                    x = self._rg_into(_layer(params["tail"], i), x,
+                                      _layer(state["tail"], i))
+                new_state["tail"] = state["tail"]
+        else:
+            for key, ckey, n in self._stacks():
+                cache = state[ckey]
+                for i in range(n):
+                    x, _, _ = _block(_layer(params[key], i), cfg, x,
+                                     positions, cache=_layer(cache, i),
+                                     cache_index=idx)
+                new_state[ckey] = cache
         x = L.apply_norm(params["final_norm"], cfg, x, "scale")
         return _logits(params, cfg, x), new_state
+
+    def _rg_into(self, lp: Params, x: torch.Tensor, rs: Params,
+                 prompt: bool = False) -> torch.Tensor:
+        """One RG-LRU block on one token against its state ``rs`` (views
+        into the stacked state), or on the ``prompt``; the new state
+        written into ``rs`` in place."""
+        x, ns = _rg_block(lp, self.cfg, x, state="collect" if prompt else rs)
+        rs["conv"].copy_(ns["conv"])
+        rs["h"].copy_(ns["h"])
+        return x
 
     # ----- prefill (forward + build decode state) -----
 
@@ -303,9 +466,9 @@ class LM:
                 cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
         """(B, S) prompt tokens -> ((B, 1, V) float32 logits of the last
-        position, the decode state: ``index`` = S and each stack's (L, B,
-        clen, G, hd) cache, zero past S, or its last clen positions for a
-        ring)."""
+        position, the decode state: ``index`` = S and each layer's cache,
+        zero past S, or its last clen positions for a ring; the hybrid
+        family's RG-LRU states)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -313,20 +476,31 @@ class LM:
         positions = torch.arange(s, device=dev)
         x = _embed_tokens(params, cfg, tokens, positions)
         defs = self.decode_state_defs(b, cache_len or s)
-        state: Params = {"index": torch.tensor(s, dtype=torch.int32,
-                                               device=dev)}
-        for key, ckey, n in self._stacks():
-            cache = {name: torch.zeros(d.shape, dtype=d.dtype, device=dev)
-                     for name, d in defs[ckey].items()}
-            clen = cache["k"].shape[2]
-            for i in range(n):
-                x, kv, _ = _block(_layer(params[key], i), cfg, x, positions,
+        state = tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                               device=dev), defs)
+        state["index"].fill_(s)
+        if self._hybrid:
+            groups, tail = _rg_group_layout(cfg)
+            gs = state["groups"]
+            for g in range(groups):
+                gp = _layer(params["groups"], g)
+                for j in range(2):
+                    x = self._rg_into(_layer(gp["rec"], j), x,
+                                      _layer(_layer(gs["rec"], g), j),
+                                      prompt=True)
+                x, kv, _ = _block(gp["attn"], cfg, x, positions,
                                   return_kv=True)
-                for name in ("k", "v"):
-                    if clen <= s:     # ring buffer: the last clen positions
-                        cache[name][i] = kv[name][:, s - clen:]
-                    else:
-                        cache[name][i, :, :s] = kv[name]
-            state[ckey] = cache
+                for name, buf in _layer(gs["attn"], g).items():
+                    _to_cache_(buf, kv[name])
+            for i in range(tail):
+                x = self._rg_into(_layer(params["tail"], i), x,
+                                  _layer(state["tail"], i), prompt=True)
+        else:
+            for key, ckey, n in self._stacks():
+                for i in range(n):
+                    x, kv, _ = _block(_layer(params[key], i), cfg, x,
+                                      positions, return_kv=True)
+                    for name, buf in _layer(state[ckey], i).items():
+                        _to_cache_(buf, kv[name])
         x = L.apply_norm(params["final_norm"], cfg, x[:, -1:], "scale")
         return _logits(params, cfg, x), state

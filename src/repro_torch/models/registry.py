@@ -10,10 +10,11 @@ from repro_torch.models.lm import LM
 from repro_torch.models.params import param_count as _count_defs
 
 # the architectures of the JAX package's registry whose families are
-# ported (dense, and moe on GQA attention); the others wait for theirs
-# (ROADMAP.md, queue 1 item 8)
+# ported (dense, moe on GQA and MLA attention, hybrid); the ssm, encdec
+# and vlm architectures wait for theirs (ROADMAP.md, queue 1 item 8)
 ARCH_IDS = ("mistral_large_123b", "phi3_medium_14b", "olmo_1b",
-            "nemotron_4_15b", "deepseek_moe_16b")
+            "nemotron_4_15b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
+            "recurrentgemma_9b")
 
 
 def normalize(arch: str) -> str:
@@ -24,7 +25,8 @@ def _module(arch: str):
     name = normalize(arch)
     if name not in ARCH_IDS:
         raise NotImplementedError(
-            f"architecture {arch!r} is not ported; ported: {ARCH_IDS}")
+            f"architecture {arch!r} is not ported (ROADMAP.md, queue 1 "
+            f"item 8); ported: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -42,7 +42,12 @@ the CPU's; the ``repex_run`` CLI's report.  The moe family: routing on
 the card identical to the CPU's on tie-heavy logits (the stable sort),
 and the deepseek-moe smoke model's float32 prefill and decode step on
 the card within 1e-4 of max |logit| of the CPU's, one flash launch per
-layer of the prefill and none in decode.
+layer of the prefill and none in decode.  Kernel 8 past 128 head dims:
+(Dqk, Dv) = (192, 128), (256, 256), (24, 16), (64, 128), (256, 64), H = G
+and one kv head, against its plain version per element; the
+deepseek-v2-lite and recurrentgemma smoke models at float32 on the card
+and the CPU through 20 decode steps (the ring buffer wrapping), one
+flash launch per attention layer of the prefill.
 """
 import numpy as np
 import pytest
@@ -682,6 +687,35 @@ def test_flash_attention_matches_plain_version(dtype, causal, window, rep,
     assert bool(((got - want).abs() <= allow).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(192, 128), (256, 256), (24, 16),
+                                  (64, 128), (256, 64)])
+@pytest.mark.parametrize("h,g", [(16, 16), (16, 1)])
+@pytest.mark.parametrize("s,causal,window,softcap", [
+    (100, True, 0, 0.0), (257, False, 0, 0.0), (300, True, 64, 30.0)])
+def test_flash_attention_wider_heads_match_plain_version(dtype, d, dv, h, g,
+                                                         s, causal, window,
+                                                         softcap):
+    """Kernel 8 at MLA's (192, 128) and RecurrentGemma's 256 head dims,
+    and q/k and v head dims apart either way (zero halves past D or Dv in
+    the tensor-core variant), held as above."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    gen = torch.Generator(device="cuda").manual_seed(s + d + dv)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((1, s, h, d), (1, s, g, d), (1, s, g, dv)))
+    if softcap:
+        q = 20 * q
+    got = fa_ops.flash_attention_kernel(q, k, v, causal=causal,
+                                        window=window, softcap=softcap)
+    want = fa_ops.ref.attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+    assert got.dtype == dtype and got.shape == (1, s, h, dv)
+    got, want = got.float(), want.float()
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    allow = rtol * want.abs() + 5e-5 * want.abs().max()
+    assert bool(((got - want).abs() <= allow).all())
+
+
 def test_flash_attention_wrapper_contract():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     q, k, v = _qkv(torch.bfloat16, 1, 64, 4, 2, 32)
@@ -696,9 +730,12 @@ def test_flash_attention_wrapper_contract():
         assert torch.equal(first, second)
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention_kernel(q.cpu(), k.cpu(), v.cpu())
+    wide = _qkv(torch.bfloat16, 1, 16, 2, 2, 264)          # D > 256
     for bad in ((q.float(), k, v), (q, k[:, :, :1].expand(-1, -1, 3, -1)
                                     .contiguous(), v),
-                _qkv(torch.bfloat16, 1, 16, 2, 2, 12)):   # TMA: D % 8
+                _qkv(torch.bfloat16, 1, 16, 2, 2, 12),    # TMA: D % 8
+                (q, k, v[..., :12].contiguous()),         # TMA: Dv % 8
+                wide, (q, k, v[:, :8].contiguous())):     # T of v
         with pytest.raises(ValueError):
             fa_ops.flash_attention_kernel(*bad)
 
@@ -783,6 +820,42 @@ def test_moe_smoke_model_on_the_card_is_the_cpus():
     for got, want in ((logits, cpu), (step, cpu_step)):
         scale = float(want.abs().max())
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b",
+                                  "recurrentgemma_9b"])
+def test_mla_and_hybrid_smoke_models_on_the_card_are_the_cpus(arch):
+    """deepseek-v2-lite-smoke (MLA: kernel 8 at Dqk 24, Dv 16) and
+    recurrentgemma-smoke (local attention, window 16, one kv head,
+    softcap) at float32: prefill, then decode past the window, on the
+    card within 1e-4 of max |logit| of the CPU's; one flash launch per
+    attention layer of the prefill, none in decode."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import registry
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              compute_dtype="float32", cache_dtype="float32",
+                              reduce_dtype="float32")
+    lm = registry.build(cfg)
+    n_attn = (cfg.n_layers // 3 if cfg.family == "hybrid"
+              else cfg.n_layers)
+    params = init_params(jr.key(0, "cuda"), lm.param_defs())
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    tokens = jr.randint(jr.key(1, "cuda"), (2, 32), 0, cfg.vocab_size)
+    n0 = fa_ops.LIBRARY.variants.get("f32", 0)
+    logits, state = lm.prefill(params, {"tokens": tokens}, cache_len=52)
+    assert fa_ops.LIBRARY.variants["f32"] == n0 + n_attn
+    cpu, cpu_state = lm.prefill(cpu_params, {"tokens": tokens.cpu()},
+                                cache_len=52)
+    for _ in range(20):
+        scale = float(cpu.abs().max())
+        assert float((logits.cpu() - cpu).abs().max()) <= 1e-4 * scale
+        tok = torch.argmax(cpu[:, -1], -1)[:, None]
+        logits, state = lm.decode_step(params, state, tok.cuda())
+        cpu, cpu_state = lm.decode_step(cpu_params, cpu_state, tok)
+    assert fa_ops.LIBRARY.variants["f32"] == n0 + n_attn
 
 
 # -- the driver's patterns, modes and fault tolerance on the card --------

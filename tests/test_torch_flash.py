@@ -14,6 +14,12 @@ numpy inputs.
     JAX's ``full_attention`` and ``chunked_attention``;
   * ``flash_attention`` on CPU tensors is the plain version (softcap
     included) and launches nothing;
+  * q/k and v head dims apart (Dqk, Dv) = (24, 16) and (192, 128), MLA's
+    prefill: the plain version and ``chunked_attention`` at v's own width
+    against JAX's ``full_attention`` / ``chunked_attention`` on v padded
+    to Dqk and the output sliced (what ``repro/models/mla.py`` does), and
+    D = 256 with one kv head, a window and the softcap (RecurrentGemma's
+    local attention), within 1e-6 (1e-5 with the softcap, as below);
   * the bf16 kernel's P V arithmetic, emulated: P rounded once to bf16
     spends several times the per-element allowance of phase 19 of
     ``chip_smoke.py`` on short rows, P split as P_hi + P_lo (both bf16)
@@ -173,3 +179,50 @@ def test_split_p_keeps_the_bf16_allowance(causal):
     used = {split: float(((_pv(q, k, v, causal, split).float() - want).abs()
                           / allow).max()) for split in (False, True)}
     assert used[True] <= 1.0 < 2.0 < used[False]
+
+
+def _padded_jax(attn, jq, jk, jv, **kw):
+    """JAX's MLA prefill core: v padded with zeros to q's head dim, the
+    output sliced back to v's."""
+    dv = jv.shape[-1]
+    pad = jnp.pad(jv, ((0, 0), (0, 0), (0, 0), (0, jq.shape[-1] - dv)))
+    return np.asarray(attn(jq, jk, pad, **kw)[..., :dv])
+
+
+@pytest.mark.parametrize("d,dv", [(24, 16), (192, 128)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+def test_separate_v_head_dim_matches_jax_padded(d, dv, causal, window):
+    rng = np.random.default_rng(d + window)
+    q, k = (rng.standard_normal((1, 128, 4, d)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((1, 128, 4, dv)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    kw = dict(causal=causal, window=window)
+    want = _padded_jax(JL.full_attention, jq, jk, jv, **kw)
+    plain = fa_ref.attention(tq, tk, tv, **kw)
+    assert plain.shape == (1, 128, 4, dv)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(TL.full_attention(tq, tk, tv, **kw).numpy(),
+                               want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        TL.chunked_attention(tq, tk, tv, chunk=64, **kw).numpy(),
+        _padded_jax(JL.chunked_attention, jq, jk, jv, chunk=64, **kw),
+        rtol=0, atol=1e-6)
+    # on the CPU the dispatch is the plain version, at v's width
+    assert torch.equal(fa_ops.flash_attention(tq, tk, tv, **kw), plain)
+
+
+@pytest.mark.parametrize("window,softcap", [(16, 30.0), (0, 30.0),
+                                            (48, 0.0)])
+def test_head_dim_256_one_kv_head_matches_jax(window, softcap):
+    (jq, jk, jv), (q, k, v) = _inputs(1, 64, 4, 1, 256, "float32", seed=7)
+    if softcap:
+        jq, q = 20 * jq, 20 * q               # scores up to ~100: capped
+    kw = dict(causal=True, window=window, softcap=softcap)
+    want = np.asarray(JL.full_attention(jq, jk, jv, **kw))
+    got = fa_ref.attention(q, k, v, **kw)
+    assert got.shape == (1, 64, 4, 256)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 if softcap else 1e-6)

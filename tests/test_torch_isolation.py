@@ -34,8 +34,9 @@ print(" ".join(names))
 # observability slice (telemetry, the report, the repex_run CLI), of
 # the replica-sharded slice (sharding, the mesh, the exchange) and of the
 # LM training slice (data, optimizers, the RE-SGLD engine, the train step
-# and launcher), and of the public surface and the moe family (the engine
-# protocol, the MoE layer, DeepSeek-MoE's config)
+# and launcher), of the public surface and the moe family (the engine
+# protocol, the MoE layer, DeepSeek-MoE's config), and of MLA and the
+# hybrid family (the MLA layer, the RG-LRU cells, their configs)
 SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.core.patterns", "repro_torch.core.modes",
                  "repro_torch.core.failures", "repro_torch.core.repex",
@@ -52,7 +53,10 @@ SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.models.lm_engine", "repro_torch.launch.steps",
                  "repro_torch.launch.train",
                  "repro_torch.core.engine", "repro_torch.models.moe",
-                 "repro_torch.configs.deepseek_moe_16b")
+                 "repro_torch.configs.deepseek_moe_16b",
+                 "repro_torch.models.mla", "repro_torch.models.recurrent",
+                 "repro_torch.configs.deepseek_v2_lite_16b",
+                 "repro_torch.configs.recurrentgemma_9b")
 
 
 def _examples():

@@ -309,16 +309,17 @@ def test_serve_default_device_is_cuda(monkeypatch):
 
 
 def test_other_families_raise():
-    """What is still to port raises, naming its ROADMAP item: moe with
-    MLA attention, the ssm family, and the architectures of the families
-    still to port (the dense family and moe on GQA run)."""
+    """What is still to port raises, naming its ROADMAP item: the ssm,
+    encdec and vlm families and their architectures (the dense, moe on
+    GQA and MLA attention, and hybrid families run)."""
     from repro_torch.config import ModelConfig
     from repro_torch.models.lm import LM
-    mla = dataclasses.replace(registry.get_smoke_config("deepseek_moe_16b"),
-                              attention="mla")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        LM(mla).param_defs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        LM(ModelConfig(family="ssm")).param_defs()
-    with pytest.raises(NotImplementedError):
-        registry.get_config("whisper_small")
+    for family in ("ssm", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+            LM(ModelConfig(family=family)).param_defs()
+    for arch in ("xlstm_1_3b", "whisper_small", "internvl2_26b"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+            registry.get_config(arch)
+    for arch in ("deepseek_v2_lite_16b", "recurrentgemma_9b"):
+        assert arch in registry.ARCH_IDS
+        LM(registry.get_smoke_config(arch)).param_defs()
