@@ -297,9 +297,21 @@ printed on its own lines:
                   blocks: D 256, one kv head, window 2048, softcap 30),
                   none in decode; 39a, and 39b on recurrentgemma-smoke
                   (its ring buffer wrapping)
+ 40. ssm serving  the sixteenth slice: the same for xLSTM-1.3B (6 units of
+                  7 mLSTM + 1 sLSTM blocks, no attention), after phase
+                  39's state is freed: no kernel launch at all, bitwise
+                  tokens, the phase's seconds; 40a by kernel group
+                  (matmuls, copies, reductions, elementwise), 40b
+                  xlstm-smoke at float32 card vs CPU
+ 41. training     card vs CPU on the smoke configs of DeepSeek-V2-Lite
+                  (MLA), RecurrentGemma (hybrid) and xLSTM (ssm), float32,
+                  TF32 off: 3 ``make_train_step`` steps with remat from
+                  one seeded state, step 1's loss within
+                  TOL_LM_LOSS[float32] and its gradient within
+                  TOL_LM_GRAD in every leaf, no kernel launch
  33. GPUs        only under ``python3 -m torch.distributed.run
                   --nproc-per-node N chip_smoke.py``, N > 1 GPUs of one
-                  host (without a launcher the script runs phases 1-39 on
+                  host (without a launcher the script runs phases 1-41 on
                   one card): ``run_sharded`` on N and on N/2 NCCL ranks
                   for T-REMD 64 (halo, gather, asynchronous + faults) and
                   TSU 384 (fused neighbor and matrix, sparse fused), each
@@ -4345,11 +4357,13 @@ MOE_GROUPS = (("flash_attention kernel", r"flash_attention_kernel"),
                r"sort|scan|index|scatter|gather"))
 
 
-def breakdown_by_group(lm, params, smi: str, label: str) -> None:
-    """Phases 37a, 38a, 39a: where a warm full-width prefill's and a
-    decode step's device time goes, one profiled call each, by kernel
-    group; the busy share against the same call unprofiled (median of
-    CUDA-event times)."""
+def breakdown_by_group(lm, params, smi: str, label: str,
+                       kernel_groups) -> None:
+    """Phases 37a-40a: where a warm full-width prefill's and a decode
+    step's device time goes, one profiled call each (the device's
+    activity alone), by the first of ``kernel_groups`` whose pattern a
+    kernel's name matches; the busy share against the same call
+    unprofiled (median of 5 CUDA-event times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import random as jr
@@ -4364,11 +4378,10 @@ def breakdown_by_group(lm, params, smi: str, label: str) -> None:
              "decode step": lambda: lm.decode_step(params, state, tok)}
     for tag, fn in calls.items():
         wall = median_ms(fn, n=5, warmup=1)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        groups = dict.fromkeys([g for g, _ in MOE_GROUPS] + ["the rest"],
+        groups = dict.fromkeys([g for g, _ in kernel_groups] + ["the rest"],
                                0.0)
         by_name = {}
         n = 0
@@ -4376,12 +4389,13 @@ def breakdown_by_group(lm, params, smi: str, label: str) -> None:
             if e.device_type != DeviceType.CUDA:
                 continue
             n += 1
-            key = next((g for g, pat in MOE_GROUPS
+            key = next((g for g, pat in kernel_groups
                         if re.search(pat, e.name.lower())), "the rest")
             groups[key] += e.device_time_total / 1e3
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.device_time_total / 1e3
         busy = sum(groups.values())
+        check(n > 0 and busy > 0, f"{label}: the profiler saw the kernels")
         print(f"{tag}: {n} kernels, device time {busy:.3f} ms of "
               f"{wall:.3f} ms (median of 5, unprofiled): busy share "
               f"{busy / wall:.3f} [{smi}]")
@@ -4461,7 +4475,7 @@ V2_ARCH, RG_ARCH = "deepseek_v2_lite_16b", "recurrentgemma_9b"
 
 
 def serve_wide(libs, smi: str, arch: str, label: str, n_flash: int,
-               then=None) -> int:
+               then=None, kernel_groups=MOE_GROUPS) -> int:
     """Phases 37, 38 and 39: ``serve.main`` on ``arch`` at full width on
     one card, once the earlier LM phases' memory is freed (less than 4
     GiB held: the MD phases' engines hold ~2 GiB), twice from the same
@@ -4470,13 +4484,16 @@ def serve_wide(libs, smi: str, arch: str, label: str, n_flash: int,
     logits; init, the cold and the warm prefill, decode ms per token,
     peak memory; then a prefill and a decode step counted apart
     (``n_flash`` and 0), the breakdown by kernel group and ``then(lm,
-    params)``.  Returns the first run's flash launches."""
+    params)``, the groups being ``kernel_groups``.  Prints the phase's
+    seconds.  Returns the first run's flash
+    launches."""
     from repro_torch import random as jr
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import serve
     from repro_torch.models import registry
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     held = torch.cuda.memory_allocated() / 2 ** 30
     cfg = registry.get_config(arch)
     phase(f"{label} LM serving: {arch} at full width, {LM_BATCH} prompts x "
@@ -4493,6 +4510,8 @@ def serve_wide(libs, smi: str, arch: str, label: str, n_flash: int,
     want = dict.fromkeys(launches, 0)
     want["flash_attention"] = n_flash
     variants = dict(fa_ops.LIBRARY.variants)
+    # a family without attention launches no kernel at all
+    want_variants = {"bf16_tc": n_flash} if n_flash else {}
     dec = statistics.median(rep["decode_ms"])
     print(f"params {registry.param_count(cfg)} ({cfg.param_dtype}); init "
           f"{rep['init_s']:.2f} s; prefill {rep['prefill_ms']:.2f} ms "
@@ -4501,8 +4520,8 @@ def serve_wide(libs, smi: str, arch: str, label: str, n_flash: int,
           f"{max(rep['decode_ms']):.3f}); peak memory "
           f"{rep['peak_bytes'] / 2 ** 30:.2f} GiB [{smi}]")
     print(f"launches {launches}, flash by variant {variants} (want "
-          f"{n_flash} flash on bf16_tc)")
-    check(launches == want and variants == {"bf16_tc": n_flash},
+          f"{n_flash} flash on bf16_tc, nothing else)")
+    check(launches == want and variants == want_variants,
           f"serve {arch}: {n_flash} flash launches on the tensor cores, "
           f"nothing else")
     check(gen.shape == (LM_BATCH, LM_TOKENS) and all(
@@ -4536,12 +4555,13 @@ def serve_wide(libs, smi: str, arch: str, label: str, n_flash: int,
           f"none in decode")
     breakdown_by_group(lm, params, smi,
                        f"{label}a where a prefill's and a decode step's "
-                       f"time goes ({arch})")
+                       f"time goes ({arch})", kernel_groups)
     if then is not None:
         then(lm, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"phase {label} took {time.perf_counter() - t_phase:.1f} s")
     return launches["flash_attention"]
 
 
@@ -4567,6 +4587,92 @@ def serve_card_vs_cpu(arch: str) -> None:
               f"{(top2[..., 0] - top2[..., 1]).tolist()}")
     check(same and e <= TOL_LM_CPU, f"{arch} smoke: the card makes the "
                                     f"CPU's tokens")
+
+
+# The sixteenth slice: xLSTM-1.3B (arXiv:2405.04517; the ssm family: 6
+# units of 7 mLSTM + 1 sLSTM blocks, no attention) served at full width
+# with phase 21's flags (phase 40), then training card against CPU on the
+# smoke configs of the MLA, hybrid and ssm families (phase 41).
+XL_ARCH = "xlstm_1_3b"
+XLSTM_GROUPS = (("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
+                ("casts and copies", r"copy"),
+                ("reductions and scans", r"reduce|scan"),
+                ("elementwise", r"elementwise"))
+TRAIN_ARCHS = (V2_ARCH, RG_ARCH, XL_ARCH)
+TRAIN_CPU_STEPS = 3
+
+
+def train_card_vs_cpu(libs) -> None:
+    """Phase 41: ``make_train_step`` (AdamW, remat per block, as the train
+    launcher runs it) for TRAIN_CPU_STEPS steps on the card and on the
+    CPU from one seeded state (drawn on the CPU, copied to the card) and
+    the same batches, every dtype float32 and TF32 off: step 1's loss
+    within TOL_LM_LOSS[float32] and its gradient (``LM.value_and_grad``
+    with remat, the step's own) within TOL_LM_GRAD of max |cpu| in every
+    leaf, each leaf non-zero (phase 34b's limits, set before this phase
+    first ran); the later steps' losses printed; no kernel launch
+    (autograd takes the plain attention)."""
+    from repro_torch import random as jr
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.tree import tree_map, tree_paths
+    t_phase = time.perf_counter()
+    phase(f"41 training card vs CPU at float32, TF32 off: the smoke configs "
+          f"of {', '.join(TRAIN_ARCHS)}, {TRAIN_CPU_STEPS} AdamW steps with "
+          f"remat")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "train card vs CPU: TF32 matmuls off")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=10, total_steps=50,
+                       remat_policy="block")
+    tol_loss = TOL_LM_LOSS[torch.float32]
+    reset(libs)
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                                  compute_dtype="float32",
+                                  cache_dtype="float32",
+                                  reduce_dtype="float32")
+        lm = registry.build(cfg)
+        ds = SyntheticLMDataset(cfg.vocab_size, 32, 4)
+        batches = [{k: torch.as_tensor(v) for k, v in ds.next_batch().items()}
+                   for _ in range(TRAIN_CPU_STEPS)]
+        start = steps.init_train_state(jr.key(0), lm)
+        step = steps.make_train_step(lm, tcfg)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            state = tree_map(lambda t: t.to(dev), start)
+            bs = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+            (loss, _), grads = lm.value_and_grad(state["params"], bs[0],
+                                                 remat=True)
+            losses = []
+            for b in bs:
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+            runs[dev] = (float(loss), tree_map(lambda t: t.cpu(), grads),
+                         losses)
+        (loss_c, g_c, l_c), (loss_g, g_g, l_g) = runs["cpu"], runs["cuda"]
+        errs = {"/".join(path): rel(g, w) for (path, g), (_, w) in
+                zip(tree_paths(g_g), tree_paths(g_c))}
+        zero = [k for (path, w) in tree_paths(g_c)
+                for k in ["/".join(path)] if float(w.abs().max()) == 0.0]
+        worst = max(errs, key=errs.get)
+        e_loss = abs(loss_g - loss_c) / abs(loss_c)
+        print(f"{arch} smoke: step 1 loss card {loss_g:.7f} CPU {loss_c:.7f} "
+              f"(rel {e_loss:.2e}, tol {tol_loss}); gradient worst leaf "
+              f"{worst} {errs[worst]:.2e} of max |cpu| over {len(errs)} "
+              f"leaves (tol {TOL_LM_GRAD}); zero leaves {zero}; step losses "
+              f"card {[round(x, 6) for x in l_g]}, CPU "
+              f"{[round(x, 6) for x in l_c]}")
+        check(e_loss <= tol_loss and errs[worst] <= TOL_LM_GRAD and not zero
+              and abs(l_g[0] - l_c[0]) <= tol_loss * abs(l_c[0])
+              and all(math.isfinite(x) for x in l_g),
+              f"train {arch}: the card's step 1 loss and gradient are the "
+              f"CPU's")
+    launches = {lib.name: lib.launches for lib in libs}
+    check(all(v == 0 for v in launches.values()),
+          f"train card vs CPU: no kernel launch under autograd {launches}")
+    print(f"phase 41 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def ready() -> bool:
@@ -4788,6 +4894,10 @@ def main() -> int:
                              registry.get_config(RG_ARCH).n_layers // 3)
     phase("39b LM serving: card vs CPU (recurrentgemma-smoke, float32)")
     serve_card_vs_cpu(RG_ARCH)
+    serve_wide(libs, smi, XL_ARCH, "40", 0, kernel_groups=XLSTM_GROUPS)
+    phase("40b LM serving: card vs CPU (xlstm-smoke, float32)")
+    serve_card_vs_cpu(XL_ARCH)
+    train_card_vs_cpu(libs)
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",

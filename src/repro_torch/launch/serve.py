@@ -10,6 +10,8 @@
         --arch deepseek_v2_lite_16b --batch 4 --prompt-len 2048 --tokens 32
     PYTHONPATH=src python3 -m repro_torch.launch.serve \\
         --arch recurrentgemma_9b --batch 4 --prompt-len 2048 --tokens 32
+    PYTHONPATH=src python3 -m repro_torch.launch.serve \\
+        --arch xlstm_1_3b --batch 4 --prompt-len 2048 --tokens 32
 
 The port of the JAX package's ``repro/launch/serve.py``: the same flags,
 the same seeded weights (``init_params(key(0))``) and prompts
@@ -20,9 +22,10 @@ dense architectures, ``--arch deepseek_moe_16b`` (moe on GQA attention),
 ``--arch deepseek_v2_lite_16b`` (moe on MLA attention: absorbed decode
 against the latent cache) and ``--arch recurrentgemma_9b`` (the hybrid
 family: a 2048-token ring buffer for its local attention, whose window
-must divide the prompt length when the prompt is longer); the encdec and
-vlm inputs wait for their families.  Each of the three names also runs
-with ``--smoke --device cpu``.
+must divide the prompt length when the prompt is longer) and ``--arch
+xlstm_1_3b`` (the ssm family: mLSTM and sLSTM states, no attention); the
+encdec and vlm inputs wait for their families.  Each of the four names
+also runs with ``--smoke --device cpu``.
 """
 from __future__ import annotations
 

@@ -13,8 +13,9 @@ the port's checkpoint format.  A restart restores the newest intact
 checkpoint and advances the data stream past the batches the restored
 steps consumed, so a killed-then-resumed run is bitwise the
 uninterrupted one (the JAX launcher starts its stream over).  Runs the
-families ``LM`` runs (dense, and moe on GQA attention, whose aux losses
-join the loss).
+families ``LM`` runs: dense; moe on GQA and on MLA attention (DeepSeek-
+V2-Lite), whose aux losses join the loss; hybrid (RecurrentGemma); ssm
+(xLSTM).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Language-model assembly, dense, moe and hybrid families: the port of
-the JAX package's ``repro/models/lm.py`` for training and serving.
+"""Language-model assembly, dense, moe, hybrid and ssm families: the port
+of the JAX package's ``repro/models/lm.py`` for training and serving.
 
 One functional ``LM`` facade per ModelConfig:
 
@@ -35,8 +35,16 @@ head).  Its decode state holds each RG-LRU block's convolution buffer and
 float32 h (written in place each step) and each attention block's ring
 buffer of the window's k, v; prefill fills the ring with the prompt's
 last ``window`` positions, which needs the window to divide the prompt
-length, as in the JAX package.  Still to port (ROADMAP.md, queue 1 item
-8): the ssm, encdec and vlm families.
+length, as in the JAX package.
+
+The ssm family (xLSTM) runs ``units`` of ``slstm_every`` - 1 mLSTM blocks
+and one sLSTM block (``models/recurrent.py``), no attention and no
+separate FFN; remat rematerialises each unit as one and, inside it, each
+mLSTM block again, as JAX nests them.  Its decode state holds each
+block's convolution buffer and cell state (the mLSTM's float32 (C, n, m),
+the sLSTM's (c, n, h, m)), written in place each step; prefill fills it
+with ``mlstm_final_state``'s closed form and the sLSTM loop's last state.
+Still to port (ROADMAP.md, queue 1 item 8): the encdec and vlm families.
 """
 from __future__ import annotations
 
@@ -61,9 +69,9 @@ Params = Dict[str, Any]
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: only the dense, moe (GQA and MLA attention) and hybrid "
-        f"families are ported; ssm, encdec and vlm are not yet "
-        f"(ROADMAP.md, queue 1 item 8)")
+        f"{what}: only the dense, moe (GQA and MLA attention), hybrid and "
+        f"ssm families are ported; encdec and vlm are not yet (ROADMAP.md, "
+        f"queue 1 item 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +245,104 @@ def _rg_block(p: Params, cfg: ModelConfig, x, *, state=None):
     return x32.to(x.dtype) + L.mlp_apply(p["mlp"], cfg, h), new_state
 
 
+def _mlstm_block_defs(cfg: ModelConfig) -> Params:
+    rc = cfg.recurrent
+    d = cfg.d_model
+    inner = int(rc.mlstm_proj_factor * d)
+    return {
+        "norm": L.norm_defs(cfg, "scale"),
+        "w_up": ParamDef((d, 2 * inner), ("embed", "rec_state")),
+        "conv": R.conv_defs(inner, rc.conv_width),
+        "cell": R.mlstm_defs(inner, cfg.n_heads),
+        "w_down": ParamDef((inner, d), ("rec_state", "embed"),
+                           scale=1.0 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _mlstm_block(p: Params, cfg: ModelConfig, x, *, state=None):
+    """One mLSTM block: the norm, a 2x up-projection into the cell's
+    branch and a SiLU gate z, the causal convolution and SiLU, the mLSTM
+    cell, the gate, the down-projection and the residual.  ``state`` as
+    in ``_rg_block``: None, "collect" (the prompt's last k - 1 inputs of
+    the convolution, float32, and ``mlstm_final_state``) or a state dict
+    (one token)."""
+    rc = cfg.recurrent
+    inner = int(rc.mlstm_proj_factor * cfg.d_model)
+    h = L.apply_norm(p["norm"], cfg, x, "scale")
+    up = h @ p["w_up"].to(h.dtype)
+    z, xi = up[..., :inner], up[..., inner:]
+    new_state = None
+    if state is None or state == "collect":
+        xc = L._silu(R.causal_conv(p["conv"], xi))
+        cell_out = R.mlstm_parallel(p["cell"], xc, cfg.n_heads,
+                                    chunk=rc.chunk_size)
+        if state == "collect":
+            kw = rc.conv_width - 1
+            new_state = {"conv": xi[:, -kw:].float(),
+                         "cell": R.mlstm_final_state(p["cell"], xc,
+                                                     cfg.n_heads)}
+    else:
+        xc, conv_buf = R.causal_conv_step(p["conv"], state["conv"], xi[:, 0])
+        cell_out, cell_state = R.mlstm_step(
+            p["cell"], state["cell"], L._silu(xc)[:, None, :], cfg.n_heads)
+        new_state = {"conv": conv_buf, "cell": cell_state}
+    out = cell_out * L._silu(z)
+    return x + (out @ p["w_down"].to(out.dtype)).to(x.dtype), new_state
+
+
+def _slstm_block_defs(cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    f = int(cfg.recurrent.slstm_proj_factor * d)
+    return {
+        "norm": L.norm_defs(cfg, "scale"),
+        "conv": R.conv_defs(d, cfg.recurrent.conv_width),
+        "cell": R.slstm_defs(d, cfg.n_heads),
+        "ffn_norm": L.norm_defs(cfg, "scale"),
+        "w_gate": ParamDef((d, f), ("embed", "mlp")),
+        "w_up": ParamDef((d, f), ("embed", "mlp")),
+        "w_down": ParamDef((f, d), ("mlp", "embed"),
+                           scale=1.0 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _slstm_block(p: Params, cfg: ModelConfig, x, *, state=None):
+    """One sLSTM block: the norm, the causal convolution and SiLU, the
+    sLSTM cell, the residual; then a 4/3 GeGLU FFN and its residual.
+    ``state`` as in ``_mlstm_block`` (collected: the normed input's last
+    k - 1 positions, float32, and the cell's final state)."""
+    h = L.apply_norm(p["norm"], cfg, x, "scale")
+    new_state = None
+    if state is None or state == "collect":
+        hc = L._silu(R.causal_conv(p["conv"], h))
+        cell_out, cell_state = R.slstm_scan(p["cell"], hc, cfg.n_heads,
+                                            return_state=True)
+        if state == "collect":
+            kw = cfg.recurrent.conv_width - 1
+            new_state = {"conv": h[:, -kw:].float(), "cell": cell_state}
+    else:
+        hc, conv_buf = R.causal_conv_step(p["conv"], state["conv"], h[:, 0])
+        cell_out, cell_state = R.slstm_step(
+            p["cell"], state["cell"], L._silu(hc)[:, None, :], cfg.n_heads)
+        new_state = {"conv": conv_buf, "cell": cell_state}
+    # the first residual in float32 for the norm, rounded for the second
+    # add, as in ``_block``
+    x32 = x.float() + cell_out.float()
+    h = L.apply_norm(p["ffn_norm"], cfg, x32, "scale").to(x.dtype)
+    ff = L._gelu(h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
+    return x32.to(x.dtype) + (ff @ p["w_down"].to(ff.dtype)).to(x.dtype), \
+        new_state
+
+
+def _xlstm_unit_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(#units, mLSTM blocks per unit): the blocks as units of
+    ``slstm_every`` - 1 mLSTM blocks and one sLSTM block."""
+    per = cfg.recurrent.slstm_every
+    if cfg.n_layers % per:
+        raise ValueError(f"{cfg.n_layers} blocks do not make units of "
+                         f"slstm_every = {per}")
+    return cfg.n_layers // per, per - 1
+
+
 def _rg_group_layout(cfg: ModelConfig) -> Tuple[int, int]:
     """(#full [rec, rec, attn] groups, #tail rec blocks)."""
     groups = cfg.n_layers // 3
@@ -266,7 +372,8 @@ class LM:
     def _stacks(self) -> Tuple[Tuple[str, str, int], ...]:
         """The homogeneous layer stacks in depth order: (parameter key,
         cache key, depth), for the dense and moe families (the hybrid
-        family's groups have methods of their own)."""
+        family's groups and the ssm family's units have methods of their
+        own)."""
         cfg = self.cfg
         if cfg.family == "dense":
             return (("layers", "cache", cfg.n_layers),)
@@ -281,6 +388,10 @@ class LM:
     def _hybrid(self) -> bool:
         return self.cfg.family == "hybrid"
 
+    @property
+    def _ssm(self) -> bool:
+        return self.cfg.family == "ssm"
+
     def param_defs(self) -> Params:
         cfg = self.cfg
         defs: Params = _embed_defs(cfg)
@@ -291,6 +402,12 @@ class LM:
                                     "attn": _block_defs(cfg)}, groups)
             if tail:
                 defs["tail"] = stack(_rg_block_defs(cfg), tail)
+            return defs
+        if self._ssm:
+            units, n_m = _xlstm_unit_counts(cfg)
+            defs["units"] = stack({"mlstm": stack(_mlstm_block_defs(cfg),
+                                                  n_m),
+                                   "slstm": _slstm_block_defs(cfg)}, units)
             return defs
         for key, _, n in self._stacks():
             ffn = (None if cfg.family == "dense"
@@ -311,6 +428,9 @@ class LM:
         x = _embed_tokens(params, cfg, tokens, positions)
         if self._hybrid:
             x = self._hybrid_forward(params, x, positions, remat)
+            aux = {}
+        elif self._ssm:
+            x = self._ssm_forward(params, x, remat)
             aux = {}
         else:
             x, aux = self._stacks_forward(params, x, positions, remat)
@@ -350,6 +470,24 @@ class LM:
         if tail:
             for lp in _unstack(params["tail"], tail):
                 x, _ = _rg_block(lp, cfg, x)
+        return x
+
+    def _ssm_forward(self, params, x, remat):
+        """JAX's scan over units, each unit rematerialised as one (remat)
+        and inside it each mLSTM block again, then the unit's sLSTM
+        block."""
+        cfg = self.cfg
+        units, n_m = _xlstm_unit_counts(cfg)
+        mblock = _maybe_remat(lambda h, lp: _mlstm_block(lp, cfg, h)[0],
+                              remat)
+
+        def unit(h, up):
+            for lp in _unstack(up["mlstm"], n_m):
+                h = mblock(h, lp)
+            return _slstm_block(up["slstm"], cfg, h)[0]
+        unit = _maybe_remat(unit, remat)
+        for up in _unstack(params["units"], units):
+            x = unit(x, up)
         return x
 
     # ----- loss -----
@@ -404,6 +542,21 @@ class LM:
             if tail:
                 state["tail"] = stack(rstate, tail)
             return state
+        if self._ssm:
+            units, n_m = _xlstm_unit_counts(cfg)
+            inner = int(cfg.recurrent.mlstm_proj_factor * cfg.d_model)
+            kw = cfg.recurrent.conv_width - 1
+            mstate = {
+                "conv": ParamDef((batch, kw, inner),
+                                 ("batch", "conv_k", "rec_state"), "zeros"),
+                "cell": R.mlstm_state_defs(inner, cfg.n_heads, batch)}
+            sstate = {
+                "conv": ParamDef((batch, kw, cfg.d_model),
+                                 ("batch", "conv_k", "rec_state"), "zeros"),
+                "cell": R.slstm_state_defs(cfg.d_model, batch)}
+            state["units"] = stack({"mlstm": stack(mstate, n_m),
+                                    "slstm": sstate}, units)
+            return state
         mk = (MLA.mla_cache_defs if cfg.attention == "mla"
               else L.gqa_cache_defs)
         for _, ckey, n in self._stacks():
@@ -428,17 +581,20 @@ class LM:
             for g in range(groups):
                 gp = _layer(params["groups"], g)
                 for j in range(2):
-                    x = self._rg_into(_layer(gp["rec"], j), x,
-                                      _layer(_layer(gs["rec"], g), j))
+                    x = self._into(_rg_block, _layer(gp["rec"], j), x,
+                                   _layer(_layer(gs["rec"], g), j))
                 x, _, _ = _block(gp["attn"], cfg, x, positions,
                                  cache=_layer(gs["attn"], g),
                                  cache_index=idx)
             new_state["groups"] = gs
             if tail:
                 for i in range(tail):
-                    x = self._rg_into(_layer(params["tail"], i), x,
-                                      _layer(state["tail"], i))
+                    x = self._into(_rg_block, _layer(params["tail"], i), x,
+                                   _layer(state["tail"], i))
                 new_state["tail"] = state["tail"]
+        elif self._ssm:
+            x = self._units_into(params, x, state["units"])
+            new_state["units"] = state["units"]
         else:
             for key, ckey, n in self._stacks():
                 cache = state[ckey]
@@ -450,14 +606,29 @@ class LM:
         x = L.apply_norm(params["final_norm"], cfg, x, "scale")
         return _logits(params, cfg, x), new_state
 
-    def _rg_into(self, lp: Params, x: torch.Tensor, rs: Params,
-                 prompt: bool = False) -> torch.Tensor:
-        """One RG-LRU block on one token against its state ``rs`` (views
+    def _into(self, block, lp: Params, x: torch.Tensor, st: Params,
+              prompt: bool = False) -> torch.Tensor:
+        """One recurrent block (``_rg_block``, ``_mlstm_block``,
+        ``_slstm_block``) on one token against its state ``st`` (views
         into the stacked state), or on the ``prompt``; the new state
-        written into ``rs`` in place."""
-        x, ns = _rg_block(lp, self.cfg, x, state="collect" if prompt else rs)
-        rs["conv"].copy_(ns["conv"])
-        rs["h"].copy_(ns["h"])
+        written into ``st`` in place."""
+        x, ns = block(lp, self.cfg, x, state="collect" if prompt else st)
+        for (_, dst), (_, src) in zip(tree_paths(st), tree_paths(ns)):
+            dst.copy_(src)
+        return x
+
+    def _units_into(self, params: Params, x: torch.Tensor, us: Params,
+                    prompt: bool = False) -> torch.Tensor:
+        """The ssm family's units on one token (or the ``prompt``), each
+        block's state in ``us`` written in place."""
+        units, n_m = _xlstm_unit_counts(self.cfg)
+        for u in range(units):
+            up, ust = _layer(params["units"], u), _layer(us, u)
+            for j in range(n_m):
+                x = self._into(_mlstm_block, _layer(up["mlstm"], j), x,
+                               _layer(ust["mlstm"], j), prompt)
+            x = self._into(_slstm_block, up["slstm"], x, ust["slstm"],
+                           prompt)
         return x
 
     # ----- prefill (forward + build decode state) -----
@@ -485,16 +656,18 @@ class LM:
             for g in range(groups):
                 gp = _layer(params["groups"], g)
                 for j in range(2):
-                    x = self._rg_into(_layer(gp["rec"], j), x,
-                                      _layer(_layer(gs["rec"], g), j),
-                                      prompt=True)
+                    x = self._into(_rg_block, _layer(gp["rec"], j), x,
+                                   _layer(_layer(gs["rec"], g), j),
+                                   prompt=True)
                 x, kv, _ = _block(gp["attn"], cfg, x, positions,
                                   return_kv=True)
                 for name, buf in _layer(gs["attn"], g).items():
                     _to_cache_(buf, kv[name])
             for i in range(tail):
-                x = self._rg_into(_layer(params["tail"], i), x,
-                                  _layer(state["tail"], i), prompt=True)
+                x = self._into(_rg_block, _layer(params["tail"], i), x,
+                               _layer(state["tail"], i), prompt=True)
+        elif self._ssm:
+            x = self._units_into(params, x, state["units"], prompt=True)
         else:
             for key, ckey, n in self._stacks():
                 for i in range(n):

@@ -10,11 +10,11 @@ from repro_torch.models.lm import LM
 from repro_torch.models.params import param_count as _count_defs
 
 # the architectures of the JAX package's registry whose families are
-# ported (dense, moe on GQA and MLA attention, hybrid); the ssm, encdec
+# ported (dense, moe on GQA and MLA attention, hybrid, ssm); the encdec
 # and vlm architectures wait for theirs (ROADMAP.md, queue 1 item 8)
 ARCH_IDS = ("mistral_large_123b", "phi3_medium_14b", "olmo_1b",
             "nemotron_4_15b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
-            "recurrentgemma_9b")
+            "recurrentgemma_9b", "xlstm_1_3b")
 
 
 def normalize(arch: str) -> str:

@@ -42,6 +42,16 @@ from repro_torch.md import MDEngine
 from repro_torch.md import neighbors as NB
 from test_torch_sparse import run_sparse_pair
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R_LIST = 9.5
 SKIN = 1.5
 

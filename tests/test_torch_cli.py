@@ -110,7 +110,7 @@ def test_unported_flags_name_their_roadmap_item(argv, item, monkeypatch):
     JAX's CLI); what it cannot run yet is another model family, whose
     error names the ROADMAP item."""
     cfg = dataclasses.replace(registry.get_smoke_config("olmo_1b"),
-                              family="ssm")
+                              family="encdec")
     monkeypatch.setattr(registry, "get_smoke_config", lambda arch: cfg)
     with pytest.raises(NotImplementedError, match=item):
         repex_run.main(argv + ["--device", "cpu", "--cycles", "1"])

@@ -45,9 +45,9 @@ the card within 1e-4 of max |logit| of the CPU's, one flash launch per
 layer of the prefill and none in decode.  Kernel 8 past 128 head dims:
 (Dqk, Dv) = (192, 128), (256, 256), (24, 16), (64, 128), (256, 64), H = G
 and one kv head, against its plain version per element; the
-deepseek-v2-lite and recurrentgemma smoke models at float32 on the card
-and the CPU through 20 decode steps (the ring buffer wrapping), one
-flash launch per attention layer of the prefill.
+deepseek-v2-lite, recurrentgemma and xlstm smoke models at float32 on
+the card and the CPU through 20 decode steps (the ring buffer wrapping),
+one flash launch per attention layer of the prefill (none for xlstm).
 """
 import numpy as np
 import pytest
@@ -823,13 +823,14 @@ def test_moe_smoke_model_on_the_card_is_the_cpus():
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b",
-                                  "recurrentgemma_9b"])
+                                  "recurrentgemma_9b", "xlstm_1_3b"])
 def test_mla_and_hybrid_smoke_models_on_the_card_are_the_cpus(arch):
-    """deepseek-v2-lite-smoke (MLA: kernel 8 at Dqk 24, Dv 16) and
+    """deepseek-v2-lite-smoke (MLA: kernel 8 at Dqk 24, Dv 16),
     recurrentgemma-smoke (local attention, window 16, one kv head,
-    softcap) at float32: prefill, then decode past the window, on the
-    card within 1e-4 of max |logit| of the CPU's; one flash launch per
-    attention layer of the prefill, none in decode."""
+    softcap) and xlstm-smoke (mLSTM and sLSTM, no attention) at float32:
+    prefill, then decode past the window, on the card within 1e-4 of max
+    |logit| of the CPU's; one flash launch per attention layer of the
+    prefill, none in decode."""
     import dataclasses
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import registry
@@ -839,14 +840,14 @@ def test_mla_and_hybrid_smoke_models_on_the_card_are_the_cpus(arch):
                               compute_dtype="float32", cache_dtype="float32",
                               reduce_dtype="float32")
     lm = registry.build(cfg)
-    n_attn = (cfg.n_layers // 3 if cfg.family == "hybrid"
-              else cfg.n_layers)
+    n_attn = {"hybrid": cfg.n_layers // 3, "ssm": 0}.get(cfg.family,
+                                                         cfg.n_layers)
     params = init_params(jr.key(0, "cuda"), lm.param_defs())
     cpu_params = tree_map(lambda t: t.cpu(), params)
     tokens = jr.randint(jr.key(1, "cuda"), (2, 32), 0, cfg.vocab_size)
     n0 = fa_ops.LIBRARY.variants.get("f32", 0)
     logits, state = lm.prefill(params, {"tokens": tokens}, cache_len=52)
-    assert fa_ops.LIBRARY.variants["f32"] == n0 + n_attn
+    assert fa_ops.LIBRARY.variants.get("f32", 0) == n0 + n_attn
     cpu, cpu_state = lm.prefill(cpu_params, {"tokens": tokens.cpu()},
                                 cache_len=52)
     for _ in range(20):
@@ -855,7 +856,7 @@ def test_mla_and_hybrid_smoke_models_on_the_card_are_the_cpus(arch):
         tok = torch.argmax(cpu[:, -1], -1)[:, None]
         logits, state = lm.decode_step(params, state, tok.cuda())
         cpu, cpu_state = lm.decode_step(cpu_params, cpu_state, tok)
-    assert fa_ops.LIBRARY.variants["f32"] == n0 + n_attn
+    assert fa_ops.LIBRARY.variants.get("f32", 0) == n0 + n_attn
 
 
 # -- the driver's patterns, modes and fault tolerance on the card --------

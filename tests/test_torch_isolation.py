@@ -35,8 +35,9 @@ print(" ".join(names))
 # the replica-sharded slice (sharding, the mesh, the exchange) and of the
 # LM training slice (data, optimizers, the RE-SGLD engine, the train step
 # and launcher), of the public surface and the moe family (the engine
-# protocol, the MoE layer, DeepSeek-MoE's config), and of MLA and the
-# hybrid family (the MLA layer, the RG-LRU cells, their configs)
+# protocol, the MoE layer, DeepSeek-MoE's config), of MLA and the hybrid
+# family (the MLA layer, the RG-LRU cells, their configs) and of the ssm
+# family (the xLSTM cells in models/recurrent.py, xLSTM-1.3B's config)
 SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.core.patterns", "repro_torch.core.modes",
                  "repro_torch.core.failures", "repro_torch.core.repex",
@@ -56,7 +57,8 @@ SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.configs.deepseek_moe_16b",
                  "repro_torch.models.mla", "repro_torch.models.recurrent",
                  "repro_torch.configs.deepseek_v2_lite_16b",
-                 "repro_torch.configs.recurrentgemma_9b")
+                 "repro_torch.configs.recurrentgemma_9b",
+                 "repro_torch.configs.xlstm_1_3b")
 
 
 def _examples():

@@ -52,6 +52,15 @@ RUN_CFG = dict(dimensions=(("temperature", 8),), t_min=94.4, t_max=150.0,
                md_steps_per_cycle=10, n_cycles=8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fluid(n_atoms, n_rep=R, seed=0):
     """Lattice + 0.3 A jitter, wrapped into the box: pairs across the
     boundary and atoms near the origin's corner."""
@@ -419,22 +428,27 @@ def _argon(n_atoms, seed=0):
     return torch.from_numpy(np.mod(pos, box).astype(np.float32)), box
 
 
-def _pair_u(pos, i, j, box, inv_box, sig2, m):
-    """float32 s6 (s6 - 1) m of the pairs (i, j) with their 0/1 masks m,
-    the minimum image by one reciprocal and r2 += 1 - m, as the kernel
-    forms them (1 / r^2 rounded once here, an ulp from the kernel's
-    rcp)."""
-    d = pos[i] - pos[j]
-    d = d - box * torch.round(d * inv_box)
-    r2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+def _pair_u(d, box, inv_box, sig2, m):
+    """float32 s6 (s6 - 1) m of the pairs whose displacement components
+    pos[i] - pos[j] are ``d`` (three tensors of one shape) with their 0/1
+    masks m, the minimum image by one reciprocal and r2 += 1 - m, as the
+    kernel forms them (1 / r^2 rounded once here, an ulp from the
+    kernel's rcp).  Each step is one elementwise operation, so a term's
+    bits do not depend on the shape it is computed in."""
+    dx, dy, dz = (c - box * torch.round(c * inv_box) for c in d)
+    r2 = (dx * dx + dy * dy) + dz * dz
     tt = sig2 * (1.0 / (r2 + (1.0 - m)))
     s6 = tt * (tt * tt)
     return s6 * (s6 - 1.0) * m
 
 
-def _tile_walk_energy(pos, box, sig2, c4):
+def _tile_walk_energy(pos, box, sig2, c4, entries=2048):
     """The kernel's order at R = 1: lanes' sums per tile entry, entries
-    per lane, the butterfly, warps, blocks (float32 throughout)."""
+    per lane, the butterfly, warps, blocks (float32 throughout).  Every
+    off-diagonal entry's 32 lanes step together: at step (h, s) lane l
+    of rows 64 I + l and 64 I + 32 + l meets column 64 J + 32 h +
+    (l + s) % 32, a roll of tile J's half h; ``entries`` entries at a
+    time, so that the temporaries stay in cache."""
     from repro_torch.kernels import pad_to_block
     n = pos.shape[0]
     ld = pad_to_block(n, t_ops.TILE)
@@ -444,34 +458,44 @@ def _tile_walk_energy(pos, box, sig2, c4):
     sched = t_ops.tile_schedule(n_t, "cpu")
     inv_box = float(np.float32(1.0 / box))
     padded = torch.cat([pos, torch.zeros(ld - n, 3)])
+    xyz = padded.T.reshape(3, n_t, 64)           # (axis, tile, atom)
+    real = (torch.arange(ld) < n).reshape(n_t, 64)
     lane = torch.arange(32)
     ent = torch.zeros(n_t, n_t, 32)              # (round, slot, lane)
 
-    def add(e, ia, ja, keep=True):              # one step of every lane
-        m = ((ia < n) & (ja < n) & keep).to(torch.float32)
-        return e + _pair_u(padded, ia, ja, box, inv_box, sig2, m)
+    def add(e, a, va, b, vb, keep=True):         # one step of every lane
+        m = (va & vb & keep).to(torch.float32)
+        return e + _pair_u(a - b, box, inv_box, sig2, m)
 
     u, k = torch.nonzero(sched >= 0, as_tuple=True)
     tiles = sched[u, k]
     ti, tj = tiles & 0xFFFF, tiles >> 16
     off = ti != tj
-    ii, jj = (64 * ti[off])[:, None], (64 * tj[off])[:, None]
-    e = torch.zeros(int(off.sum()), 32)
-    for h in range(2):
-        for s in range(32):
-            j = jj + 32 * h + (lane + s) % 32
-            e = add(e, ii + lane, j)
-            e = add(e, ii + 32 + lane, j)
-    ent[u[off], k[off]] = e
+    ti_o, tj_o = ti[off], tj[off]
+    e_off = []
+    for c0 in range(0, len(ti_o), entries):      # cache-sized pieces
+        a, va = xyz[:, ti_o[c0:c0 + entries]], real[ti_o[c0:c0 + entries]]
+        b, vb = xyz[:, tj_o[c0:c0 + entries]], real[tj_o[c0:c0 + entries]]
+        e = torch.zeros(a.shape[1], 32)
+        for h in range(2):
+            bh, vh = b[..., 32 * h:32 * h + 32], vb[..., 32 * h:32 * h + 32]
+            for s in range(32):
+                bj, vj = torch.roll(bh, -s, -1), torch.roll(vh, -s, -1)
+                e = add(e, a[..., :32], va[..., :32], bj, vj)
+                e = add(e, a[..., 32:], va[..., 32:], bj, vj)
+        e_off.append(e)
+    ent[u[off], k[off]] = torch.cat(e_off)
     dg = ~off
-    base = (64 * ti[dg])[:, None]
+    a, va = xyz[:, ti[dg]], real[ti[dg]]
     e = torch.zeros(int(dg.sum()), 32)
     for s in range(32):                          # lower half x upper half
-        e = add(e, base + lane, base + 32 + (lane + s) % 32)
+        e = add(e, a[..., :32], va[..., :32], torch.roll(a[..., 32:], -s, -1),
+                torch.roll(va[..., 32:], -s, -1))
     for h in range(2):                           # each half with itself
+        ah, vh = a[..., 32 * h:32 * h + 32], va[..., 32 * h:32 * h + 32]
         for s in range(1, 17):                   # (l, l + 16) once
             keep = lane < 16 if s == 16 else torch.ones(32, dtype=torch.bool)
-            e = add(e, base + 32 * h + lane, base + 32 * h + (lane + s) % 32,
+            e = add(e, ah, vh, torch.roll(ah, -s, -1), torch.roll(vh, -s, -1),
                     keep)
     ent[u[dg], k[dg]] = e
     # each lane's entries in its block's order: rounds s, s + S, ...; the
@@ -495,18 +519,24 @@ def _tile_walk_energy(pos, box, sig2, c4):
     return float(c4 * total)
 
 
-def _one_register_energy(pos, box, sig2, c4):
+def _one_register_energy(pos, box, sig2, c4, cols=4):
     """The earlier order: each atom's sum over all j in one float32
-    register (c4 in every term, the diagonal masked), 128-thread blocks
-    in a tree, the blocks in order, halved."""
+    register, j = 0, 1, ... (c4 in every term, the diagonal masked),
+    128-thread blocks in a tree, the blocks in order, halved.  The terms
+    of ``cols`` consecutive j are formed at once, then added to every
+    atom's sum one j after the other."""
     n = pos.shape[0]
     inv_box = float(np.float32(1.0 / box))
+    xyz = pos.T.contiguous()
     i = torch.arange(n)
     e = torch.zeros(n)
-    for j in range(n):
-        m = (i != j).to(torch.float32)
-        e = e + c4 * _pair_u(pos, i, torch.full_like(i, j), box, inv_box,
-                             sig2, m)
+    for j0 in range(0, n, cols):
+        j = torch.arange(j0, min(j0 + cols, n))
+        m = (i[None, :] != j[:, None]).to(torch.float32)
+        terms = c4 * _pair_u(xyz[:, None, :] - xyz[:, j0:j0 + cols, None],
+                             box, inv_box, sig2, m)
+        for row in terms:
+            e = e + row
     nb = -(-n // 128)
     sh = torch.cat([e, torch.zeros(nb * 128 - n)]).reshape(nb, 128)
     s = 64
@@ -519,20 +549,22 @@ def _one_register_energy(pos, box, sig2, c4):
     return float(0.5 * total)
 
 
-def _float64_energy(pos, box, sig2, c4):
-    p = pos.double()
+def _float64_energy(pos, box, sig2, c4, rows=32):
+    """The float64 control: each pair i < j once, ``rows`` values of i at
+    a time against every j > i (temporaries of a few MB)."""
+    xyz = pos.double().T.contiguous()
+    n = xyz.shape[1]
     out = 0.0
-    for i0 in range(0, p.shape[0], 2048):
-        d = p[i0:i0 + 2048, None, :] - p[None, :, :]
-        d = d - box * torch.round(d / box)
-        r2 = (d * d).sum(-1)
-        idx = torch.arange(i0, min(i0 + 2048, p.shape[0]))
-        r2[idx - i0, idx] = 1.0
-        s6 = (sig2 / r2) ** 3
-        u = s6 * (s6 - 1.0)
-        u[idx - i0, idx] = 0.0
-        out += float(u.sum())
-    return 0.5 * c4 * out
+    for i0 in range(0, n, rows):
+        i1 = min(i0 + rows, n)
+        d = xyz[:, i0:i1, None] - xyz[:, None, i0:]
+        d.sub_(torch.round(d * (1.0 / box)), alpha=box)
+        r2 = d.square_().sum(0)
+        r2[:, :i1 - i0].triu_(1).add_(torch.ones(i1 - i0, i1 - i0).tril())
+        s6 = r2.reciprocal_().mul_(sig2).pow_(3)
+        s6.mul_(s6 - 1.0)[:, :i1 - i0].triu_(1)
+        out += float(s6.sum())
+    return c4 * out
 
 
 def test_tile_walk_energy_order_holds_at_17500_atoms():

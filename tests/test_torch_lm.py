@@ -309,17 +309,17 @@ def test_serve_default_device_is_cuda(monkeypatch):
 
 
 def test_other_families_raise():
-    """What is still to port raises, naming its ROADMAP item: the ssm,
-    encdec and vlm families and their architectures (the dense, moe on
-    GQA and MLA attention, and hybrid families run)."""
+    """What is still to port raises, naming its ROADMAP item: the encdec
+    and vlm families and their architectures (the dense, moe on GQA and
+    MLA attention, hybrid and ssm families run)."""
     from repro_torch.config import ModelConfig
     from repro_torch.models.lm import LM
-    for family in ("ssm", "encdec", "vlm"):
+    for family in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             LM(ModelConfig(family=family)).param_defs()
-    for arch in ("xlstm_1_3b", "whisper_small", "internvl2_26b"):
+    for arch in ("whisper_small", "internvl2_26b"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             registry.get_config(arch)
-    for arch in ("deepseek_v2_lite_16b", "recurrentgemma_9b"):
+    for arch in ("deepseek_v2_lite_16b", "recurrentgemma_9b", "xlstm_1_3b"):
         assert arch in registry.ARCH_IDS
         LM(registry.get_smoke_config(arch)).param_defs()

@@ -52,6 +52,16 @@ from repro_torch.kernels.lj_forces import ref as nb_ref
 from repro_torch.md import MDEngine
 from repro_torch.md import energy as E
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R = 4
 CUTOFF, R_LIST, K_MAX = 8.0, 9.5, 14
 TOL = 1e-5
