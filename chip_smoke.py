@@ -2461,19 +2461,33 @@ def compare_fifth():
     return err_served
 
 
+def attention_work(b: int, s: int, t: int, h: int, g: int, d: int,
+                   dv: int, causal: bool, elem: int):
+    """(operations, bytes) of attention at these shapes: 2 B H (D + Dv)
+    x the kept (query, key) pairs (query i keeps keys 0..i when causal,
+    else all T); q, k, v, out read or written once."""
+    kept = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    ops = 2 * b * h * (d + dv) * kept
+    nbytes = (b * s * h * (d + dv) + b * t * g * (d + dv)) * elem
+    return ops, nbytes
+
+
+def bound_of(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations at the bf16
+    tensor-core rate and the bytes at the memory rate."""
+    t_ops, t_bytes = ops / BF16_TC_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def bounds_fifth(b: int, s: int, h: int, g: int, d: int, elem: int,
                  dv: int = 0):
-    """(bound_ms, bound_by) of causal attention at these shapes: 2 B H (D
-    + Dv) x the kept (query, key) pairs S (S + 1) / 2 operations at the
-    bf16 tensor-core rate (a window of S or more keeps them all); q, k,
-    v, out read or written once."""
+    """(bound_ms, bound_by) of causal attention at these shapes, S = T
+    (``attention_work``; a window of S or more keeps every pair)."""
     dv = dv or d
-    kept = s * (s + 1) // 2
-    ops = 2 * b * h * (d + dv) * kept
-    nbytes = (b * s * h * (d + dv) + b * s * g * (d + dv)) * elem
+    ops, nbytes = attention_work(b, s, s, h, g, d, dv, True, elem)
     t_ops, t_bytes = ops / BF16_TC_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    bound = (max(t_ops, t_bytes) * 1e3,
-             "operations" if t_ops >= t_bytes else "bytes")
+    bound = bound_of(ops, nbytes)
     print(f"flash_attention bound: {ops:.4e} operations, "
           f"{nbytes / 1e6:.1f} MB -> {t_ops * 1e3:.4f} ms (bf16 tensor "
           f"cores, 989 TFLOP/s) vs {t_bytes * 1e3:.4f} ms (bytes): "
@@ -2574,6 +2588,85 @@ def timing_wide(smi: str) -> dict:
         out[tag] = (k_ms, p_ms, bound[0], bound[1], lib_ms)
         del q, k, v
     return out
+
+
+# The seventeenth slice's shapes of kernel 8, bfloat16 (phase 19c): (tag,
+# B, S, T, H, G, D = Dv, causal, launches a prefill, launches a decode
+# step).  Whisper-small's encoder (causal, as the JAX package's) at its
+# 1,500 frames, 23 whole 64-key tiles and a tail of 28; its decoder's self
+# attention; its cross attention, S queries against the 1,500 encoder
+# keys, no mask, in prefill and in decode (one live row of a 64-row
+# q-tile); InternVL2-26B's prefill, 2048 prompt + 256 image tokens, GQA
+# 48 / 8.
+FA_SERVE_SHAPES = (
+    ("Whisper encoder", 4, 1500, 1500, 12, 12, 64, True, 12, 0),
+    ("Whisper decoder self", 4, LM_PROMPT, LM_PROMPT, 12, 12, 64, True, 12,
+     0),
+    ("Whisper cross, prefill", 4, LM_PROMPT, 1500, 12, 12, 64, False, 12, 0),
+    ("Whisper cross, decode", 4, 1, 1500, 12, 12, 64, False, 0, 12),
+    ("InternVL2 prefill", 4, LM_PROMPT + 256, LM_PROMPT + 256, 48, 8, 128,
+     True, 48, 0))
+
+
+def serve_shapes(smi: str) -> tuple:
+    """Phase 19c: kernel 8 at ``FA_SERVE_SHAPES`` against its plain version
+    (phase 19's per-element allowance) in bfloat16, the Whisper shapes in
+    float32 too; in bfloat16 the kernel's device time (graph replays),
+    the plain version's, the bound and ``scaled_dot_product_attention``'s
+    (``is_causal`` where the shape is causal, S = T; no mask elsewhere).
+    Returns (the max absolute error in bfloat16, {tag: (kernel ms, plain
+    ms, bound ms, bound by, library ms)})."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    phase("19c kernel 8 at the encdec and vlm shapes (Whisper-small: T = "
+          "1500, cross attention S != T without a mask, one decode row; "
+          "InternVL2-26B: S = 2304, H/G = 6)")
+    worst, out = 0.0, {}
+    for tag, b, s, t, h, g, d, causal, n_pre, n_tok in FA_SERVE_SHAPES:
+        kw = dict(causal=causal)
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.float32 and h != g:
+                continue    # InternVL2 serves in bfloat16 alone
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+                dtype) for shape in ((b, s, h, d), (b, t, g, d), (b, t, g, d)))
+            got = fa_ops.flash_attention_kernel(q, k, v, **kw)
+            want = fa_ops.ref.attention(q, k, v, **kw)
+            u = fa_allowance_used(got, want, dtype)
+            err = float((got.float() - want.float()).abs().max())
+            print(f"{tag} {str(dtype)[6:]}: q {tuple(q.shape)}, k, v "
+                  f"{tuple(k.shape)}, causal={causal}: {u:.3f} of the "
+                  f"allowance, max |diff| {err:.3e}, max |diff| / max "
+                  f"|plain| {rel(got.float(), want.float()):.2e}")
+            check(got.shape == (b, s, h, d) and got.dtype == dtype and
+                  bool(torch.isfinite(got).all()) and u <= 1.0,
+                  f"flash_attention vs plain: {tag} {str(dtype)[6:]}")
+            del want
+        worst = max(worst, err)
+        k_ms = graph_ms(lambda: fa_ops.flash_attention_kernel(q, k, v, **kw),
+                        calls=5)
+        p_ms = median_ms(lambda: fa_ops.ref.attention(q, k, v, **kw), 5, 1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+        lib_ms = graph_ms(sdpa, calls=5)
+        u_lib = fa_allowance_used(sdpa().transpose(1, 2),
+                                  fa_ops.ref.attention(q, k, v, **kw),
+                                  torch.bfloat16)
+        ops, nbytes = attention_work(b, s, t, h, g, d, d, causal, 2)
+        bound = bound_of(ops, nbytes)
+        print(f"{tag}: kernel {k_ms:.4f} ms device (graph replay), plain "
+              f"{p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: "
+              f"{ops:.4e} operations, {nbytes / 1e6:.1f} MB), "
+              f"{bound[0] / k_ms:.4f} of it; scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms (its share of the allowance {u_lib:.3f}); "
+              f"launches on the served path {n_pre} a prefill, {n_tok} a "
+              f"decode step [{smi}]")
+        out[tag] = (k_ms, p_ms, bound[0], bound[1], lib_ms)
+        del q, k, v, qt, kt, vt
+    return worst, out
 
 
 def serve_argv(*extra):
@@ -3366,10 +3459,12 @@ def main_path_engine(dev: str):
 
 
 def main_path_cfg():
-    """Phase 29's run: T-REMD 8 rungs, 10 MD steps a cycle, 4 cycles."""
+    """Phase 29's run: T-REMD 8 rungs, 10 MD steps a cycle, 2 cycles: one
+    chunk, the lists rebuilt in the second cycle; the CPU's run of 4
+    cycles took 90.9 s of the script's time limit."""
     from repro_torch.config import RepExConfig
     return RepExConfig(dimensions=(("temperature", 8),),
-                       md_steps_per_cycle=10, n_cycles=4)
+                       md_steps_per_cycle=10, n_cycles=2)
 
 
 def main_path_inputs(eng) -> tuple:
@@ -4359,7 +4454,7 @@ MOE_GROUPS = (("flash_attention kernel", r"flash_attention_kernel"),
 
 def breakdown_by_group(lm, params, smi: str, label: str,
                        kernel_groups) -> None:
-    """Phases 37a-40a: where a warm full-width prefill's and a decode
+    """Phases 37a-43a: where a warm full-width prefill's and a decode
     step's device time goes, one profiled call each (the device's
     activity alone), by the first of ``kernel_groups`` whose pattern a
     kernel's name matches; the busy share against the same call
@@ -4367,14 +4462,16 @@ def breakdown_by_group(lm, params, smi: str, label: str,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import random as jr
+    from repro_torch.launch.serve import frontend_stubs
     phase(label)
     cfg = lm.cfg
     toks = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
                       cfg.vocab_size)
-    _, state = lm.prefill(params, {"tokens": toks},
-                          cache_len=LM_PROMPT + LM_TOKENS)
+    batch = {"tokens": toks, **frontend_stubs(cfg, LM_BATCH, "cuda")}
+    _, state = lm.prefill(params, batch, cache_len=LM_PROMPT + LM_TOKENS
+                          + cfg.n_image_tokens)
     tok = toks[:, -1:]
-    calls = {"prefill": lambda: lm.prefill(params, {"tokens": toks}),
+    calls = {"prefill": lambda: lm.prefill(params, batch),
              "decode step": lambda: lm.decode_step(params, state, tok)}
     for tag, fn in calls.items():
         wall = median_ms(fn, n=5, warmup=1)
@@ -4475,54 +4572,69 @@ V2_ARCH, RG_ARCH = "deepseek_v2_lite_16b", "recurrentgemma_9b"
 
 
 def serve_wide(libs, smi: str, arch: str, label: str, n_flash: int,
-               then=None, kernel_groups=MOE_GROUPS) -> int:
-    """Phases 37, 38 and 39: ``serve.main`` on ``arch`` at full width on
-    one card, once the earlier LM phases' memory is freed (less than 4
-    GiB held: the MD phases' engines hold ~2 GiB), twice from the same
-    weights: ``n_flash`` flash launches (one per attention layer of the
-    prefill) on the tensor cores and nothing else, bitwise tokens, finite
-    logits; init, the cold and the warm prefill, decode ms per token,
-    peak memory; then a prefill and a decode step counted apart
-    (``n_flash`` and 0), the breakdown by kernel group and ``then(lm,
-    params)``, the groups being ``kernel_groups``.  Prints the phase's
-    seconds.  Returns the first run's flash
-    launches."""
+               then=None, kernel_groups=MOE_GROUPS, n_flash_token: int = 0,
+               param_dtype=None) -> int:
+    """Phases 37-40, 42 and 43: ``serve.main`` on ``arch`` at full width
+    on one card (with the launcher's frontend stubs), once the earlier LM
+    phases' memory is freed (less than 4 GiB held: the MD phases' engines
+    hold ~2 GiB), twice from the same weights: ``n_flash`` flash launches
+    a prefill and ``n_flash_token`` a decode step (one per attention layer
+    that runs the kernel) on the tensor cores and nothing else, bitwise
+    tokens, finite logits; init, the cold and the warm prefill, decode ms
+    per token, peak memory; then a prefill and a decode step counted
+    apart, the breakdown by kernel group and ``then(lm, params)``, the
+    groups being ``kernel_groups``.  With ``param_dtype`` the weights are
+    drawn here at that dtype (``init_params(key(0), defs, dtype=)``, timed
+    as the init) and handed to ``serve.main``.  Prints the phase's
+    seconds.  Returns the first run's flash launches."""
     from repro_torch import random as jr
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import serve
     from repro_torch.models import registry
+    from repro_torch.models.params import init_params
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     held = torch.cuda.memory_allocated() / 2 ** 30
     cfg = registry.get_config(arch)
+    pdt = str(param_dtype)[6:] if param_dtype else cfg.param_dtype
     phase(f"{label} LM serving: {arch} at full width, {LM_BATCH} prompts x "
           f"{LM_PROMPT} tokens, {LM_TOKENS} new tokens (seeded weights, "
-          f"{cfg.param_dtype} parameters, {cfg.compute_dtype} compute)")
+          f"{pdt} parameters, {cfg.compute_dtype} compute)")
     print(f"memory held before the phase {held:.2f} GiB")
     check(held < 4.0, f"serve {arch}: the earlier LM phases' memory is freed")
     argv = ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len",
             str(LM_PROMPT), "--tokens", str(LM_TOKENS)]
+    params, init_s = None, None
+    if param_dtype is not None:
+        t0 = time.perf_counter()
+        params = init_params(jr.key(0, "cuda"),
+                             registry.build(cfg).param_defs(),
+                             dtype=param_dtype)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
     reset(libs)
     rep = {}
-    gen = serve.main(argv, report=rep)
+    gen = serve.main(argv, params=params, report=rep)
+    init_s = rep["init_s"] if init_s is None else init_s
     launches = {lib.name: lib.launches for lib in libs}
     want = dict.fromkeys(launches, 0)
-    want["flash_attention"] = n_flash
+    n_run = n_flash + (LM_TOKENS - 1) * n_flash_token
+    want["flash_attention"] = n_run
     variants = dict(fa_ops.LIBRARY.variants)
     # a family without attention launches no kernel at all
-    want_variants = {"bf16_tc": n_flash} if n_flash else {}
+    want_variants = {"bf16_tc": n_run} if n_run else {}
     dec = statistics.median(rep["decode_ms"])
-    print(f"params {registry.param_count(cfg)} ({cfg.param_dtype}); init "
-          f"{rep['init_s']:.2f} s; prefill {rep['prefill_ms']:.2f} ms "
+    print(f"params {registry.param_count(cfg)} ({pdt}); init "
+          f"{init_s:.2f} s; prefill {rep['prefill_ms']:.2f} ms "
           f"(cold); decode {dec:.3f} ms/token (median of "
           f"{len(rep['decode_ms'])}; min {min(rep['decode_ms']):.3f}, max "
           f"{max(rep['decode_ms']):.3f}); peak memory "
           f"{rep['peak_bytes'] / 2 ** 30:.2f} GiB [{smi}]")
     print(f"launches {launches}, flash by variant {variants} (want "
-          f"{n_flash} flash on bf16_tc, nothing else)")
+          f"{n_run} flash on bf16_tc, nothing else)")
     check(launches == want and variants == want_variants,
-          f"serve {arch}: {n_flash} flash launches on the tensor cores, "
+          f"serve {arch}: {n_run} flash launches on the tensor cores, "
           f"nothing else")
     check(gen.shape == (LM_BATCH, LM_TOKENS) and all(
         bool(torch.isfinite(x).all()) for x in rep["logits"]),
@@ -4536,23 +4648,25 @@ def serve_wide(libs, smi: str, arch: str, label: str, n_flash: int,
           f"prefill {rep2['prefill_ms']:.2f} ms, decode "
           f"{statistics.median(rep2['decode_ms']):.3f} ms/token (median of "
           f"{len(rep2['decode_ms'])}) [{smi}]")
-    check(same and fa_ops.LIBRARY.launches == n_flash,
+    check(same and fa_ops.LIBRARY.launches == n_run,
           f"serve {arch}: bitwise reproducible tokens")
     del rep, rep2
     lm = registry.build(cfg)
     toks = jr.randint(jr.key(1, "cuda"), (LM_BATCH, LM_PROMPT), 0,
                       cfg.vocab_size)
     reset(libs)
-    _, state = lm.prefill(params, {"tokens": toks},
-                          cache_len=LM_PROMPT + 1)
+    _, state = lm.prefill(
+        params, {"tokens": toks, **serve.frontend_stubs(cfg, LM_BATCH,
+                                                         "cuda")},
+        cache_len=LM_PROMPT + 1 + cfg.n_image_tokens)
     n_pre = fa_ops.LIBRARY.launches
     lm.decode_step(params, state, toks[:, -1:])
     n_dec = fa_ops.LIBRARY.launches - n_pre
     del state
     print(f"flash launches {n_pre} in a prefill, {n_dec} in a decode step")
-    check(n_pre == n_flash and n_dec == 0,
-          f"serve {arch}: one flash launch per attention layer per prefill, "
-          f"none in decode")
+    check(n_pre == n_flash and n_dec == n_flash_token,
+          f"serve {arch}: {n_flash} flash launches per prefill, "
+          f"{n_flash_token} per decode step")
     breakdown_by_group(lm, params, smi,
                        f"{label}a where a prefill's and a decode step's "
                        f"time goes ({arch})", kernel_groups)
@@ -4673,6 +4787,80 @@ def train_card_vs_cpu(libs) -> None:
     check(all(v == 0 for v in launches.values()),
           f"train card vs CPU: no kernel launch under autograd {launches}")
     print(f"phase 41 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# The seventeenth slice: Whisper-small (arXiv:2212.04356; the encdec
+# family: 12 encoder and 12 decoder layers, cross attention to 1,500
+# frames) served at full width with phase 21's flags on float32 weights
+# (phase 42), then InternVL2-26B (arXiv:2404.16821; the vlm family:
+# InternLM2-20B's 48 layers after 256 image tokens) on bfloat16 weights,
+# 37 GiB (phase 43): in float32 its 74 GiB do not fit one card beside a
+# prefill.  42b and 43b hold the smoke configs card against CPU on a
+# random frontend input.
+WH_ARCH, IV_ARCH = "whisper_small", "internvl2_26b"
+ENCDEC_GROUPS = (("flash_attention kernel", r"flash_attention_kernel"),
+                 ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
+                 ("casts and copies", r"copy"),
+                 ("norms and reductions", r"reduce|norm"),
+                 ("elementwise", r"elementwise"))
+# Phases 42b-43b, card (kernel) against CPU (plain) at float32, of max
+# |logit| over the prefill and the decode steps.  On whisper-smoke with
+# random audio the seeded weights amplify rounding: on the CPU each
+# float32 form (JAX's, the port's) lies up to 9.7e-5 of max |logit| from
+# the port run in float64 (tests/test_torch_encdec.py), so two float32
+# forms may lie up to about twice that apart; a missed key tile or a
+# wrong mask moves logits by their own size.
+TOL_FRONTEND_CPU = 5e-4
+FRONTEND_STEPS = 8
+
+
+def frontend_card_vs_cpu(libs, arch: str) -> None:
+    """Phases 42b and 43b: ``arch``'s smoke config at float32 dtypes, the
+    weights drawn on the CPU and copied to the card, a random frontend
+    input (``audio_embeds`` or ``pixel_embeds``, seeded unit normals) and
+    prompt: prefill and FRONTEND_STEPS - 1 greedy decode steps on the card
+    (the kernel, counted) and on the CPU (the plain version): identical
+    tokens, logits within TOL_FRONTEND_CPU of max |logit|."""
+    from repro_torch import random as jr
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import registry
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              compute_dtype="float32",
+                              cache_dtype="float32", reduce_dtype="float32")
+    lm = registry.build(cfg)
+    params = init_params(jr.key(0), lm.param_defs())
+    name, n = (("audio_embeds", cfg.encoder_seq_len)
+               if cfg.family == "encdec" else
+               ("pixel_embeds", cfg.n_image_tokens))
+    gen = torch.Generator().manual_seed(SEED)
+    extra = torch.randn((2, n, cfg.d_model), generator=gen)
+    tokens = jr.randint(jr.key(1), (2, 16), 0, cfg.vocab_size)
+    runs = {}
+    reset(libs)
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        logits, state = lm.prefill(
+            p, {"tokens": tokens.to(dev), name: extra.to(dev)},
+            cache_len=16 + FRONTEND_STEPS + cfg.n_image_tokens)
+        toks, logs = [], []
+        for step in range(FRONTEND_STEPS):
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            toks.append(tok.cpu())
+            logs.append(logits[:, -1].cpu())
+            if step + 1 < FRONTEND_STEPS:
+                logits, state = lm.decode_step(p, state, tok)
+        runs[dev] = (torch.cat(toks, 1), torch.stack(logs))
+    same = torch.equal(runs["cuda"][0], runs["cpu"][0])
+    e = rel(runs["cuda"][1], runs["cpu"][1])
+    print(f"{cfg.name}: random {name} {tuple(extra.shape)}; tokens identical "
+          f"{same}; logits max |diff| / max |logit| {e:.2e} (tol "
+          f"{TOL_FRONTEND_CPU}); flash launches on the card "
+          f"{fa_ops.LIBRARY.variants}")
+    check(same and e <= TOL_FRONTEND_CPU and fa_ops.LIBRARY.launches > 0,
+          f"{arch} smoke: the card makes the CPU's tokens on a random "
+          f"{name}")
 
 
 def ready() -> bool:
@@ -4855,6 +5043,7 @@ def main() -> int:
     err5 = compare_fifth()
     times5, bound5, lib_ms = timing_fifth(smi)
     timing_wide(smi)
+    err19c, _ = serve_shapes(smi)
     times.update(times5)
     bound.update(bound5)
     serve_rep, serve_launches = run_serve(libs, smi)
@@ -4898,6 +5087,21 @@ def main() -> int:
     phase("40b LM serving: card vs CPU (xlstm-smoke, float32)")
     serve_card_vs_cpu(XL_ARCH)
     train_card_vs_cpu(libs)
+    wh = registry.get_config(WH_ARCH)
+    wh_launches = serve_wide(libs, smi, WH_ARCH, "42",
+                             wh.n_encoder_layers + 2 * wh.n_layers,
+                             kernel_groups=ENCDEC_GROUPS,
+                             n_flash_token=wh.n_layers)
+    phase("42b LM serving: card vs CPU (whisper-smoke, float32, random "
+          "audio)")
+    frontend_card_vs_cpu(libs, WH_ARCH)
+    iv_launches = serve_wide(libs, smi, IV_ARCH, "43",
+                             registry.get_config(IV_ARCH).n_layers,
+                             kernel_groups=ENCDEC_GROUPS,
+                             param_dtype=torch.bfloat16)
+    phase("43b LM serving: card vs CPU (internvl2-smoke, float32, random "
+          "pixel embeddings)")
+    frontend_card_vs_cpu(libs, IV_ARCH)
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",
@@ -4954,10 +5158,10 @@ def main() -> int:
                                for r in lj_runs.values()),
               "flash_attention": serve_launches["flash_attention"]
               + sgld_launches["flash_attention"] + moe_launches
-              + v2_launches + rg_launches,
+              + v2_launches + rg_launches + wh_launches + iv_launches,
               "cell_build": cell_launches["cell_build"]}
     errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3,
-                **errs4, flash_attention=max(err5, err34),
+                **errs4, flash_attention=max(err5, err34, err19c),
                 cell_build=err_cell)
     library = {"flash_attention": lib_ms}
     record = {"kernels": [

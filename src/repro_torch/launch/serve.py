@@ -12,20 +12,30 @@
         --arch recurrentgemma_9b --batch 4 --prompt-len 2048 --tokens 32
     PYTHONPATH=src python3 -m repro_torch.launch.serve \\
         --arch xlstm_1_3b --batch 4 --prompt-len 2048 --tokens 32
+    PYTHONPATH=src python3 -m repro_torch.launch.serve \\
+        --arch whisper_small --batch 4 --prompt-len 2048 --tokens 32
+    PYTHONPATH=src python3 -m repro_torch.launch.serve \\
+        --arch internvl2_26b --smoke --device cpu
 
 The port of the JAX package's ``repro/launch/serve.py``: the same flags,
 the same seeded weights (``init_params(key(0))``) and prompts
-(``randint(key(1))``), the same printed line and tokens, plus
-``--device`` (``cuda`` unless asked).  The decode index stays on the
-device: no host read between tokens.  Runs the families ``LM`` runs: the
-dense architectures, ``--arch deepseek_moe_16b`` (moe on GQA attention),
-``--arch deepseek_v2_lite_16b`` (moe on MLA attention: absorbed decode
-against the latent cache) and ``--arch recurrentgemma_9b`` (the hybrid
-family: a 2048-token ring buffer for its local attention, whose window
-must divide the prompt length when the prompt is longer) and ``--arch
-xlstm_1_3b`` (the ssm family: mLSTM and sLSTM states, no attention); the
-encdec and vlm inputs wait for their families.  Each of the four names
-also runs with ``--smoke --device cpu``.
+(``randint(key(1))``), the same frontend stubs, the same printed line
+and tokens, plus ``--device`` (``cuda`` unless asked).  The decode index
+stays on the device: no host read between tokens.  Runs every family
+``LM`` serves: the dense architectures, ``--arch deepseek_moe_16b`` (moe
+on GQA attention), ``--arch deepseek_v2_lite_16b`` (moe on MLA
+attention: absorbed decode against the latent cache), ``--arch
+recurrentgemma_9b`` (the hybrid family: a 2048-token ring buffer for its
+local attention, whose window must divide the prompt length when the
+prompt is longer), ``--arch xlstm_1_3b`` (the ssm family: mLSTM and sLSTM
+states, no attention), ``--arch whisper_small`` (encdec: float32 zero
+``audio_embeds`` of (batch, 1500, d) for the stub audio frontend) and
+``--arch internvl2_26b`` (vlm: float32 zero ``pixel_embeds`` of (batch,
+256, d) prepended for the stub vision frontend; its 19.86e9 float32
+parameters, 74 GiB, do not fit one 80 GB card beside a prefill, so a
+full-width run on one card passes bfloat16 weights drawn by
+``init_params(key(0), defs, dtype=torch.bfloat16)`` as ``params``).
+Each name also runs with ``--smoke --device cpu``.
 """
 from __future__ import annotations
 
@@ -65,6 +75,20 @@ class Clock:
             return [a.elapsed_time(b)
                     for a, b in zip(self.marks, self.marks[1:])]
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def frontend_stubs(cfg, batch: int, device) -> dict:
+    """The JAX launcher's stand-ins for the frontends the configs leave
+    out: float32 zero ``audio_embeds`` (batch, encoder_seq_len, d) for the
+    encdec family, zero ``pixel_embeds`` (batch, n_image_tokens, d) for
+    the vlm family; nothing for the others."""
+    if cfg.family == "encdec":
+        return {"audio_embeds": torch.zeros(
+            (batch, cfg.encoder_seq_len, cfg.d_model), device=device)}
+    if cfg.family == "vlm":
+        return {"pixel_embeds": torch.zeros(
+            (batch, cfg.n_image_tokens, cfg.d_model), device=device)}
+    return {}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -111,8 +135,9 @@ def main(argv=None, params=None, report: Optional[dict] = None
 
     t0 = time.perf_counter()
     clock.mark()
-    logits, state = lm.prefill(params, {"tokens": prompt},
-                               cache_len=cache_len)
+    logits, state = lm.prefill(
+        params, {"tokens": prompt, **frontend_stubs(cfg, args.batch, dev)},
+        cache_len=cache_len)
     clock.mark()
     tok = torch.argmax(logits[:, -1], -1)[:, None]
     out = [tok]

@@ -19,9 +19,11 @@ GQA here (RecurrentGemma's local attention at 256 with one kv head, a
 window and a softcap) and MLA's prefill (``models/mla.py``, 192 and 128)
 dispatch to it the same way (``prefill_attention``), and the plain cores
 take v's head dim too.  Decode attention against the cache stays plain
-PyTorch on both.  The JAX package's ``shardctx.constrain_*`` calls are
-identities without a mesh; the port leaves them out until the
-multi-device slice.
+PyTorch on both; cross attention to the encoder's k, v (``cross_kv``,
+Whisper's 1,500 keys) has no cache and goes to the kernel in prefill
+and in decode alike, non-causal.  The JAX package's
+``shardctx.constrain_*`` calls are identities without a mesh; the port
+leaves them out until the multi-device slice.
 """
 from __future__ import annotations
 
@@ -197,6 +199,7 @@ def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor, causal: bool = True,
               cache: Optional[Params] = None,
               cache_index: Optional[torch.Tensor] = None,
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               return_kv: bool = False,
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (output, updated_cache_or_new_kv).
@@ -205,15 +208,25 @@ def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     at slot ``cache_index % cache_len`` (a ring buffer when the cache is
     shorter than the stream), with ``index_copy_`` on the device index,
     no host read; then attention against the cache.  The JAX package
-    returns a new cache instead; the port saves the copy."""
+    returns a new cache instead; the port saves the copy.
+
+    Cross attention (``cross_kv`` = (k, v), (B, T, G, D) each, the
+    encoder's): no k or v projection, no RoPE, no replication, no cache
+    and no new kv; the S queries (the prompt, or one decode token) attend
+    to the T keys through ``prefill_attention``, the flash kernel on the
+    card (the JAX package's ``full_attention``, the same function)."""
     cd = torch_dtype(cfg.compute_dtype)
     xq = x.to(cd)
     q = _project(xq, p["wq"].to(cd))
-    k = _project(xq, p["wk"].to(cd))
-    v = _project(xq, p["wv"].to(cd))
-    if cfg.use_rope and cfg.pos_embed == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if cross_kv is not None:
+        k, v = cross_kv
+        cache, return_kv = None, False
+    else:
+        k = _project(xq, p["wk"].to(cd))
+        v = _project(xq, p["wv"].to(cd))
+        if cfg.use_rope and cfg.pos_embed == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.kv_replicate_to and (cache is not None or return_kv):
         # vLLM-style KV replication: kv head j becomes heads j*rep ..
         # j*rep + rep - 1, so each query head still sees its own kv head

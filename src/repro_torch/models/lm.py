@@ -1,5 +1,6 @@
-"""Language-model assembly, dense, moe, hybrid and ssm families: the port
-of the JAX package's ``repro/models/lm.py`` for training and serving.
+"""Language-model assembly, every family of the JAX package: the port of
+its ``repro/models/lm.py`` for serving (all six families) and training
+(dense, moe, hybrid, ssm).
 
 One functional ``LM`` facade per ModelConfig:
 
@@ -44,7 +45,20 @@ mLSTM block again, as JAX nests them.  Its decode state holds each
 block's convolution buffer and cell state (the mLSTM's float32 (C, n, m),
 the sLSTM's (c, n, h, m)), written in place each step; prefill fills it
 with ``mlstm_final_state``'s closed form and the sLSTM loop's last state.
-Still to port (ROADMAP.md, queue 1 item 8): the encdec and vlm families.
+
+The encdec family (Whisper) adds the learned ``enc_pos`` to the
+frontend's ``audio_embeds`` (B, encoder_seq_len, d), runs ``enc_layers``
+(the dense block, causal as in the JAX package) and ``enc_norm``, then
+``dec_layers`` of three pre-norm residuals: causal self attention,
+cross attention to each layer's k, v of the encoder output
+(``_cross_kv``, non-causal, through the flash kernel on the card in
+prefill and decode alike) and the MLP.  Its decode state holds each
+decoder layer's self cache and its ``cross`` k, v (B, encoder_seq_len, G,
+hd), which prefill writes once.  The vlm family (InternVL2) is the dense
+stack with the frontend's ``pixel_embeds`` (B, n_image_tokens, d)
+prepended in prefill: positions, the cache length and ``index`` count the
+prefix.  Serving both runs; their ``forward`` and ``loss`` raise until
+their training is ported (ROADMAP.md, queue 1 item 8g).
 """
 from __future__ import annotations
 
@@ -69,9 +83,8 @@ Params = Dict[str, Any]
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: only the dense, moe (GQA and MLA attention), hybrid and "
-        f"ssm families are ported; encdec and vlm are not yet (ROADMAP.md, "
-        f"queue 1 item 8)")
+        f"{what}: the encdec and vlm families serve (prefill, decode_step) "
+        f"but do not train yet (ROADMAP.md, queue 1 item 8g)")
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +211,48 @@ def _block(p: Params, cfg: ModelConfig, x, positions, cache=None,
     else:
         y, aux = L.mlp_apply(p["mlp"], cfg, h), {}
     return x32.to(x.dtype) + y, new_cache, aux
+
+
+def _dec_block_defs(cfg: ModelConfig) -> Params:
+    """A Whisper decoder block: self attention, cross attention, MLP, each
+    with its norm."""
+    return {"self_norm": L.norm_defs(cfg, "scale"),
+            "self_attn": L.gqa_defs(cfg),
+            "cross_norm": L.norm_defs(cfg, "scale"),
+            "cross_attn": L.gqa_defs(cfg),
+            "mlp_norm": L.norm_defs(cfg, "scale"),
+            "mlp": L.mlp_defs(cfg)}
+
+
+def _dec_block(p: Params, cfg: ModelConfig, x, enc_kv, positions,
+               cache=None, cache_index=None, return_kv=False):
+    """One decoder block: three pre-norm residuals, causal self attention
+    (its cache or new kv as in ``_block``), non-causal cross attention to
+    ``enc_kv`` = (k, v), the MLP.  Returns (x, the cache or the new
+    kv)."""
+    h = L.apply_norm(p["self_norm"], cfg, x, "scale")
+    a, new_cache = L.gqa_apply(p["self_attn"], cfg, h, positions=positions,
+                               cache=cache, cache_index=cache_index,
+                               return_kv=return_kv)
+    # each residual sum in float32 for the next norm, rounded for the next
+    # add, as in ``_block``
+    x32 = x.float() + a.float()
+    h = L.apply_norm(p["cross_norm"], cfg, x32, "scale").to(x.dtype)
+    x = x32.to(x.dtype)
+    a, _ = L.gqa_apply(p["cross_attn"], cfg, h, positions=positions,
+                       cross_kv=enc_kv, causal=False)
+    x32 = x.float() + a.float()
+    h = L.apply_norm(p["mlp_norm"], cfg, x32, "scale").to(x.dtype)
+    return x32.to(x.dtype) + L.mlp_apply(p["mlp"], cfg, h), new_cache
+
+
+def _cross_kv(p: Params, cfg: ModelConfig, enc: torch.Tensor):
+    """A decoder layer's cross-attention k, v of the encoder output
+    (B, T, d) -> (B, T, G, hd) each, in compute_dtype."""
+    cd = torch_dtype(cfg.compute_dtype)
+    e = enc.to(cd)
+    return (L._project(e, p["cross_attn"]["wk"].to(cd)),
+            L._project(e, p["cross_attn"]["wv"].to(cd)))
 
 
 def _rg_block_defs(cfg: ModelConfig) -> Params:
@@ -371,18 +426,18 @@ class LM:
 
     def _stacks(self) -> Tuple[Tuple[str, str, int], ...]:
         """The homogeneous layer stacks in depth order: (parameter key,
-        cache key, depth), for the dense and moe families (the hybrid
-        family's groups and the ssm family's units have methods of their
-        own)."""
+        cache key, depth), for the dense, vlm and moe families (the hybrid
+        family's groups, the ssm family's units and the encdec family's
+        encoder and decoder have methods of their own)."""
         cfg = self.cfg
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             return (("layers", "cache", cfg.n_layers),)
         if cfg.family == "moe":
             nd = cfg.moe.first_dense_layers
             return tuple(st for st in (
                 ("dense_layers", "dense_cache", nd),
                 ("layers", "cache", cfg.n_layers - nd)) if st[2])
-        raise _not_ported(f"family {cfg.family!r}")
+        raise ValueError(f"family {cfg.family!r}")
 
     @property
     def _hybrid(self) -> bool:
@@ -391,6 +446,10 @@ class LM:
     @property
     def _ssm(self) -> bool:
         return self.cfg.family == "ssm"
+
+    @property
+    def _encdec(self) -> bool:
+        return self.cfg.family == "encdec"
 
     def param_defs(self) -> Params:
         cfg = self.cfg
@@ -409,8 +468,16 @@ class LM:
                                                   n_m),
                                    "slstm": _slstm_block_defs(cfg)}, units)
             return defs
+        if self._encdec:
+            defs["enc_pos"] = ParamDef((cfg.encoder_seq_len, cfg.d_model),
+                                       ("seq", "embed"), "embed", scale=0.02)
+            defs["enc_layers"] = stack(_block_defs(cfg),
+                                       cfg.n_encoder_layers)
+            defs["enc_norm"] = L.norm_defs(cfg, "scale")
+            defs["dec_layers"] = stack(_dec_block_defs(cfg), cfg.n_layers)
+            return defs
         for key, _, n in self._stacks():
-            ffn = (None if cfg.family == "dense"
+            ffn = (None if cfg.family != "moe"
                    else _moe_ffn_defs(cfg, key == "dense_layers"))
             defs[key] = stack(_block_defs(cfg, ffn), n)
         return defs
@@ -423,6 +490,9 @@ class LM:
         """(B, S) tokens -> ((B, S, V) float32 logits, aux losses: the moe
         family's averaged over its MoE layers)."""
         cfg = self.cfg
+        if cfg.family in ("encdec", "vlm"):
+            # a vlm batch must not run the dense stack without its prefix
+            raise _not_ported(f"forward of the {cfg.family} family")
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = _embed_tokens(params, cfg, tokens, positions)
@@ -495,6 +565,8 @@ class LM:
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              remat: bool = False
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if self.cfg.family in ("encdec", "vlm"):
+            raise _not_ported(f"loss of the {self.cfg.family} family")
         logits, aux = self.forward(params, batch, remat=remat)
         ce, acc = _xent(logits, batch["labels"], batch.get("mask"))
         total = ce + sum(v for k, v in aux.items() if k != "moe_dropped")
@@ -557,6 +629,15 @@ class LM:
             state["units"] = stack({"mlstm": stack(mstate, n_m),
                                     "slstm": sstate}, units)
             return state
+        if self._encdec:
+            state["cache"] = stack(L.gqa_cache_defs(cfg, batch, clen),
+                                   cfg.n_layers)
+            ckv = ParamDef((batch, cfg.encoder_seq_len, cfg.n_kv_heads,
+                            cfg.resolved_head_dim),
+                           ("batch", "kv_seq", "kv_heads", "head_dim"),
+                           "zeros", dtype=torch_dtype(cfg.cache_dtype))
+            state["cross"] = stack({"k": ckv, "v": ckv}, cfg.n_layers)
+            return state
         mk = (MLA.mla_cache_defs if cfg.attention == "mla"
               else L.gqa_cache_defs)
         for _, ckey, n in self._stacks():
@@ -595,6 +676,15 @@ class LM:
         elif self._ssm:
             x = self._units_into(params, x, state["units"])
             new_state["units"] = state["units"]
+        elif self._encdec:
+            for i in range(cfg.n_layers):
+                cross = _layer(state["cross"], i)
+                kv = (cross["k"].to(x.dtype), cross["v"].to(x.dtype))
+                x, _ = _dec_block(_layer(params["dec_layers"], i), cfg, x, kv,
+                                  positions, cache=_layer(state["cache"], i),
+                                  cache_index=idx)
+            new_state["cache"] = state["cache"]
+            new_state["cross"] = state["cross"]
         else:
             for key, ckey, n in self._stacks():
                 cache = state[ckey]
@@ -639,13 +729,22 @@ class LM:
         """(B, S) prompt tokens -> ((B, 1, V) float32 logits of the last
         position, the decode state: ``index`` = S and each layer's cache,
         zero past S, or its last clen positions for a ring; the hybrid
-        family's RG-LRU states)."""
+        family's RG-LRU states, the ssm family's cell states, the encdec
+        family's ``cross`` k, v).  The encdec family reads
+        ``batch["audio_embeds"]`` (B, encoder_seq_len, d); the vlm family
+        prepends ``batch["pixel_embeds"]`` (B, n_image_tokens, d) when
+        given, and S, the positions and the default cache length then
+        count them."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         dev = tokens.device
         positions = torch.arange(s, device=dev)
         x = _embed_tokens(params, cfg, tokens, positions)
+        if cfg.family == "vlm" and "pixel_embeds" in batch:
+            x = torch.cat([batch["pixel_embeds"].to(x.dtype), x], 1)
+            s = x.shape[1]
+            positions = torch.arange(s, device=dev)
         defs = self.decode_state_defs(b, cache_len or s)
         state = tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
                                                device=dev), defs)
@@ -668,6 +767,17 @@ class LM:
                                _layer(state["tail"], i), prompt=True)
         elif self._ssm:
             x = self._units_into(params, x, state["units"], prompt=True)
+        elif self._encdec:
+            enc = self._encode(params, batch["audio_embeds"].to(x.dtype))
+            for i in range(cfg.n_layers):
+                lp = _layer(params["dec_layers"], i)
+                kv = _cross_kv(lp, cfg, enc)
+                x, new_kv = _dec_block(lp, cfg, x, kv, positions,
+                                       return_kv=True)
+                for name, buf in _layer(state["cache"], i).items():
+                    _to_cache_(buf, new_kv[name])
+                for name, buf in zip("kv", kv):
+                    _layer(state["cross"], i)[name].copy_(buf)
         else:
             for key, ckey, n in self._stacks():
                 for i in range(n):
@@ -677,3 +787,14 @@ class LM:
                         _to_cache_(buf, kv[name])
         x = L.apply_norm(params["final_norm"], cfg, x[:, -1:], "scale")
         return _logits(params, cfg, x), state
+
+    def _encode(self, params: Params, audio: torch.Tensor) -> torch.Tensor:
+        """The encdec family's encoder: (B, encoder_seq_len, d) frontend
+        embeddings in compute_dtype + ``enc_pos``, the encoder blocks
+        (causal, as the JAX package's), ``enc_norm``."""
+        cfg = self.cfg
+        enc = audio + params["enc_pos"].to(audio.dtype)
+        positions = torch.arange(enc.shape[1], device=enc.device)
+        for lp in _unstack(params["enc_layers"], cfg.n_encoder_layers):
+            enc = _block(lp, cfg, enc, positions)[0]
+        return L.apply_norm(params["enc_norm"], cfg, enc, "scale")

@@ -1,5 +1,5 @@
-"""Model registry: the ported architectures, their configs, ``build`` and
-the parameter count."""
+"""Model registry: the architectures, their configs, ``build`` and the
+parameter count."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,12 +9,14 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.lm import LM
 from repro_torch.models.params import param_count as _count_defs
 
-# the architectures of the JAX package's registry whose families are
-# ported (dense, moe on GQA and MLA attention, hybrid, ssm); the encdec
-# and vlm architectures wait for theirs (ROADMAP.md, queue 1 item 8)
+# every architecture of the JAX package's registry: dense, moe on GQA and
+# MLA attention, hybrid, ssm, encdec (whisper_small) and vlm
+# (internvl2_26b); the encdec and vlm families serve, their training
+# waits (ROADMAP.md, queue 1 item 8g)
 ARCH_IDS = ("mistral_large_123b", "phi3_medium_14b", "olmo_1b",
             "nemotron_4_15b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
-            "recurrentgemma_9b", "xlstm_1_3b")
+            "recurrentgemma_9b", "xlstm_1_3b", "whisper_small",
+            "internvl2_26b")
 
 
 def normalize(arch: str) -> str:
@@ -24,9 +26,7 @@ def normalize(arch: str) -> str:
 def _module(arch: str):
     name = normalize(arch)
     if name not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported (ROADMAP.md, queue 1 "
-            f"item 8); ported: {ARCH_IDS}")
+        raise ValueError(f"unknown architecture {arch!r}: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -309,17 +309,23 @@ def test_serve_default_device_is_cuda(monkeypatch):
 
 
 def test_other_families_raise():
-    """What is still to port raises, naming its ROADMAP item: the encdec
-    and vlm families and their architectures (the dense, moe on GQA and
-    MLA attention, hybrid and ssm families run)."""
-    from repro_torch.config import ModelConfig
+    """What is still to port raises, naming its ROADMAP item: training
+    the encdec and vlm families (their forward and loss; a vlm batch must
+    not run the dense stack without its image prefix).  Every
+    architecture of the JAX registry is registered, the two families'
+    included, and their parameter trees build."""
     from repro_torch.models.lm import LM
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            LM(ModelConfig(family=family)).param_defs()
+    assert set(registry.ARCH_IDS) == set(j_registry.ARCH_IDS)
     for arch in ("whisper_small", "internvl2_26b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            registry.get_config(arch)
+        cfg = registry.get_smoke_config(arch)
+        lm = LM(cfg)
+        params = P.init_params(jr.key(0), lm.param_defs())
+        tokens = jr.randint(jr.key(1), (2, 8), 0, cfg.vocab_size)
+        batch = {"tokens": tokens, "labels": tokens}
+        for call in (lm.forward, lm.loss):
+            with pytest.raises(NotImplementedError,
+                               match="queue 1 item 8g"):
+                call(params, batch)
     for arch in ("deepseek_v2_lite_16b", "recurrentgemma_9b", "xlstm_1_3b"):
         assert arch in registry.ARCH_IDS
         LM(registry.get_smoke_config(arch)).param_defs()
