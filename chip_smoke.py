@@ -4288,6 +4288,35 @@ def re_sgld_small(smi: str) -> float:
     return err
 
 
+def train_report(arch: str, rep: dict, libs, smi: str,
+                 positions: int = 0) -> None:
+    """Print a train launcher run's init, ms per step, tokens/s (and, for
+    the vlm family, positions/s with the image prefix), peak memory and
+    losses; check no kernel launch (autograd takes the plain attention),
+    TRAIN_STEPS finite losses and the peak under the card's memory."""
+    launches = {lib.name: lib.launches for lib in libs}
+    ms = rep["step_ms"]
+    warm = statistics.median(ms[1:])
+    extra = (f", {positions / warm * 1e3:.0f} positions/s" if positions
+             else "")
+    total = torch.cuda.get_device_properties(0).total_memory
+    steps_ms = [round(x, 2) for x in ms]
+    print(f"init {rep['init_s']:.2f} s; ms per step {steps_ms} (median "
+          f"after the first {warm:.2f}), "
+          f"{rep['tokens'] / warm * 1e3:.0f} tokens/s{extra}; peak memory "
+          f"{rep['peak_bytes'] / 2 ** 30:.2f} GiB of "
+          f"{total / 2 ** 30:.2f}; losses "
+          f"{[round(x, 4) for x in rep['losses']]} [{smi}]")
+    print(f"launches {launches} (want none: autograd takes the plain "
+          f"attention)")
+    check(all(v == 0 for v in launches.values()),
+          f"train {arch}: no kernel launch under autograd")
+    check(len(rep["losses"]) == TRAIN_STEPS and all(
+        math.isfinite(x) for x in rep["losses"]),
+        f"train {arch}: finite losses")
+    check(rep["peak_bytes"] < total, f"train {arch}: the peak fits the card")
+
+
 def train_launcher(libs, smi: str) -> None:
     """Phase 35: ``repro_torch.launch.train.main`` at OLMo-1B's full
     width (B = 8, S = 128, remat per block, 5 steps) with every launch
@@ -4304,19 +4333,7 @@ def train_launcher(libs, smi: str) -> None:
     rep = {}
     state = train.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS)],
                        report=rep)
-    launches = {lib.name: lib.launches for lib in libs}
-    ms = rep["step_ms"]
-    warm = statistics.median(ms[1:])
-    print(f"init {rep['init_s']:.2f} s; ms per step {[round(x, 2) for x in ms]}"
-          f" (median after the first {warm:.2f}), {rep['tokens'] / warm * 1e3:.0f}"
-          f" tokens/s; peak memory {rep['peak_bytes'] / 2 ** 30:.2f} GiB; "
-          f"losses {[round(x, 4) for x in rep['losses']]} [{smi}]")
-    print(f"launches {launches} (want none: autograd takes the plain "
-          f"attention)")
-    check(all(v == 0 for v in launches.values()),
-          "train: no kernel launch under autograd")
-    check(len(rep["losses"]) == TRAIN_STEPS and all(
-        math.isfinite(x) for x in rep["losses"]), "train: finite losses")
+    train_report(LM_ARCH, rep, libs, smi)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4712,8 +4729,22 @@ XLSTM_GROUPS = (("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
                 ("casts and copies", r"copy"),
                 ("reductions and scans", r"reduce|scan"),
                 ("elementwise", r"elementwise"))
-TRAIN_ARCHS = (V2_ARCH, RG_ARCH, XL_ARCH)
+WH_ARCH, IV_ARCH = "whisper_small", "internvl2_26b"
+TRAIN_ARCHS = (V2_ARCH, RG_ARCH, XL_ARCH, WH_ARCH, IV_ARCH)
 TRAIN_CPU_STEPS = 3
+
+
+def frontend_input(cfg, batch: int, seed: int) -> dict:
+    """The encdec or vlm family's frontend input: seeded unit normals,
+    float32 ``audio_embeds`` (B, encoder_seq_len, d) or ``pixel_embeds``
+    (B, n_image_tokens, d); nothing for the other families."""
+    if cfg.family not in ("encdec", "vlm"):
+        return {}
+    name, n = (("audio_embeds", cfg.encoder_seq_len)
+               if cfg.family == "encdec" else
+               ("pixel_embeds", cfg.n_image_tokens))
+    gen = torch.Generator().manual_seed(seed)
+    return {name: torch.randn((batch, n, cfg.d_model), generator=gen)}
 
 
 def train_card_vs_cpu(libs) -> None:
@@ -4725,7 +4756,9 @@ def train_card_vs_cpu(libs) -> None:
     with remat, the step's own) within TOL_LM_GRAD of max |cpu| in every
     leaf, each leaf non-zero (phase 34b's limits, set before this phase
     first ran); the later steps' losses printed; no kernel launch
-    (autograd takes the plain attention)."""
+    (autograd takes the plain attention).  The encdec and vlm smoke
+    configs' batches carry seeded random frontend inputs
+    (``frontend_input``)."""
     from repro_torch import random as jr
     from repro_torch.config import TrainConfig
     from repro_torch.data import SyntheticLMDataset
@@ -4749,13 +4782,16 @@ def train_card_vs_cpu(libs) -> None:
                                   reduce_dtype="float32")
         lm = registry.build(cfg)
         ds = SyntheticLMDataset(cfg.vocab_size, 32, 4)
-        batches = [{k: torch.as_tensor(v) for k, v in ds.next_batch().items()}
-                   for _ in range(TRAIN_CPU_STEPS)]
+        batches = [{**{k: torch.as_tensor(v)
+                       for k, v in ds.next_batch().items()},
+                    **frontend_input(cfg, 4, SEED + i)}
+                   for i in range(TRAIN_CPU_STEPS)]
         start = steps.init_train_state(jr.key(0), lm)
         step = steps.make_train_step(lm, tcfg)
         runs = {}
         for dev in ("cpu", "cuda"):
-            state = tree_map(lambda t: t.to(dev), start)
+            # a copy on either device: the step writes in place
+            state = tree_map(lambda t: t.to(dev, copy=True), start)
             bs = [{k: v.to(dev) for k, v in b.items()} for b in batches]
             (loss, _), grads = lm.value_and_grad(state["params"], bs[0],
                                                  remat=True)
@@ -4797,7 +4833,6 @@ def train_card_vs_cpu(libs) -> None:
 # 37 GiB (phase 43): in float32 its 74 GiB do not fit one card beside a
 # prefill.  42b and 43b hold the smoke configs card against CPU on a
 # random frontend input.
-WH_ARCH, IV_ARCH = "whisper_small", "internvl2_26b"
 ENCDEC_GROUPS = (("flash_attention kernel", r"flash_attention_kernel"),
                  ("matmuls (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
                  ("casts and copies", r"copy"),
@@ -4831,11 +4866,7 @@ def frontend_card_vs_cpu(libs, arch: str) -> None:
                               cache_dtype="float32", reduce_dtype="float32")
     lm = registry.build(cfg)
     params = init_params(jr.key(0), lm.param_defs())
-    name, n = (("audio_embeds", cfg.encoder_seq_len)
-               if cfg.family == "encdec" else
-               ("pixel_embeds", cfg.n_image_tokens))
-    gen = torch.Generator().manual_seed(SEED)
-    extra = torch.randn((2, n, cfg.d_model), generator=gen)
+    (name, extra), = frontend_input(cfg, 2, SEED).items()
     tokens = jr.randint(jr.key(1), (2, 16), 0, cfg.vocab_size)
     runs = {}
     reset(libs)
@@ -4861,6 +4892,56 @@ def frontend_card_vs_cpu(libs, arch: str) -> None:
     check(same and e <= TOL_FRONTEND_CPU and fa_ops.LIBRARY.launches > 0,
           f"{arch} smoke: the card makes the CPU's tokens on a random "
           f"{name}")
+
+
+# The eighteenth slice: the train launcher on the encdec and vlm families
+# at full width (phase 44), as phase 35 runs OLMo-1B: B 8, S 128, remat
+# per block, TRAIN_STEPS AdamW steps, float32 state, the launcher's zero
+# frontend stubs.  Whisper-small uncut (0.264e9 parameters, 1,500 audio
+# frames); InternVL2-26B at full width with its depth cut to
+# IV_TRAIN_LAYERS of 48: 19.86e9 parameters' float32 params, moments and
+# gradient are 318 GB, and 4 layers (2.698e9 with the embedding and the
+# unembedding) are 43 GB, stepped in place (the launcher donates).
+IV_TRAIN_LAYERS = 4
+
+
+def train_frontends(libs, smi: str) -> None:
+    """Phase 44: ``repro_torch.launch.train.main`` on Whisper-small and on
+    InternVL2-26B cut to IV_TRAIN_LAYERS layers, each with every launch
+    count at 0 (``train_report``'s checks), the earlier phases' memory
+    freed first."""
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    for label, arch, extra in (
+            ("44", WH_ARCH, []),
+            ("44b", IV_ARCH, ["--override", f"n_layers={IV_TRAIN_LAYERS}"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        cfg = registry.get_config(arch)
+        cut = f", depth {IV_TRAIN_LAYERS} of {cfg.n_layers}" if extra else ""
+        stub = (f"{cfg.encoder_seq_len} audio frames"
+                if cfg.family == "encdec"
+                else f"+ {cfg.n_image_tokens} image positions")
+        phase(f"{label} train launcher at full width: {arch}{cut}, batch 8, "
+              f"seq 128 ({stub}), remat block, {TRAIN_STEPS} steps")
+        print(f"memory held before the phase {held:.2f} GiB")
+        check(held < 4.0, f"train {arch}: the earlier phases' memory is "
+                          f"freed")
+        reset(libs)
+        rep = {}
+        state = train.main(["--arch", arch, "--steps", str(TRAIN_STEPS),
+                            *extra], report=rep)
+        n = sum(p.numel() for p in tree_leaves(state["params"]))
+        print(f"{arch}: {n:,} parameters trained")
+        train_report(arch, rep, libs, smi, positions=8 * (
+            128 + cfg.n_image_tokens) if cfg.family == "vlm" else 0)
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 44 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def ready() -> bool:
@@ -5102,6 +5183,7 @@ def main() -> int:
     phase("43b LM serving: card vs CPU (internvl2-smoke, float32, random "
           "pixel embeddings)")
     frontend_card_vs_cpu(libs, IV_ARCH)
+    train_frontends(libs, smi)
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",

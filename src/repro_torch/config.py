@@ -2,8 +2,9 @@
 model and of its training.
 
 The port keeps its own copies of the JAX package's ``RepExConfig``,
-``TrainConfig``, ``ModelConfig`` and ``MeshConfig`` (same fields, same
-defaults) and of ``apply_overrides`` and ``to_dict``, so that it imports
+``TrainConfig``, ``ModelConfig``, ``MeshConfig`` and ``ShapeCell`` (same
+fields, same defaults), of ``SHAPE_CELLS`` and of ``apply_overrides``
+and ``to_dict``, so that it imports
 nothing of that package.  dtype fields stay strings (``"bfloat16"``,
 ``"float32"``); ``torch_dtype`` maps them.
 """
@@ -169,6 +170,23 @@ class MeshConfig:
     shape: Tuple[int, ...] = (1, 1)
     axes: Tuple[str, ...] = ("data", "model")
     multi_pod: bool = False
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One input-shape cell of the dry-run matrix."""
+    name: str = "train_4k"
+    kind: str = "train"               # train | prefill | decode
+    seq_len: int = 4096
+    global_batch: int = 256
+
+
+SHAPE_CELLS: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", "train", 4096, 256),
+    ShapeCell("prefill_32k", "prefill", 32768, 32),
+    ShapeCell("decode_32k", "decode", 32768, 128),
+    ShapeCell("long_500k", "decode", 524288, 1),
+)
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

@@ -12,10 +12,13 @@ block, microbatching) on synthetic data, with checkpoint and restart in
 the port's checkpoint format.  A restart restores the newest intact
 checkpoint and advances the data stream past the batches the restored
 steps consumed, so a killed-then-resumed run is bitwise the
-uninterrupted one (the JAX launcher starts its stream over).  Runs the
-families ``LM`` runs: dense; moe on GQA and on MLA attention (DeepSeek-
-V2-Lite), whose aux losses join the loss; hybrid (RecurrentGemma); ssm
-(xLSTM).
+uninterrupted one (the JAX launcher starts its stream over).  Runs
+every family: dense; moe on GQA and on MLA attention (DeepSeek-V2-Lite),
+whose aux losses join the loss; hybrid (RecurrentGemma); ssm (xLSTM);
+encdec (Whisper) and vlm (InternVL2), fed the JAX launcher's frontend
+stubs, zero float32 ``audio_embeds`` (B, encoder_seq_len, d_model) and
+``pixel_embeds`` (B, n_image_tokens, d_model).  The step updates the
+state in place, so a state of most of the card's memory trains.
 """
 from __future__ import annotations
 
@@ -92,6 +95,12 @@ def main(argv=None, report: Optional[dict] = None):
     for i in range(start, args.steps):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in ds.next_batch().items()}
+        if cfg.family == "encdec":
+            batch["audio_embeds"] = torch.zeros(
+                (args.batch, cfg.encoder_seq_len, cfg.d_model), device=dev)
+        if cfg.family == "vlm":
+            batch["pixel_embeds"] = torch.zeros(
+                (args.batch, cfg.n_image_tokens, cfg.d_model), device=dev)
         clock.mark()
         state, metrics = step(state, batch)
         clock.mark()

@@ -22,8 +22,10 @@ take v's head dim too.  Decode attention against the cache stays plain
 PyTorch on both; cross attention to the encoder's k, v (``cross_kv``,
 Whisper's 1,500 keys) has no cache and goes to the kernel in prefill
 and in decode alike, non-causal.  The JAX package's
-``shardctx.constrain_*`` calls are identities without a mesh; the port
-leaves them out until the multi-device slice.
+``shardctx.constrain_*`` calls sit at its sites, on the plain path: the
+query of ``full_attention`` (in ``prefill_attention``) and each query
+chunk of ``chunked_attention``; identities unless a launcher sets an
+activation sharding and the tensors are DTensors.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 # version, which also takes decode's kv_len
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, attention as full_attention, mask as _mask)
+from repro_torch.models import shardctx
 from repro_torch.models.params import ParamDef, dense
 
 Params = Dict[str, Any]
@@ -124,7 +127,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     k32, v32 = k.float(), v.float()
     outs = []
     for c0 in range(0, s, chunk):
-        qc = _grouped(q[:, c0:c0 + chunk], g).float()
+        qc = shardctx.constrain_qchunk(_grouped(q[:, c0:c0 + chunk], g), h)
+        qc = qc.float()
         scores = torch.einsum("bcghd,btgd->bghct", qc, k32) * scale
         if softcap:
             scores = torch.tanh(scores / softcap) * softcap
@@ -192,6 +196,9 @@ def prefill_attention(q, k, v, *, causal: bool, window: int = 0,
         return flash_attention(q, k, v, **kw)
     if q.shape[1] >= 8192:
         return chunked_attention(q, k, v, **kw)
+    if q.shape[1] > 1:
+        # context-parallel fallback for head counts that do not divide TP
+        q = shardctx.constrain_seq_parallel_q(q, q.shape[2])
     return full_attention(q, k, v, **kw)
 
 

@@ -1,6 +1,5 @@
 """Language-model assembly, every family of the JAX package: the port of
-its ``repro/models/lm.py`` for serving (all six families) and training
-(dense, moe, hybrid, ssm).
+its ``repro/models/lm.py`` for serving and training, all six families.
 
 One functional ``LM`` facade per ModelConfig:
 
@@ -52,13 +51,20 @@ frontend's ``audio_embeds`` (B, encoder_seq_len, d), runs ``enc_layers``
 ``dec_layers`` of three pre-norm residuals: causal self attention,
 cross attention to each layer's k, v of the encoder output
 (``_cross_kv``, non-causal, through the flash kernel on the card in
-prefill and decode alike) and the MLP.  Its decode state holds each
-decoder layer's self cache and its ``cross`` k, v (B, encoder_seq_len, G,
-hd), which prefill writes once.  The vlm family (InternVL2) is the dense
-stack with the frontend's ``pixel_embeds`` (B, n_image_tokens, d)
-prepended in prefill: positions, the cache length and ``index`` count the
-prefix.  Serving both runs; their ``forward`` and ``loss`` raise until
-their training is ported (ROADMAP.md, queue 1 item 8g).
+prefill and decode alike, the plain attention under autograd) and the
+MLP.  In training each decoder block computes its cross k, v itself,
+inside its remat, as JAX's rematted ``dec_block`` does.  Its decode
+state holds each decoder layer's self cache and its ``cross`` k, v (B,
+encoder_seq_len, G, hd), which prefill writes once.  The vlm family
+(InternVL2) is the dense stack with the frontend's ``pixel_embeds`` (B,
+n_image_tokens, d) prepended when the batch has them: positions (RoPE),
+the cache length and ``index`` count the prefix, and ``loss`` drops the
+prefix's logits; a batch without them runs the text alone, as in the
+JAX package.
+
+``shardctx.constrain_*`` sit at the JAX package's sites (the embedding,
+each block's entry, the logits): identities unless a launcher sets an
+activation sharding and the tensors are DTensors.
 """
 from __future__ import annotations
 
@@ -75,16 +81,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as R
+from repro_torch.models import shardctx
 from repro_torch.models.params import ParamDef, stack
 from repro_torch.tree import tree_map, tree_paths, tree_unflatten
 
 Params = Dict[str, Any]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the encdec and vlm families serve (prefill, decode_step) "
-        f"but do not train yet (ROADMAP.md, queue 1 item 8g)")
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +109,7 @@ def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """In compute_dtype (rounded there, as the JAX einsum), then float32."""
     cd = torch_dtype(cfg.compute_dtype)
     table = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    logits = (x.to(cd) @ table.to(cd)).float()
+    logits = shardctx.constrain_logits((x.to(cd) @ table.to(cd)).float())
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -125,7 +126,7 @@ def _embed_tokens(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + F.embedding(positions, p["pos_embed"])
     if cfg.family == "hybrid":
         x = x * math.sqrt(cfg.d_model)
-    return x.to(torch_dtype(cfg.compute_dtype))
+    return shardctx.constrain_batch(x.to(torch_dtype(cfg.compute_dtype)))
 
 
 def _layer(tree, i: int):
@@ -197,6 +198,7 @@ def _block(p: Params, cfg: ModelConfig, x, positions, cache=None,
     """One pre-norm block, attention then the FFN (``p["mlp"]`` dense,
     ``p["moe"]`` the MoE layer).  Returns (x, the cache or the new kv,
     the FFN's aux losses)."""
+    x = shardctx.constrain_batch(x)
     h = L.apply_norm(p["attn_norm"], cfg, x, "scale")
     attend = MLA.mla_apply if cfg.attention == "mla" else L.gqa_apply
     a, new_cache = attend(p["attn"], cfg, h, positions=positions,
@@ -230,6 +232,7 @@ def _dec_block(p: Params, cfg: ModelConfig, x, enc_kv, positions,
     (its cache or new kv as in ``_block``), non-causal cross attention to
     ``enc_kv`` = (k, v), the MLP.  Returns (x, the cache or the new
     kv)."""
+    x = shardctx.constrain_batch(x)
     h = L.apply_norm(p["self_norm"], cfg, x, "scale")
     a, new_cache = L.gqa_apply(p["self_attn"], cfg, h, positions=positions,
                                cache=cache, cache_index=cache_index,
@@ -276,6 +279,7 @@ def _rg_block(p: Params, cfg: ModelConfig, x, *, state=None):
     the sequence; "collect" runs it and returns the decode state (the
     last k - 1 inputs of the convolution and the last h, float32); a
     state dict runs one token against it and returns the new state."""
+    x = shardctx.constrain_batch(x)
     h = L.apply_norm(p["norm"], cfg, x, "scale")
     gate = L._gelu(h @ p["w_x"].to(h.dtype))
     y = h @ p["w_y"].to(h.dtype)
@@ -321,6 +325,7 @@ def _mlstm_block(p: Params, cfg: ModelConfig, x, *, state=None):
     in ``_rg_block``: None, "collect" (the prompt's last k - 1 inputs of
     the convolution, float32, and ``mlstm_final_state``) or a state dict
     (one token)."""
+    x = shardctx.constrain_batch(x)
     rc = cfg.recurrent
     inner = int(rc.mlstm_proj_factor * cfg.d_model)
     h = L.apply_norm(p["norm"], cfg, x, "scale")
@@ -365,6 +370,7 @@ def _slstm_block(p: Params, cfg: ModelConfig, x, *, state=None):
     sLSTM cell, the residual; then a 4/3 GeGLU FFN and its residual.
     ``state`` as in ``_mlstm_block`` (collected: the normed input's last
     k - 1 positions, float32, and the cell's final state)."""
+    x = shardctx.constrain_batch(x)
     h = L.apply_norm(p["norm"], cfg, x, "scale")
     new_state = None
     if state is None or state == "collect":
@@ -488,20 +494,25 @@ class LM:
                 remat: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(B, S) tokens -> ((B, S, V) float32 logits, aux losses: the moe
-        family's averaged over its MoE layers)."""
+        family's averaged over its MoE layers).  The encdec family reads
+        ``batch["audio_embeds"]`` (B, encoder_seq_len, d); the vlm family
+        prepends ``batch["pixel_embeds"]`` (B, n_image_tokens, d) when
+        given, and its logits then run over the whole (B, n_image_tokens
+        + S) length."""
         cfg = self.cfg
-        if cfg.family in ("encdec", "vlm"):
-            # a vlm batch must not run the dense stack without its prefix
-            raise _not_ported(f"forward of the {cfg.family} family")
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = _embed_tokens(params, cfg, tokens, positions)
+        if cfg.family == "vlm" and "pixel_embeds" in batch:
+            x = torch.cat([batch["pixel_embeds"].to(x.dtype), x], 1)
+            positions = torch.arange(x.shape[1], device=x.device)
+        aux = {}
         if self._hybrid:
             x = self._hybrid_forward(params, x, positions, remat)
-            aux = {}
         elif self._ssm:
             x = self._ssm_forward(params, x, remat)
-            aux = {}
+        elif self._encdec:
+            x = self._encdec_forward(params, batch, x, positions, remat)
         else:
             x, aux = self._stacks_forward(params, x, positions, remat)
         x = L.apply_norm(params["final_norm"], cfg, x, "scale")
@@ -523,6 +534,23 @@ class LM:
         aux = ({k: torch.mean(torch.stack([a[k] for a in auxs]))
                 for k in auxs[0]} if auxs else {})
         return x, aux
+
+    def _encdec_forward(self, params, batch, x, positions, remat):
+        """JAX's scans over the encoder's and the decoder's blocks, each
+        block rematerialised (remat); a decoder block computes its cross
+        k, v of the encoder output inside itself.  The encoder output is
+        an argument of the decoder's block function, not a closure, so
+        its gradient reaches the encoder through the recomputation."""
+        cfg = self.cfg
+        enc = self._encode(params, batch["audio_embeds"].to(x.dtype), remat)
+
+        def dec(h, lp, enc):
+            return _dec_block(lp, cfg, h, _cross_kv(lp, cfg, enc),
+                              positions)[0]
+        dec = _maybe_remat(dec, remat)
+        for lp in _unstack(params["dec_layers"], cfg.n_layers):
+            x = dec(x, lp, enc)
+        return x
 
     def _hybrid_forward(self, params, x, positions, remat):
         """JAX's scan over groups, each group rematerialized as one
@@ -565,9 +593,13 @@ class LM:
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              remat: bool = False
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        if self.cfg.family in ("encdec", "vlm"):
-            raise _not_ported(f"loss of the {self.cfg.family} family")
+        """(total loss, metrics): the mean cross entropy of the text's
+        logits (the vlm family's image prefix dropped) against
+        ``batch["labels"]`` under ``batch.get("mask")``, plus the moe
+        family's aux losses."""
         logits, aux = self.forward(params, batch, remat=remat)
+        if self.cfg.family == "vlm" and "pixel_embeds" in batch:
+            logits = logits[:, batch["pixel_embeds"].shape[1]:]
         ce, acc = _xent(logits, batch["labels"], batch.get("mask"))
         total = ce + sum(v for k, v in aux.items() if k != "moe_dropped")
         return total, {"loss": total, "ce": ce, "acc": acc, **aux}
@@ -788,13 +820,17 @@ class LM:
         x = L.apply_norm(params["final_norm"], cfg, x[:, -1:], "scale")
         return _logits(params, cfg, x), state
 
-    def _encode(self, params: Params, audio: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params: Params, audio: torch.Tensor,
+                remat: bool = False) -> torch.Tensor:
         """The encdec family's encoder: (B, encoder_seq_len, d) frontend
         embeddings in compute_dtype + ``enc_pos``, the encoder blocks
-        (causal, as the JAX package's), ``enc_norm``."""
+        (causal, as the JAX package's; each rematerialised under
+        ``remat``), ``enc_norm``."""
         cfg = self.cfg
         enc = audio + params["enc_pos"].to(audio.dtype)
         positions = torch.arange(enc.shape[1], device=enc.device)
+        block = _maybe_remat(lambda h, lp: _block(lp, cfg, h, positions)[0],
+                             remat)
         for lp in _unstack(params["enc_layers"], cfg.n_encoder_layers):
-            enc = _block(lp, cfg, enc, positions)[0]
+            enc = block(enc, lp)
         return L.apply_norm(params["enc_norm"], cfg, enc, "scale")

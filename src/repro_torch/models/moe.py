@@ -17,8 +17,9 @@ renormalised by their sum + 1e-9, and each (token, choice)'s slot its
 rank within its expert over the token-major, then k-major flat order.
 Overflowing choices write to the spill column ``cap``, which is sliced
 off before anything reads it, so its duplicate writes never decide a
-value.  The JAX package's ``shardctx.constrain_expert_weight`` is the
-identity on one device and is left out until the LM sharding slice.
+value.  ``shardctx.constrain_expert_weight`` sits at the JAX package's
+site, on the three expert weights in compute_dtype: the identity unless
+a launcher sets an activation sharding and the weights are DTensors.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.config import ModelConfig, torch_dtype
+from repro_torch.models import shardctx
 from repro_torch.models.layers import _silu
 from repro_torch.models.params import ParamDef, dense
 
@@ -107,9 +109,12 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
 
     # the expert FFN, batched over experts (all rows' slots together)
     h = buf.transpose(0, 1).reshape(e, b * cap, d)
-    hg = _silu(torch.bmm(h, p["w_gate"].to(cd)))
-    hu = torch.bmm(h, p["w_up"].to(cd))
-    out = torch.bmm(hg * hu, p["w_down"].to(cd))            # (E, B*cap, D)
+    # the FSDP weight shards gathered at the use site
+    w_gate, w_up, w_down = (shardctx.constrain_expert_weight(
+        p[name].to(cd), e) for name in ("w_gate", "w_up", "w_down"))
+    hg = _silu(torch.bmm(h, w_gate))
+    hu = torch.bmm(h, w_up)
+    out = torch.bmm(hg * hu, w_down)                        # (E, B*cap, D)
     out_buf = torch.cat([out.reshape(e, b, cap, d).transpose(0, 1),
                          out.new_zeros(b, e, 1, d)], 2)     # (B, E, cap+1, D)
 

@@ -7,9 +7,10 @@ level), draws ``normal(fold_in(rng, i), shape)`` in float32, times its
 std in float32.  A large leaf is drawn in slices of its flat index
 (``SLICE`` elements each): element ``i``'s bits depend on ``i`` alone, so
 the slices are bitwise the whole draw, and they bound the int64 / float64
-emulation's transient memory on the card.  The JAX package's
-``abstract_params`` and ``param_shardings`` (XLA and mesh tools) wait for
-the multi-device slice; the sharding axes are kept for that.
+emulation's transient memory on the card.  ``abstract_params`` and
+``param_shardings`` describe a tree without allocating it: each leaf's
+:class:`ShapeDtypeStruct` (shape, dtype, and its placement under a
+mesh's rules, ``repro_torch.sharding``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,15 @@ class ParamDef:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+@dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """An array's shape, dtype and placement, with no storage (JAX's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: Any
+    sharding: Any = None
 
 
 def is_def(x) -> bool:
@@ -107,6 +117,27 @@ def init_params(rng: torch.Tensor, defs, dtype=None):
                        jr.fold_in(rng[r] if stacked else rng, i), std)
         arrs.append(arr)
     return tree_unflatten(defs, arrs)
+
+
+def abstract_params(defs, mesh=None, rules=None, dtype=None):
+    """A tree of :class:`ShapeDtypeStruct` for ``defs`` (placed when a
+    mesh and rules are given); nothing is allocated."""
+    from repro_torch import sharding as shd
+
+    def mk(d: ParamDef):
+        s = None
+        if mesh is not None and rules is not None:
+            s = shd.sharding_for(mesh, rules, d.axes, d.shape)
+        return ShapeDtypeStruct(d.shape, dtype or d.dtype, sharding=s)
+    return tree_map(mk, defs)
+
+
+def param_shardings(defs, mesh, rules):
+    """Each leaf's ``sharding.NamedSharding`` under ``rules`` on
+    ``mesh``."""
+    from repro_torch import sharding as shd
+    return tree_map(lambda d: shd.sharding_for(mesh, rules, d.axes, d.shape),
+                    defs)
 
 
 def param_count(defs) -> int:

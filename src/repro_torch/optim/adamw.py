@@ -110,14 +110,25 @@ def adamw_leaf(cfg: TrainConfig, p, g, m, v, lr, bc1, bc2):
 
 def adamw_update(cfg: TrainConfig, params, grads, state: AdamWState
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """The clipped AdamW step, leaf by leaf (each gradient leaf scaled by
+    the clip as it is used, ``clip_by_global_norm``'s values), written in
+    place: each leaf's new parameter and moments go into ``params``,
+    ``state.mu`` and ``state.nu`` as it is done, and the returned trees
+    hold those tensors, so no second copy of the state is allocated.  A
+    caller that keeps its old state clones it first."""
+    gnorm = global_norm(grads)
+    scale = clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     bc1, bc2 = bias_corrections(cfg, step)
-    out = [adamw_leaf(cfg, p, g, m, v, lr, bc1, bc2)
-           for (_, p), (_, g), (_, m), (_, v) in zip(
-               tree_paths(params), tree_paths(grads), tree_paths(state.mu),
-               tree_paths(state.nu))]
+    out = []
+    for (_, p), (_, g), (_, m), (_, v) in zip(
+            tree_paths(params), tree_paths(grads), tree_paths(state.mu),
+            tree_paths(state.nu)):
+        new = adamw_leaf(cfg, p, g * scale.to(g.dtype), m, v, lr, bc1, bc2)
+        for dst, src in zip((p, m, v), new):
+            dst.copy_(src)
+        out.append((p, m, v))
     new_p, new_m, new_v = (tree_unflatten(params, [o[j] for o in out])
                            for j in range(3))
     metrics = {"grad_norm": gnorm, "lr": lr}

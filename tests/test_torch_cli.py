@@ -3,9 +3,9 @@
 aside (the per-cycle and per-chunk ``t ... ms`` figures and the Eq. (1)
 split), and its ``--report-out`` JSON validates under both packages'
 ``validate_report`` with the JAX report's counters.  ``--resume`` takes
-a checkpoint of either package; ``--engine lm`` on a model family not
-yet ported raises, naming its ROADMAP item (``--shards`` is held in
-``test_torch_sharded``)."""
+a checkpoint of either package; ``--engine lm`` on an encdec config
+fails as JAX's launcher does, on the batch's missing ``audio_embeds``
+(``--shards`` is held in ``test_torch_sharded``)."""
 import contextlib
 import dataclasses
 import io
@@ -104,13 +104,21 @@ def test_cli_resumes_a_jax_checkpoint(tmp_path, monkeypatch):
         validate_report(json.load(f))
 
 
-@pytest.mark.parametrize("argv,item", [(["--engine", "lm"], "item 8")])
+@pytest.mark.parametrize("argv,item", [(["--engine", "lm"], "audio_embeds")])
 def test_unported_flags_name_their_roadmap_item(argv, item, monkeypatch):
     """``--engine lm`` runs (``test_torch_lm_engine`` holds it against
-    JAX's CLI); what it cannot run yet is another model family, whose
-    error names the ROADMAP item."""
-    cfg = dataclasses.replace(registry.get_smoke_config("olmo_1b"),
-                              family="encdec")
-    monkeypatch.setattr(registry, "get_smoke_config", lambda arch: cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        repex_run.main(argv + ["--device", "cpu", "--cycles", "1"])
+    JAX's CLI), every model family ported: on an encdec config the RE-SGLD
+    batch has no ``audio_embeds``, and both packages' launchers fail
+    alike, with a ``KeyError`` naming it."""
+    from repro.models import registry as j_registry
+    for reg in (registry, j_registry):
+        cfg = dataclasses.replace(reg.get_smoke_config("olmo_1b"),
+                                  family="encdec")
+        monkeypatch.setattr(reg, "get_smoke_config",
+                            lambda arch, cfg=cfg: cfg)
+    for main, extra in ((j_repex_run.main, []),
+                        (repex_run.main, ["--device", "cpu"])):
+        monkeypatch.setattr("sys.argv",
+                            ["repex_run"] + argv + ["--cycles", "1"] + extra)
+        with pytest.raises(KeyError, match=item):
+            main()

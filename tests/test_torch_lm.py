@@ -11,7 +11,9 @@ seeds and numpy inputs.
     (prefill, decode, a ring buffer at window 16, ``kv_replicate_to``)
     against JAX's jitted functions, at float32 and bfloat16;
   * ``LM.prefill`` + 8 ``decode_step``s on the four smoke configs from
-    weights converted with ``convert.lm_params_from_arrays``;
+    weights converted with ``convert.lm_params_from_arrays``, through
+    both packages' ``launch/steps.py`` ``make_prefill_step`` and
+    ``make_decode_step``;
   * ``LM.prefill`` + 2 ``decode_step``s of the olmo smoke config with
     ``logit_softcap=30`` (the attention scores capped as tanh(s / c) c);
   * ``serve.main(--smoke --device cpu)`` makes JAX ``serve.main``'s
@@ -42,12 +44,13 @@ import pytest
 import torch
 
 from repro.launch import serve as j_serve
+from repro.launch import steps as j_steps
 from repro.models import layers as JL
 from repro.models import registry as j_registry
 from repro.models.params import init_params as j_init_params
 from repro_torch import convert
 from repro_torch import random as jr
-from repro_torch.launch import serve
+from repro_torch.launch import serve, steps
 from repro_torch.models import layers as TL
 from repro_torch.models import params as P
 from repro_torch.models import registry
@@ -232,11 +235,13 @@ def test_prefill_and_decode(arch, exact):
     jp = j_init_params(jax.random.key(0), jlm.param_defs())
     tp = convert.lm_params_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
     tokens = jax.random.randint(jax.random.key(1), (2, 16), 0, jc.vocab_size)
-    prefill = jax.jit(lambda p, t: jlm.prefill(p, {"tokens": t},
-                                               cache_len=24))
-    decode = jax.jit(jlm.decode_step)
-    jlog, jst = prefill(jp, tokens)
-    tlog, tst = tlm.prefill(tp, {"tokens": _t(tokens).long()}, cache_len=24)
+    # through both packages' serving steps, which wrap prefill and decode
+    prefill = jax.jit(j_steps.make_prefill_step(jlm, cache_len=24))
+    decode = jax.jit(j_steps.make_decode_step(jlm))
+    tprefill = steps.make_prefill_step(tlm, cache_len=24)
+    tdecode = steps.make_decode_step(tlm)
+    jlog, jst = prefill(jp, {"tokens": tokens})
+    tlog, tst = tprefill(tp, {"tokens": _t(tokens).long()})
     assert tst["index"].dtype == torch.int32 and int(tst["index"]) == 16
     for name in ("k", "v"):
         assert tst["cache"][name].dtype == _t(jst["cache"][name]).dtype
@@ -250,7 +255,7 @@ def test_prefill_and_decode(arch, exact):
         if step == 8:
             break
         jlog, jst = decode(jp, jst, jtok)
-        tlog, tst = tlm.decode_step(tp, tst, _t(jtok).long())
+        tlog, tst = tdecode(tp, tst, _t(jtok).long())
     assert int(tst["index"]) == int(jst["index"]) == 24
 
 
@@ -309,23 +314,38 @@ def test_serve_default_device_is_cuda(monkeypatch):
 
 
 def test_other_families_raise():
-    """What is still to port raises, naming its ROADMAP item: training
-    the encdec and vlm families (their forward and loss; a vlm batch must
-    not run the dense stack without its image prefix).  Every
-    architecture of the JAX registry is registered, the two families'
-    included, and their parameter trees build."""
+    """Nothing still to port raises: every architecture of the JAX
+    registry is registered and builds its parameter tree, and the encdec
+    and vlm families' ``forward`` and ``loss`` run
+    (``test_torch_train_encdec_vlm.py`` holds their training against
+    JAX's).  A batch without its frontend input fails or runs as JAX's
+    does: an encdec batch raises ``KeyError`` on ``audio_embeds`` in both
+    packages; a vlm batch runs the text alone, its logits and loss
+    within 1e-5 of JAX's on the same batch (float32)."""
     from repro_torch.models.lm import LM
+    from repro_torch.tree import tree_map
     assert set(registry.ARCH_IDS) == set(j_registry.ARCH_IDS)
     for arch in ("whisper_small", "internvl2_26b"):
-        cfg = registry.get_smoke_config(arch)
-        lm = LM(cfg)
+        jc, tc = _cfgs(arch, exact=True)
+        lm, jlm = LM(tc), j_registry.build(jc)
         params = P.init_params(jr.key(0), lm.param_defs())
-        tokens = jr.randint(jr.key(1), (2, 8), 0, cfg.vocab_size)
+        jp = jax.tree.map(jnp.asarray, tree_map(lambda t: t.numpy(), params))
+        tokens = jr.randint(jr.key(1), (2, 8), 0, tc.vocab_size)
         batch = {"tokens": tokens, "labels": tokens}
-        for call in (lm.forward, lm.loss):
-            with pytest.raises(NotImplementedError,
-                               match="queue 1 item 8g"):
-                call(params, batch)
+        jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+        if tc.family == "encdec":
+            for call, jcall in ((lm.forward, jlm.forward),
+                                (lm.loss, jlm.loss)):
+                with pytest.raises(KeyError, match="audio_embeds"):
+                    call(params, batch)
+                with pytest.raises(KeyError, match="audio_embeds"):
+                    jcall(jp, jbatch)
+            continue
+        logits, _ = lm.forward(params, batch)
+        assert logits.shape == (2, 8, tc.vocab_size)
+        _close(logits, jax.jit(jlm.forward)(jp, jbatch)[0], 1e-5)
+        loss, _ = lm.loss(params, batch)
+        _close(loss, jax.jit(jlm.loss)(jp, jbatch)[0], 1e-5)
     for arch in ("deepseek_v2_lite_16b", "recurrentgemma_9b", "xlstm_1_3b"):
         assert arch in registry.ARCH_IDS
         LM(registry.get_smoke_config(arch)).param_defs()

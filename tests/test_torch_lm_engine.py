@@ -187,10 +187,13 @@ def test_step_is_the_functional_composition(compression):
         grads = ef_int8_decompress_tree(q, scales)
         for a, b in zip(_leaves(row(out["err"], 0)), _leaves(err)):
             assert torch.equal(a, b)
+    # the update writes in place: hand it copies of the rows
+    def copy(tree):
+        return tree_map(torch.clone, tree)
     new_p, opt, mets = adamw_update(
-        eng.tcfg, params, grads,
-        AdamWState(state["step"][0], row(state["mu"], 0),
-                   row(state["nu"], 0)))
+        eng.tcfg, copy(params), grads,
+        AdamWState(state["step"][0], copy(row(state["mu"], 0)),
+                   copy(row(state["nu"], 0))))
     temp = ctrl["temperature"][0] * eng.noise_per_kelvin
     new_p = sgld_noise(jr.fold_in(rngs[0], 0), new_p, mets["lr"], temp)
     for got, want in ((out["params"], new_p), (out["mu"], opt.mu),

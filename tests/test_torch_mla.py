@@ -386,7 +386,7 @@ def train_step_matches_jax(cfgs, exact, loss_tol, ptol):
     for _ in range(3):
         b = ds.next_batch()
         jb = jax.tree.map(jnp.asarray, b)
-        on_port = jloss(jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+        on_port = jloss(jax.tree.map(lambda t: jnp.asarray(np.array(t)),
                                      ts["params"]), jb)[1]
         js, jm = jstep(js, jb)
         ts, tm = tstep(ts, {k: torch.as_tensor(v) for k, v in b.items()})

@@ -325,7 +325,7 @@ def test_train_step_matches_jax(exact):
         # drift below flips bf16 routing choices, which moves the loss
         # of the two trajectories apart: seen 1.9e-3 at step 3, while
         # one set of parameters gives 6.4e-6)
-        on_port = jloss(jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+        on_port = jloss(jax.tree.map(lambda t: jnp.asarray(np.array(t)),
                                      ts["params"]), jb)[1]
         js, jm = jstep(js, jb)
         ts, tm = tstep(ts, {k: torch.as_tensor(v) for k, v in b.items()})
