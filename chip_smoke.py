@@ -309,6 +309,27 @@ printed on its own lines:
                   one seeded state, step 1's loss within
                   TOL_LM_LOSS[float32] and its gradient within
                   TOL_LM_GRAD in every leaf, no kernel launch
+ 45. dry run     the LM dry run (``launch/dryrun.py``) against the card:
+                  OLMo-1B at full width on a one-rank NCCL test mesh
+                  (1, 1), train at phase 35's cell (B 8, S 128, remat),
+                  prefill and decode at phase 21's (B 4, S 2048; cache
+                  2080).  Each step's prediction, traced on the host
+                  (fake tensors, in a child process started with the
+                  script), against the real step on the card: argument
+                  and output bytes equal; for train and decode, where no
+                  kernel runs, ``op_analysis`` FLOPs equal and
+                  ``max_memory_allocated`` above the bytes held within
+                  TOL_DRY_PEAK of ``temp_size_in_bytes`` (prefill's
+                  printed only: the card runs kernel 8, which holds no
+                  scores); then olmo_1b's train_4k, prefill_32k and
+                  decode_32k on 16x16 and decode_32k on 2x16x16, traced
+                  on the host, each with its status line, all OK
+ 46. op budgets   the counterpart of ``tests/test_op_budget.py``: the
+                  CUDA launches of one propagate (R = 8, 10 steps) of the
+                  "pallas" path dense and all-sparse, the "fused" path
+                  dense, bonded-sparse and all-sparse and "batched"
+                  (autodiff), each within LAUNCH_BUDGET; fused < pallas
+                  (dense and all-sparse) and pallas < batched
  33. GPUs        only under ``python3 -m torch.distributed.run
                   --nproc-per-node N chip_smoke.py``, N > 1 GPUs of one
                   host (without a launcher the script runs phases 1-41 on
@@ -327,6 +348,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -4944,6 +4966,244 @@ def train_frontends(libs, smi: str) -> None:
     print(f"phase 44 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 45: the LM dry run against the card.  OLMo-1B's cells on the
+# one-rank test mesh at phase 35's train shape and phase 21's serving
+# shapes (kind, sequence or cache length, batch), then the production
+# cells traced on the host alone.
+DRY_ARCH = "olmo_1b"
+DRY_MESH = {"data": 1, "model": 1}
+DRY_CELLS = (("train", 128, 8), ("prefill", 2048, 4), ("decode", 2080, 4))
+DRY_PRODUCTION = (("train_4k", False), ("prefill_32k", False),
+                  ("decode_32k", False), ("decode_32k", True))
+# the card's peak above the bytes held against the traced high-water
+# mark: the caching allocator rounds each block to 512 bytes, and the
+# host's small index tensors (positions, masks) are on the card there
+TOL_DRY_PEAK = 0.10
+
+_DRY_HOST = r"""
+import json, sys, time, traceback
+sys.path.insert(0, SRC)
+import torch
+torch.set_num_threads(1)
+from repro_torch.config import SHAPE_CELLS, ShapeCell
+from repro_torch.launch import dryrun
+
+
+def trace(cell, mp, mesh):
+    t1 = time.perf_counter()
+    try:
+        r = dryrun.lower_cell(ARCH, cell, mp, mesh_shape=mesh)
+    except Exception as e:
+        r = {"arch": ARCH, "cell": cell.name, "mesh": "2x16x16" if mp
+             else "16x16", "ok": False, "error": f"{type(e).__name__}: {e}",
+             "traceback": traceback.format_exc()[-1500:]}
+    r["wall_s"] = time.perf_counter() - t1
+    return r
+
+
+out = {"test": {}, "production": []}
+t0 = time.perf_counter()
+for kind, seq, batch in CELLS:
+    out["test"][kind] = trace(ShapeCell(f"{kind}_{seq}", kind, seq, batch),
+                              False, MESH)
+for name, mp in PRODUCTION:
+    out["production"].append(
+        trace(next(c for c in SHAPE_CELLS if c.name == name), mp, None))
+out["wall_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def start_dry_host() -> subprocess.Popen:
+    """Phase 45's host traces, in a child process on one CPU thread that
+    runs beside the card's phases (it touches no device)."""
+    code = (f"SRC = {str(ROOT / 'src')!r}\nARCH = {DRY_ARCH!r}\n"
+            f"MESH = {DRY_MESH!r}\nCELLS = {DRY_CELLS!r}\n"
+            f"PRODUCTION = {DRY_PRODUCTION!r}\n" + _DRY_HOST)
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    atexit.register(proc.kill)          # a failed phase leaves none behind
+    return proc
+
+
+def dry_inputs(setup, mesh, vocab: int):
+    """The cell's inputs on the card, random: DTensors on ``mesh``, or
+    plain tensors when ``mesh`` is None."""
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import tree_map
+
+    def local(shape, dtype):
+        if dtype.is_floating_point:
+            return (torch.randn(shape, device="cuda") * 0.02).to(dtype)
+        return torch.randint(0, vocab, shape, dtype=dtype, device="cuda")
+    if mesh is None:
+        return tuple(tree_map(lambda a: local(a.shape, a.dtype), t)
+                     for t in setup.inputs)
+    return tuple(dryrun.materialize(t, mesh, local) for t in setup.inputs)
+
+
+def dry_run_vs_card(host: subprocess.Popen, smi: str) -> None:
+    phase(f"45 the dry run vs the card: {DRY_ARCH} at full width on a "
+          f"one-rank NCCL test mesh (1, 1); the production cells traced "
+          f"on the host")
+    import torch.distributed as dist
+    from repro_torch.config import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import _free_port, make_test_mesh
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    so, se = host.communicate(timeout=900)
+    check(host.returncode == 0, f"the host traces ran: {se[-2000:]}")
+    traced = json.loads(so.strip().splitlines()[-1])
+    print(f"host traces: {traced['wall_s']:.1f} s in the child process, "
+          f"waited {time.perf_counter() - t0:.1f} s for them here")
+    vocab = registry.get_config(DRY_ARCH).vocab_size
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_test_mesh()
+        for kind, seq, batch in DRY_CELLS:
+            pred = traced["test"][kind]
+            if not pred["ok"]:
+                print(pred["traceback"])
+            check(pred["ok"] is True, f"the {kind} cell traced: "
+                  f"{pred.get('error', '')[:300]}")
+            cell = ShapeCell(f"{kind}_{seq}", kind, seq, batch)
+            setup = dryrun.setup_cell(DRY_ARCH, cell, DRY_MESH)
+            # prefill takes the flash kernel, which reads plain tensors
+            inputs = dry_inputs(setup, None if kind == "prefill" else mesh,
+                                vocab)
+            if kind == "decode":
+                inputs[1]["index"].fill_(seq - 32)
+            args = inputs if kind == "prefill" else tuple(
+                _local_tree(t) for t in inputs)
+            setup.step(*args)                       # warm: cuBLAS, caches
+            del args
+            gc.collect()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = dryrun.measure(setup, inputs, DRY_MESH, device="cuda")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+            pm, gm = pred["memory"], got["memory"]
+            arg_card = dryrun.local_bytes(inputs)
+            temp = pm["temp_size_in_bytes"]
+            print(f"{kind} B {batch} S {seq}: argument bytes predicted "
+                  f"{pm['argument_size_in_bytes']}, on the card {arg_card}; "
+                  f"output {pm['output_size_in_bytes']} / "
+                  f"{gm['output_size_in_bytes']}; alias "
+                  f"{pm['alias_size_in_bytes']} / {gm['alias_size_in_bytes']}"
+                  f"; flops {pred['flops_per_device']:.6e} / "
+                  f"{got['flops_per_device']:.6e}; peak above the held "
+                  f"bytes {peak / 2**30:.4f} GiB, predicted temp "
+                  f"{temp / 2**30:.4f} GiB ({peak / temp - 1:+.4f}), the "
+                  f"probe's own count on the card {gm['temp_size_in_bytes'] / 2**30:.4f} "
+                  f"GiB; trace {pred['t_trace_s']} s on the host, "
+                  f"{got['t_trace_s']} s on the card [{smi}]")
+            check(arg_card == pm["argument_size_in_bytes"],
+                  f"{kind}: argument bytes as predicted")
+            check(gm["output_size_in_bytes"] == pm["output_size_in_bytes"],
+                  f"{kind}: output bytes as predicted")
+            if kind != "prefill":
+                check(got["flops_per_device"] == pred["flops_per_device"],
+                      f"{kind}: op_analysis FLOPs on the card as predicted")
+                check(abs(peak / temp - 1) <= TOL_DRY_PEAK,
+                      f"{kind}: the card's peak within {TOL_DRY_PEAK} of "
+                      f"the predicted temp")
+            del inputs, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for r in traced["production"]:
+        print(dryrun.status_line(r) + f"  (wall {r['wall_s']:.1f} s)")
+        if not r["ok"]:
+            print(r["traceback"])
+        check(r.get("ok") is True, f"{r['cell']} on {r['mesh']} traced OK")
+
+
+def _local_tree(t):
+    """A tree of DTensors as its local tensors (on one rank, the whole)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x,
+                    t)
+
+
+# Phase 46: CUDA launches of one propagate (R = 8, 10 steps), the
+# counterpart of tests/test_op_budget.py's compiled-op budgets; each
+# pinned about 25% above its count on an NVIDIA H100 80GB HBM3 at 700 W
+# (MEASURED_LAUNCHES).
+MEASURED_LAUNCHES = {"pallas dense": 918, "pallas all-sparse": 1061,
+                     "fused dense": 6803, "fused bonded-sparse": 6803,
+                     "fused all-sparse": 7099, "batched": 4306}
+LAUNCH_BUDGET = {k: int(1.25 * v) for k, v in MEASURED_LAUNCHES.items()}
+BUDGET_ENGINES = {
+    "pallas dense": {},
+    "pallas all-sparse": dict(bonded="sparse", nonbonded="sparse"),
+    "fused dense": dict(force_path="fused"),
+    "fused bonded-sparse": dict(force_path="fused", bonded="sparse"),
+    "fused all-sparse": dict(force_path="fused", bonded="sparse",
+                             nonbonded="sparse"),
+    "batched": dict(force_path="batched")}
+
+
+def op_budgets(smi: str) -> None:
+    """JAX's relative guard, fused < pallas, compares compiled op counts,
+    where XLA fuses the fused path's in-loop noise hash into the body's
+    elementwise fusions.  Eager mode launches each op of that hash every
+    iteration, so the guard is held on the launches besides each path's
+    noise draw (the fused path's 11 legacy-layout blocks, the "pallas"
+    path's one stacked draw): what kernel 3 fuses.  The totals are
+    printed beside it."""
+    phase("46 the op budgets on the card: CUDA launches of one propagate "
+          "(R = 8, 10 MD steps)")
+    from repro_torch import random as jr
+    from repro_torch.config import RepExConfig
+    from repro_torch.core.controls import build_grid, ctrl_for_assignment
+    from repro_torch.core.modes import per_replica_keys
+    from repro_torch.launch import op_analysis
+    from repro_torch.md import MDEngine
+    from repro_torch.md import noise as NZ
+    from repro_torch.md.integrators import stacked_step_noise
+    grid = build_grid(RepExConfig(dimensions=(("temperature", 8),)), "cuda")
+    ctrl = ctrl_for_assignment(grid, torch.arange(8, device="cuda"))
+    keys = per_replica_keys(jr.key(7, "cuda"), 8)
+    n_steps = torch.full((8,), 10, dtype=torch.int64, device="cuda")
+    counts = {}
+    for name, kw in BUDGET_ENGINES.items():
+        eng = MDEngine(device="cuda", **kw)
+        state = eng.init_state(jr.key(SEED, "cuda"), 8)
+        counts[name] = op_analysis.count_launches(
+            eng.propagate, state, ctrl, n_steps, keys, max_steps=10)
+        budget = LAUNCH_BUDGET[name]
+        print(f"{name}: {counts[name]} CUDA launches a propagate, budget "
+              f"{budget} [{smi}]")
+        check(counts[name] <= budget, f"{name}: launches within the budget")
+    shape = tuple(state["pos"].shape[1:])
+    noise = {"pallas": op_analysis.count_launches(
+                 stacked_step_noise, keys, 11, shape),
+             "fused": op_analysis.count_launches(
+                 lambda: [NZ.step_noise_unrolled(keys, i, shape)
+                          for i in range(11)])}
+    print(f"noise draws: pallas {noise['pallas']} launches (one stacked "
+          f"draw), fused {noise['fused']} (11 blocks in the loop body)")
+    for kind in ("dense", "all-sparse"):
+        f, p = counts[f"fused {kind}"], counts[f"pallas {kind}"]
+        print(f"{kind}: fused {f} against pallas {p} launches in all "
+              f"({'fewer' if f < p else 'not fewer: the in-loop hash'}); "
+              f"besides the noise draws {f - noise['fused']} against "
+              f"{p - noise['pallas']}")
+        check(f - noise["fused"] < p - noise["pallas"],
+              f"fused < pallas in launches besides the noise, {kind}")
+    check(counts["pallas dense"] < counts["batched"],
+          "the analytic path < autodiff in launches")
+
+
 def ready() -> bool:
     """CUDA and the repository around the script (``src/repro_torch``),
     which goes on ``sys.path``; else a message and False."""
@@ -5035,6 +5295,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    dry_host = start_dry_host()
     smi = environment()
     libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
             x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY,
@@ -5184,6 +5445,10 @@ def main() -> int:
           "pixel embeddings)")
     frontend_card_vs_cpu(libs, IV_ARCH)
     train_frontends(libs, smi)
+    t45 = time.perf_counter()
+    dry_run_vs_card(dry_host, smi)
+    op_budgets(smi)
+    print(f"phases 45-46: {time.perf_counter() - t45:.1f} s")
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",

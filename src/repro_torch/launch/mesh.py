@@ -1,7 +1,17 @@
-"""Replica meshes: the process layout of replica-sharded REMD
-(``REMDDriver.run_sharded``).
+"""Meshes: the production meshes of the LM's dry run and the replica
+meshes of replica-sharded REMD (``REMDDriver.run_sharded``): the port of
+the JAX package's ``launch/mesh.py``.
 
-The port of the replica part of the JAX package's ``launch/mesh.py``.
+The LM meshes are ``torch.distributed.device_mesh.DeviceMesh``es with
+JAX's shapes and axis names: ``make_production_mesh`` (16, 16) over
+("data", "model"), or (2, 16, 16) over ("pod", "data", "model");
+``make_test_mesh`` (1, 1); ``make_host_mesh(n_data, n_model)``.  A mesh
+needs a process group of its size: ``fake_world(n)`` opens a "fake" one
+(``torch.testing``'s ``FakeStore``), in which collectives move nothing,
+for tracing a step of 256 or 512 ranks on one host; on the card a mesh
+spans the NCCL group that is running.
+
+The replica meshes are the port of the replica part of the JAX module.
 JAX's ``("replica",)`` mesh is one program over devices; here it is one
 process per shard under ``torch.distributed``, each process holding one
 contiguous block of ``B = R / n_shards`` replicas on its own device:
@@ -18,6 +28,7 @@ falls inside a chunk, where the driver forbids host synchronisation.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 from dataclasses import dataclass
@@ -27,6 +38,56 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+
+
+# --- the LM's production meshes ---------------------------------------------
+
+
+def _device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(resolve_device(device).type, shape,
+                            mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """(16, 16) over ("data", "model"), 256 ranks; multi-pod (2, 16, 16)
+    over ("pod", "data", "model"), 512 ranks."""
+    if multi_pod:
+        return _device_mesh((2, 16, 16), ("pod", "data", "model"), device)
+    return _device_mesh((16, 16), ("data", "model"), device)
+
+
+def make_test_mesh(device="cuda"):
+    """One rank with the production axis names, (1, 1)."""
+    return _device_mesh((1, 1), ("data", "model"), device)
+
+
+def make_host_mesh(n_data: int = 1, n_model: int = 1, device="cuda"):
+    return _device_mesh((n_data, n_model), ("data", "model"), device)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """A "fake" default process group of ``world_size`` ranks for the
+    block (``rank`` is this process's): meshes of up to that many ranks
+    can be made and DTensors on them traced, and every collective returns
+    at once, moving nothing.  Refuses to start while a real group is
+    initialised, so it never stands in for NCCL or gloo; destroys the
+    group on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           f"initialised ({dist.get_backend()}); the fake "
+                           "world never replaces it")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+# --- replica meshes -------------------------------------------------------------
 
 
 @dataclass(frozen=True)

@@ -98,11 +98,14 @@ def make_train_step(lm: LM, tcfg: TrainConfig):
         if M <= 1:
             (loss, metrics), grads = grad_fn(params, batch)
         else:
-            def split(x):
-                return x.reshape((M, x.shape[0] // M) + tuple(x.shape[1:]))
-            mb = {k: split(v) for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            # M contiguous blocks of rows, as JAX's reshape to (M, B / M,
+            # ...) makes them (a chunk, not a reshape: a batch sharded
+            # over more ranks than M splits as a DTensor too)
+            mb = {k: torch.chunk(v, M, 0) for k, v in batch.items()}
+            # zeros placed as each leaf is (a DTensor's shard by shard)
+            gsum = tree_map(lambda p: torch.zeros_like(p,
+                                                       dtype=torch.float32),
+                            params)
             metss = []
             for i in range(M):
                 (_, mets), g = grad_fn(params, {k: v[i] for k, v in

@@ -67,7 +67,7 @@ def apply_norm(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y = x32 * torch.rsqrt(torch.mean(x32 * x32, -1, keepdim=True) + 1e-6)
         y = y * p[name].float()
     elif cfg.norm in ("layernorm", "nonparametric_ln"):
-        var, mu = torch.var_mean(x32, -1, correction=0, keepdim=True)
+        var, mu = shardctx.var_mean(x32)
         y = (x32 - mu) * torch.rsqrt(var + 1e-5)
         if cfg.norm == "layernorm":
             y = y * p[name].float()
@@ -177,7 +177,8 @@ def gqa_cache_defs(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,d...->bs...", x, w)`` as one matmul in x's dtype."""
     b, s, d = x.shape
-    out = x.reshape(b * s, d) @ w.reshape(d, -1)
+    out = x.reshape(b * s, d) @ shardctx.weight_at_use(w).reshape(d, -1)
+    out = shardctx.splittable(out, 1, w.shape[1])
     return out.reshape((b, s) + tuple(w.shape[1:]))
 
 
@@ -249,21 +250,24 @@ def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         start = torch.clamp(cache_index % cache_len, max=cache_len - s_new)
         slots = start.reshape(1).long() + torch.arange(s_new,
                                                        device=x.device)
-        cache["k"].index_copy_(1, slots, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slots, v.to(cache["v"].dtype))
+        shardctx.index_copy_(cache["k"], 1, slots, k.to(cache["k"].dtype))
+        shardctx.index_copy_(cache["v"], 1, slots, v.to(cache["v"].dtype))
         new_cache = cache
         kv_len = torch.clamp(cache_index + s_new, max=cache_len)
-        out = decode_attention(q, cache["k"].to(cd), cache["v"].to(cd),
-                               kv_len=kv_len, softcap=cfg.logit_softcap)
+        out = shardctx.attend_locally(decode_attention, q,
+                                      cache["k"].to(cd), cache["v"].to(cd),
+                                      kv_len=kv_len,
+                                      softcap=cfg.logit_softcap)
     else:
-        out = prefill_attention(q, k, v, causal=causal,
-                                window=cfg.window_size,
-                                softcap=cfg.logit_softcap)
+        out = shardctx.attend_locally(prefill_attention, q, k, v,
+                                      causal=causal, window=cfg.window_size,
+                                      softcap=cfg.logit_softcap)
     if return_kv and cache is None:
         new_cache = {"k": k, "v": v}
     rd = torch_dtype(cfg.reduce_dtype)
     b, s = out.shape[:2]
-    y = out.to(rd).reshape(b, s, -1) @ p["wo"].to(rd).reshape(-1, cfg.d_model)
+    y = out.to(rd).reshape(b, s, -1) @ shardctx.weight_at_use(
+        p["wo"]).to(rd).reshape(-1, cfg.d_model)
     return y.to(x.dtype), new_cache
 
 
@@ -310,6 +314,7 @@ def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     cd = torch_dtype(cfg.compute_dtype)
     rd = torch_dtype(cfg.reduce_dtype)
     xq = x.to(cd)
+    p = {k: shardctx.weight_at_use(w) for k, w in p.items()}
     if cfg.activation == "swiglu":
         h = _silu(xq @ p["w_gate"].to(cd)) * (xq @ p["w_up"].to(cd))
     elif cfg.activation == "geglu":

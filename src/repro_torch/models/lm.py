@@ -108,7 +108,9 @@ def _embed_defs(cfg: ModelConfig) -> Params:
 def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """In compute_dtype (rounded there, as the JAX einsum), then float32."""
     cd = torch_dtype(cfg.compute_dtype)
-    table = p["embed"].T if cfg.tie_embeddings else p["unembed"]
+    table = shardctx.constrain_vocab_table(
+        p["embed"].T if cfg.tie_embeddings else p["unembed"])
+    x = shardctx.constrain_batch(x)
     logits = shardctx.constrain_logits((x.to(cd) @ table.to(cd)).float())
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
@@ -148,8 +150,9 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean cross entropy and exact-match accuracy over the unmasked
     positions.  The label logit is a gather (the JAX package contracts a
-    one-hot, which picks the same value exactly)."""
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    one-hot, which picks the same value exactly; a DTensor takes that
+    form, ``shardctx.label_logit``)."""
+    ll = shardctx.label_logit(logits, labels)
     mx = torch.amax(logits, -1)
     lse = mx + torch.log(torch.sum(torch.exp(logits - mx[..., None]), -1))
     nll = lse - ll
@@ -206,7 +209,7 @@ def _block(p: Params, cfg: ModelConfig, x, positions, cache=None,
                           return_kv=return_kv)
     # XLA keeps this sum in float32 for the norm (its excess precision
     # across the fusion) and rounds it for the second residual add
-    x32 = x.float() + a.float()
+    x32 = shardctx.constrain_batch(x.float() + a.float())
     h = L.apply_norm(p["mlp_norm"], cfg, x32, "scale").to(x.dtype)
     if "moe" in p:
         y, aux = MOE.moe_apply(p["moe"], cfg, h)
@@ -239,12 +242,12 @@ def _dec_block(p: Params, cfg: ModelConfig, x, enc_kv, positions,
                                return_kv=return_kv)
     # each residual sum in float32 for the next norm, rounded for the next
     # add, as in ``_block``
-    x32 = x.float() + a.float()
+    x32 = shardctx.constrain_batch(x.float() + a.float())
     h = L.apply_norm(p["cross_norm"], cfg, x32, "scale").to(x.dtype)
     x = x32.to(x.dtype)
     a, _ = L.gqa_apply(p["cross_attn"], cfg, h, positions=positions,
                        cross_kv=enc_kv, causal=False)
-    x32 = x.float() + a.float()
+    x32 = shardctx.constrain_batch(x.float() + a.float())
     h = L.apply_norm(p["mlp_norm"], cfg, x32, "scale").to(x.dtype)
     return x32.to(x.dtype) + L.mlp_apply(p["mlp"], cfg, h), new_cache
 
@@ -299,7 +302,7 @@ def _rg_block(p: Params, cfg: ModelConfig, x, *, state=None):
     out = (rec * gate) @ p["w_out"].to(x.dtype)
     # the first residual in float32 for the norm, rounded for the second
     # add, as in ``_block``
-    x32 = x.float() + out.float()
+    x32 = shardctx.constrain_batch(x.float() + out.float())
     h = L.apply_norm(p["mlp_norm"], cfg, x32, "scale").to(x.dtype)
     return x32.to(x.dtype) + L.mlp_apply(p["mlp"], cfg, h), new_state
 
@@ -387,7 +390,7 @@ def _slstm_block(p: Params, cfg: ModelConfig, x, *, state=None):
         new_state = {"conv": conv_buf, "cell": cell_state}
     # the first residual in float32 for the norm, rounded for the second
     # add, as in ``_block``
-    x32 = x.float() + cell_out.float()
+    x32 = shardctx.constrain_batch(x.float() + cell_out.float())
     h = L.apply_norm(p["ffn_norm"], cfg, x32, "scale").to(x.dtype)
     ff = L._gelu(h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
     return x32.to(x.dtype) + (ff @ p["w_down"].to(ff.dtype)).to(x.dtype), \
@@ -778,8 +781,7 @@ class LM:
             s = x.shape[1]
             positions = torch.arange(s, device=dev)
         defs = self.decode_state_defs(b, cache_len or s)
-        state = tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
-                                               device=dev), defs)
+        state = shardctx.zero_state(defs, tokens)
         state["index"].fill_(s)
         if self._hybrid:
             groups, tail = _rg_group_layout(cfg)

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import shardctx
 from repro_torch.models.params import ParamDef
 
 Params = Dict[str, Any]
@@ -99,8 +100,8 @@ def mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         start = torch.clamp(cache_index % cache_len, max=cache_len - s)
         slots = start.reshape(1).long() + torch.arange(s, device=x.device)
         c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-        c_cache.index_copy_(1, slots, c_kv.to(c_cache.dtype))
-        r_cache.index_copy_(1, slots, k_rope.to(r_cache.dtype))
+        shardctx.index_copy_(c_cache, 1, slots, c_kv.to(c_cache.dtype))
+        shardctx.index_copy_(r_cache, 1, slots, k_rope.to(r_cache.dtype))
         kv_len = torch.clamp(cache_index + s, max=cache_len)
         # absorb W_uk into the query: q_c[b,s,h,r] = q_nope . W_uk
         q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(cd))

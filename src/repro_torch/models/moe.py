@@ -101,8 +101,7 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
     # token s (a zero row) where a slot stays empty, then a token gather
     rows = torch.arange(b, device=x.device)[:, None]
     tok_ids = torch.arange(s * k, device=x.device) // k
-    idx_buf = torch.full((b, e, cap + 1), s, dtype=torch.int64,
-                         device=x.device)
+    idx_buf = ids.new_full((b, e, cap + 1), s, dtype=torch.int64)
     idx_buf[rows, ids, slot] = tok_ids.expand(b, -1)
     x_pad = torch.cat([xq, xq.new_zeros(b, 1, d)], 1)
     buf = x_pad[rows[..., None], idx_buf[:, :, :cap]]       # (B, E, cap, D)

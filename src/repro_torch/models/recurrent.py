@@ -34,6 +34,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shardctx
 from repro_torch.models.params import ParamDef
 
 Params = Dict[str, Any]
@@ -90,7 +91,8 @@ def rg_lru_defs(width: int, n_heads: int) -> Params:
 def _block_diag(p_w: torch.Tensor, x: torch.Tensor,
                 n_heads: int) -> torch.Tensor:
     b, s, w = x.shape
-    xh = x.reshape(b, s, n_heads, w // n_heads)
+    xh = shardctx.splittable(x, 2, n_heads).reshape(b, s, n_heads,
+                                                    w // n_heads)
     return torch.einsum("bshw,hwv->bshv", xh, p_w.to(x.dtype)
                         ).reshape(b, s, w)
 
@@ -186,7 +188,8 @@ def _mlstm_qkvif(p: Params, x: torch.Tensor):
     cd = x.dtype
     b, s, w = x.shape
     n_heads = p["wq"].shape[0]
-    xh = x.reshape(b, s, n_heads, w // n_heads)
+    xh = shardctx.splittable(x, 2, n_heads).reshape(b, s, n_heads,
+                                                    w // n_heads)
     q = torch.einsum("bshw,hwk->bshk", xh, p["wq"].to(cd))
     k = torch.einsum("bshw,hwk->bshk", xh, p["wk"].to(cd))
     v = torch.einsum("bshw,hwk->bshk", xh, p["wv"].to(cd))
@@ -199,7 +202,8 @@ def _groupnorm(p: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Per-head group norm of (B, S, W) in float32 (the population
     variance, ``jnp.var``), scaled by ``gn``, out in h's dtype."""
     b, s, w = h.shape
-    hh = h.reshape(b, s, n_heads, w // n_heads).float()
+    hh = shardctx.splittable(h, 2, n_heads).reshape(
+        b, s, n_heads, w // n_heads).float()
     var, mu = torch.var_mean(hh, -1, correction=0, keepdim=True)
     out = (hh - mu) * torch.rsqrt(var + 1e-5)
     return (out.reshape(b, s, w) * p["gn"].float()).to(h.dtype)
@@ -367,10 +371,10 @@ def slstm_step(p: Params, state: Params, x: torch.Tensor, n_heads: int
     b, _, w = x.shape
     hd = w // n_heads
     pre = x[:, 0].float() @ p["w_in"].to(x.dtype).float()
-    z = (pre + p["b"].float()).reshape(b, 4, n_heads, hd) \
-        .permute(2, 0, 1, 3).reshape(n_heads, b, 4 * hd)
-    heads = {k: v.reshape(b, n_heads, hd).transpose(0, 1)
-             for k, v in state.items()}
+    z = shardctx.splittable(pre + p["b"].float(), 1, 4).reshape(
+        b, 4, n_heads, hd).permute(2, 0, 1, 3).reshape(n_heads, b, 4 * hd)
+    heads = {k: shardctx.splittable(v, 1, n_heads).reshape(
+        b, n_heads, hd).transpose(0, 1) for k, v in state.items()}
     new = {k: _unheads(v) for k, v in
            _slstm_cell(_slstm_r(p), heads, z).items()}
     return _groupnorm(p, new["h"][:, None, :].to(x.dtype), n_heads), new

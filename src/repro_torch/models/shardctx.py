@@ -10,16 +10,31 @@ redistributes the DTensor to the placements the JAX package's
 (``sharding.placements_for``; mesh dims the spec does not name are
 replicated).  Plain tensors, on the card or the CPU, pass through as
 they are: nothing here launches or allocates then.
+
+``state_layout`` places the decode state a prefill creates
+(``zero_state``) as the JAX package's dry run pins its prefill's output
+to the layout decode consumes; outside it, or on plain tensors, the
+state is plain zeros.
+
+The rest route an op of the model code on DTensors (the dry run's,
+``launch/dryrun.py``) as XLA partitions it, where eager DTensor would
+place a product by its communication alone (``weight_at_use``,
+``constrain_vocab_table``, ``label_logit``), flatten split dims
+(``attend_locally``, ``splittable``) or, in some releases, find no
+strategy (``index_copy_``, ``var_mean``).  On plain tensors each is the
+plain op.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Any, Optional, Tuple
 
 import torch
 
 _BATCH_AXES: Optional[Tuple[str, ...]] = None
 _MODEL_AXIS: Optional[str] = None
 _AXIS_SIZES: dict = {}
+_STATE_LAYOUT: Any = None
 
 
 def set_activation_sharding(batch_axes: Optional[Tuple[str, ...]],
@@ -34,7 +49,52 @@ def set_activation_sharding(batch_axes: Optional[Tuple[str, ...]],
 
 
 def clear() -> None:
+    global _STATE_LAYOUT
     set_activation_sharding(None, None, None)
+    _STATE_LAYOUT = None
+
+
+@contextlib.contextmanager
+def state_layout(layout):
+    """Inside the block, ``zero_state`` places each leaf as ``layout``
+    (a tree of ``params.ShapeDtypeStruct`` with a
+    ``sharding.NamedSharding``, the decode state's) says."""
+    global _STATE_LAYOUT
+    old, _STATE_LAYOUT = _STATE_LAYOUT, layout
+    try:
+        yield
+    finally:
+        _STATE_LAYOUT = old
+
+
+def zero_state(defs, like: torch.Tensor):
+    """Zeros for a tree of ``ParamDef``s on ``like``'s device; DTensors on
+    ``like``'s mesh, placed by the ``state_layout`` in force, when
+    ``like`` is a DTensor and a layout is set."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_map
+    if _STATE_LAYOUT is None or not isinstance(like, DTensor):
+        return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                              device=like.device), defs)
+    mesh, shard = like.device_mesh, like.to_local()
+
+    def one(d, sds):
+        # a shard like ``like``'s: a fake one when ``like``'s is fake
+        local = shard.new_zeros(sds.sharding.shard_shape(d.shape),
+                                dtype=d.dtype)
+        return DTensor.from_local(local, mesh, sds.sharding.placements(mesh),
+                                  run_check=False, shape=torch.Size(d.shape),
+                                  stride=contiguous_stride(d.shape))
+    return tree_map(one, defs, _STATE_LAYOUT)
+
+
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
 
 
 def _constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
@@ -49,12 +109,26 @@ def _constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
 
 
 def constrain_batch(x: torch.Tensor) -> torch.Tensor:
-    """Pin dim 0 to the batch axes, replicate the rest."""
+    """Pin dim 0 to the batch axes, replicate the rest; where the batch
+    does not divide them, only sum a DTensor's partial placements (an
+    embedding of a vocab-split table is one, whose masked sum DTensor
+    reduces only once)."""
     if _BATCH_AXES is None or getattr(x, "ndim", 0) < 1:
         return x
     if x.shape[0] % _prod_size() != 0:
-        return x
+        return _reduced(x)
     return _constrain(x, (_BATCH_AXES,) + (None,) * (x.ndim - 1))
+
+
+def _reduced(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's partial placements summed (replicated), its splits
+    kept; anything else unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
 
 
 def constrain_logits(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +138,61 @@ def constrain_logits(x: torch.Tensor) -> torch.Tensor:
     if x.shape[0] % _prod_size() != 0:
         return x
     return _constrain(x, (_BATCH_AXES, None, _MODEL_AXIS))
+
+
+def weight_at_use(w: torch.Tensor) -> torch.Tensor:
+    """A weight at its product: its FSDP shards (any split over the batch
+    axes) gathered, its other splits kept, as ZeRO gathers a layer's
+    weights before using them (XLA places the product from the
+    activations' constraints; DTensor picks a product's placement by its
+    communication alone, and would rather reduce full activations)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if _BATCH_AXES is None or not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    batch = set(_BATCH_AXES)
+    placements = [Replicate() if p.is_shard()
+                  and set(name.split("+")) <= batch else p
+                  for name, p in zip(mesh.mesh_dim_names, w.placements)]
+    if placements == list(w.placements):
+        return w
+    return w.redistribute(mesh, placements)
+
+
+def constrain_vocab_table(w: torch.Tensor) -> torch.Tensor:
+    """The unembedding (d, V) at its use: d's FSDP shards gathered, V
+    over the model axis where it divides it, so the logits' product
+    runs on each rank's batch rows and vocab shard, the placement
+    ``constrain_logits`` asks of its output (XLA places the product from
+    that constraint; DTensor picks a product's placement by its
+    communication alone)."""
+    if _BATCH_AXES is None or w.ndim != 2:
+        return w
+    msize = _axis_len(_MODEL_AXIS)
+    vocab = _MODEL_AXIS if msize > 1 and w.shape[1] % msize == 0 else None
+    return _constrain(w, (None, vocab))
+
+
+def label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(..., V) logits, (...) labels -> each row's label logit.  A plain
+    tensor gathers it; on a DTensor the row's sum against a one-hot of
+    the label, as the JAX package contracts it (every other term a zero,
+    so the sum is the label logit exactly): the one-hot is placed as the
+    vocab dim is, a partial sum per shard, where a gather's placement
+    would need the labels' values."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    labels = constrain_batch(labels.long())
+    mesh = logits.device_mesh
+    ids = DTensor.from_local(
+        torch.arange(logits.shape[-1], device=logits.to_local().device),
+        mesh, [Replicate()] * mesh.ndim, run_check=False)
+    last = logits.ndim - 1
+    ids = ids.redistribute(mesh, [
+        Shard(0) if p.is_shard() and getattr(p, "dim", None) == last
+        else Replicate() for p in logits.placements])
+    return torch.sum(logits * (ids == labels[..., None]), -1)
 
 
 def constrain_seq_parallel_q(q: torch.Tensor,
@@ -104,6 +233,129 @@ def constrain_expert_weight(w: torch.Tensor, n_experts: int) -> torch.Tensor:
         return w
     e_spec = _MODEL_AXIS if n_experts % msize == 0 else None
     return _constrain(w, (e_spec, None, None))
+
+
+def index_copy_(dst: torch.Tensor, dim: int, index: torch.Tensor,
+                src: torch.Tensor) -> torch.Tensor:
+    """``dst.index_copy_(dim, index, src)``; a DTensor ``dst`` not split
+    along ``dim`` is written shard by shard (``src`` placed as ``dst``,
+    the index whole on every rank), which every DTensor release runs
+    (some have no strategy for ``index_copy_``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(dst, DTensor) or any(
+            not p.is_replicate() and getattr(p, "dim", None) in (None, dim)
+            for p in dst.placements):
+        return dst.index_copy_(dim, index, src)
+    mesh = dst.device_mesh
+    if isinstance(index, DTensor):
+        index = index.full_tensor()
+    if isinstance(src, DTensor):
+        src = src.redistribute(mesh, dst.placements).to_local()
+    dst.to_local().index_copy_(dim, index, src)
+    return dst
+
+
+def var_mean(x: torch.Tensor):
+    """``torch.var_mean(x, -1, correction=0, keepdim=True)``; on a
+    DTensor the mean and then the mean of the squared deviation, ops
+    every DTensor release places (some have no strategy for
+    ``var_mean``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return torch.var_mean(x, -1, correction=0, keepdim=True)
+    mu = torch.mean(x, -1, keepdim=True)
+    dev = x - mu
+    return torch.mean(dev * dev, -1, keepdim=True), mu
+
+
+def attend_locally(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   **kw) -> torch.Tensor:
+    """``fn(q, k, v, **kw)``, an attention over (B, S, H, D) queries and
+    (B, T, G, D) keys and values.  On DTensors split over nothing but the
+    batch (dim 0) and the heads (dim 2) it runs on each rank's shards, k
+    and v placed as q: the attention is independent across those dims,
+    as XLA partitions it, and DTensor would otherwise flatten the split
+    dims of its products (which some releases refuse).  Where q's heads
+    are split over more ranks than divide G, each kv head is first
+    repeated H / G times (JAX's ``jnp.repeat`` of the GQA expansion), so
+    every rank holds its own query heads' kv heads.  Anything else goes
+    through ``fn`` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, **kw)
+    mesh, placements = q.device_mesh, q.placements
+    if not all(p.is_replicate() or (type(p) is Shard and p.dim in (0, 2))
+               for p in placements):
+        return fn(q, k, v, **kw)
+    n = 1
+    for i, p in enumerate(placements):
+        if p.is_shard() and p.dim == 2:
+            n *= mesh.size(i)
+    h, g = q.shape[2], k.shape[2]
+    if g % n:
+        whole = [Replicate()] * mesh.ndim
+        k, v = (torch.repeat_interleave(t.redistribute(mesh, whole), h // g,
+                                        dim=2) for t in (k, v))
+    k, v = (t.redistribute(mesh, placements) for t in (k, v))
+    local = {name: (a.to_local() if isinstance(a, DTensor) else a)
+             for name, a in kw.items()}
+    # contiguous, as the DTensor's strides below say; the gradients of the
+    # shards contiguous too, as their DTensors' strides say
+    ql, kl, vl = (_ContiguousGrad.apply(t.to_local()) for t in (q, k, v))
+    out = fn(ql, kl, vl, **local).contiguous()
+    shape = tuple(q.shape[:3]) + (v.shape[-1],)
+    return DTensor.from_local(out, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def splittable(x: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
+    """``x`` ready for its dim ``dim`` to be split with ``outer`` as the
+    leading factor: a DTensor whose dim is split over ranks that do not
+    divide ``outer`` gets that dim whole (DTensor cannot keep such a
+    split through the reshape); anything else unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    n, placements = 1, list(x.placements)
+    for i, p in enumerate(placements):
+        if p.is_shard() and getattr(p, "dim", None) == dim:
+            n *= mesh.size(i)
+    if n <= 1 or outer % n == 0:
+        return x
+    placements = [Replicate() if p.is_shard()
+                  and getattr(p, "dim", None) == dim else p
+                  for p in placements]
+    return _Whole.apply(x, tuple(placements))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+class _Whole(torch.autograd.Function):
+    """A redistribution whose backward keeps the gradient as it comes:
+    the gradient of a dim made whole for a split stays whole, so the
+    product that made the dim sees it whole in its backward too (the
+    default backward would split it again, and the weight's gradient
+    then meets the same split)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 def _axis_len(axis: Optional[str]) -> int:

@@ -14,7 +14,8 @@ a mesh is anything with a ``.shape`` mapping axis names to sizes (JAX's
 ``Mesh.shape``, an :class:`AbstractMesh`).  ``sharding_for`` gives a
 :class:`NamedSharding` record, whose ``placements`` are the
 ``torch.distributed.tensor`` ``Shard`` / ``Replicate`` of each dim of a
-``DeviceMesh``.  These describe placements: the LM runs on one device.
+``DeviceMesh``.  The LM's steps run on them in the dry run
+(``launch/dryrun.py``), on fake DTensors; a real run is on one device.
 
 **Replica-sharded REMD** (``REMDDriver.run_sharded``).  The ensemble has
 two placement classes on a replica mesh (``repro_torch.launch.mesh``):
@@ -241,11 +242,20 @@ def _names(entry) -> Tuple[str, ...]:
 def placements_for(spec: Spec, mesh_dim_names: Sequence[str]) -> tuple:
     """The ``torch.distributed.tensor`` placements of ``spec`` on a device
     mesh with dims ``mesh_dim_names``: ``Shard(i)`` on each mesh dim that
-    entry i names, ``Replicate()`` on the others."""
+    entry i names, ``Replicate()`` on the others.  A dim named
+    "pod+data" is the two axes flattened, the first major: it shards
+    entry i when entry i holds both."""
     from torch.distributed.tensor import Replicate, Shard
     dim_of = {ax: i for i, entry in enumerate(spec) for ax in _names(entry)}
-    return tuple(Shard(dim_of[n]) if n in dim_of else Replicate()
-                 for n in mesh_dim_names)
+    out = []
+    for n in mesh_dim_names:
+        dims = {dim_of.get(ax) for ax in n.split("+")}
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec} splits the flattened mesh dim "
+                             f"{n!r}")
+        d = dims.pop()
+        out.append(Replicate() if d is None else Shard(d))
+    return tuple(out)
 
 
 @dataclass(frozen=True)

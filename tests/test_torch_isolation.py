@@ -37,7 +37,8 @@ print(" ".join(names))
 # and launcher), of the public surface and the moe family (the engine
 # protocol, the MoE layer, DeepSeek-MoE's config), of MLA and the hybrid
 # family (the MLA layer, the RG-LRU cells, their configs) and of the ssm
-# family (the xLSTM cells in models/recurrent.py, xLSTM-1.3B's config)
+# family (the xLSTM cells in models/recurrent.py, xLSTM-1.3B's config),
+# and the dry run with its op analysis
 SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.core.patterns", "repro_torch.core.modes",
                  "repro_torch.core.failures", "repro_torch.core.repex",
@@ -58,7 +59,9 @@ SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.models.mla", "repro_torch.models.recurrent",
                  "repro_torch.configs.deepseek_v2_lite_16b",
                  "repro_torch.configs.recurrentgemma_9b",
-                 "repro_torch.configs.xlstm_1_3b")
+                 "repro_torch.configs.xlstm_1_3b",
+                 "repro_torch.launch.op_analysis",
+                 "repro_torch.launch.dryrun")
 
 
 def _examples():
