@@ -7,7 +7,7 @@ The quickest proof that the port still starts on the GPU.  Phases, each
 printed on its own lines:
 
   1. environment  card name and power limit, CUDA, nvcc, triton
-  2. build        the eight sources of ``src/repro_torch/kernels/*/csrc``,
+  2. build        the ten sources of ``src/repro_torch/kernels/*/csrc``,
                   one ``nvcc`` per source, all started together
   3. kernels      the bonded and nonbonded kernels against their plain
                   PyTorch versions at N = 2881, R = 4 and R = 64, within
@@ -328,8 +328,24 @@ printed on its own lines:
                   CUDA launches of one propagate (R = 8, 10 steps) of the
                   "pallas" path dense and all-sparse, the "fused" path
                   dense, bonded-sparse and all-sparse and "batched"
-                  (autodiff), each within LAUNCH_BUDGET; fused < pallas
-                  (dense and all-sparse) and pallas < batched
+                  (autodiff), each within LAUNCH_BUDGET; the noise draws
+                  one launch each by the wrapper's count (the fused
+                  path's 11 blocks, the "pallas" path's stacked draw);
+                  fused < pallas (dense
+                  and all-sparse) in all and besides the noise draws, and
+                  pallas < batched
+ 47. noise        the noise kernel (``kernels/noise``, the port's form of
+                  XLA's fusion of the threefry hash and erf_inv) bitwise
+                  its plain version on the card and on the CPU, the
+                  differing elements printed (0): the fused path's
+                  legacy-layout block and the stacked draw for R = 1, 8
+                  and 384, N = 2881, t = 0, 5, 10; the SGLD update on an
+                  OLMo-1B-sized leaf in one launch and across the 2^26
+                  slice border through its offset; each timed beside its
+                  bound and its plain version.  Phases 5, 8, 9, 13 and 34
+                  check its launches on their paths (one stacked draw a
+                  per-pass propagate, 11 blocks a fused one, one SGLD
+                  update a leaf and replica-step)
  33. GPUs        only under ``python3 -m torch.distributed.run
                   --nproc-per-node N chip_smoke.py``, N > 1 GPUs of one
                   host (without a launcher the script runs phases 1-41 on
@@ -569,10 +585,27 @@ TOL_LM_GRAD = 1e-3
 TOL_LM_LOSS = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 def reset(libs) -> None:
-    """Every launch count to 0, just before a path is driven."""
+    """Every launch count to 0, just before a path is driven: ``libs``'
+    and the noise kernel's, which every MD and RE-SGLD path launches and
+    each phase checks apart (``noise_launches``)."""
+    from repro_torch.kernels.noise import ops as nz_ops
     torch.cuda.synchronize()
-    for lib in libs:
+    for lib in libs + [nz_ops.LIBRARY]:
         lib.reset()
+
+
+# the noise kernel's launches in each run that checks them, by run
+NOISE_RUNS: dict = {}
+
+
+def noise_launches(want: dict, tag: str) -> None:
+    """The noise kernel's launches since the last ``reset``, by variant,
+    checked against ``want`` and kept in ``NOISE_RUNS``."""
+    from repro_torch.kernels.noise import ops as nz_ops
+    got = dict(nz_ops.LIBRARY.variants)
+    print(f"{tag}: noise kernel launches {got} (want {want})")
+    check(got == want, f"{tag}: the noise kernel's launches")
+    NOISE_RUNS[tag] = nz_ops.LIBRARY.launches
 
 
 _T0 = time.perf_counter()
@@ -891,6 +924,7 @@ def run_slice(libs, smi: str):
     wall = time.perf_counter() - t0
     launches = {lib.name: lib.launches for lib in libs}
     variants = {lib.name: dict(lib.variants) for lib in libs}
+    noise_launches({"stacked": cfg.n_cycles}, "T-REMD 64")
     per_chunk = [h["t_step"] * 1e3 for h in driver.history[::4]]
     ms_cycle = per_chunk[-1]                  # steady state: the last chunk
     failed = sum(h["failed"] for h in driver.history)
@@ -1358,6 +1392,7 @@ def run_tsu(libs, smi: str):
         launches = {lib.name: lib.launches for lib in libs}
         rows = dict(next(lib for lib in libs
                          if lib.name == "fused_baoab").variants)
+        noise_launches({"unrolled": n_cycles * 11}, f"TSU fused {scheme}")
         want = {"chain_forces": 0, "nonbonded": 0,
                 "fused_baoab": n_cycles * 11,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
@@ -1488,6 +1523,7 @@ def run_tsu_pallas(libs, smi: str) -> float:
     ens = driver.run_fused(ens, chunk_cycles=3)
     launches = {lib.name: lib.launches for lib in libs}
     variants = dict(libs[0].variants)
+    noise_launches({"stacked": 3}, "TSU pallas")
     ms_cycle = driver.history[-1]["t_step"] * 1e3
     print(f"pallas: ms/cycle {ms_cycle:.2f} (one chunk of 3 cycles) "
           f"[{smi}]")
@@ -1782,6 +1818,8 @@ def run_tsu_sparse(libs, smi: str):
         wall = time.perf_counter() - t0
         launches = {lib.name: lib.launches for lib in libs}
         variants = dict(libs[0].variants)
+        noise_launches({"unrolled": n_cycles * 11} if path == "fused"
+                       else {"stacked": n_cycles}, f"TSU sparse {tag}")
         evals = n_cycles * 11
         want = {"chain_forces": evals, "nonbonded": 0, "fused_baoab": 0,
                 "exchange_matrix": n_cycles if scheme == "matrix" else 0,
@@ -4125,7 +4163,7 @@ def re_sgld(libs, smi: str) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import registry
     from repro_torch.models.lm_engine import LMEngine
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_map, tree_paths
     gc.collect()
     torch.cuda.empty_cache()
     cfg = registry.get_config(LM_ARCH)
@@ -4164,6 +4202,10 @@ def re_sgld(libs, smi: str) -> dict:
     run_s = time.perf_counter() - t0
     launches = {lib.name: lib.launches for lib in libs}
     variants = dict(fa_ops.LIBRARY.variants)
+    n_leaves = len(tree_paths(ens.state["params"]))
+    noise_launches({"sgld": n_leaves * RSGLD_RUNGS * RSGLD_CYCLES},
+                   f"RE-SGLD ({n_leaves} leaves x {RSGLD_RUNGS} replicas x "
+                   f"{RSGLD_CYCLES} steps)")
     eng.energy = energy
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms_cycle = driver.history[-1]["t_step"] * 1e3
@@ -5137,10 +5179,11 @@ def _local_tree(t):
 # Phase 46: CUDA launches of one propagate (R = 8, 10 steps), the
 # counterpart of tests/test_op_budget.py's compiled-op budgets; each
 # pinned about 25% above its count on an NVIDIA H100 80GB HBM3 at 700 W
-# (MEASURED_LAUNCHES).
-MEASURED_LAUNCHES = {"pallas dense": 918, "pallas all-sparse": 1061,
-                     "fused dense": 6803, "fused bonded-sparse": 6803,
-                     "fused all-sparse": 7099, "batched": 4306}
+# (MEASURED_LAUNCHES, with the noise kernel: one launch a draw; counted
+# by op_analysis.count_launches late in the script).
+MEASURED_LAUNCHES = {"pallas dense": 310, "pallas all-sparse": 453,
+                     "fused dense": 127, "fused bonded-sparse": 127,
+                     "fused all-sparse": 423, "batched": 3698}
 LAUNCH_BUDGET = {k: int(1.25 * v) for k, v in MEASURED_LAUNCHES.items()}
 BUDGET_ENGINES = {
     "pallas dense": {},
@@ -5155,17 +5198,19 @@ BUDGET_ENGINES = {
 def op_budgets(smi: str) -> None:
     """JAX's relative guard, fused < pallas, compares compiled op counts,
     where XLA fuses the fused path's in-loop noise hash into the body's
-    elementwise fusions.  Eager mode launches each op of that hash every
-    iteration, so the guard is held on the launches besides each path's
-    noise draw (the fused path's 11 legacy-layout blocks, the "pallas"
-    path's one stacked draw): what kernel 3 fuses.  The totals are
-    printed beside it."""
+    elementwise fusions.  The noise kernel is the port's form of that
+    fusion: each of the fused path's 11 legacy-layout blocks is one
+    launch, the "pallas" path's stacked draw one (the wrapper's count;
+    the profiler's is printed beside it), so the guard holds on the
+    total launches; it is held besides each path's noise draw too (what
+    kernel 3 fuses)."""
     phase("46 the op budgets on the card: CUDA launches of one propagate "
           "(R = 8, 10 MD steps)")
     from repro_torch import random as jr
     from repro_torch.config import RepExConfig
     from repro_torch.core.controls import build_grid, ctrl_for_assignment
     from repro_torch.core.modes import per_replica_keys
+    from repro_torch.kernels.noise import ops as nz_ops
     from repro_torch.launch import op_analysis
     from repro_torch.md import MDEngine
     from repro_torch.md import noise as NZ
@@ -5185,23 +5230,179 @@ def op_budgets(smi: str) -> None:
               f"{budget} [{smi}]")
         check(counts[name] <= budget, f"{name}: launches within the budget")
     shape = tuple(state["pos"].shape[1:])
-    noise = {"pallas": op_analysis.count_launches(
-                 stacked_step_noise, keys, 11, shape),
-             "fused": op_analysis.count_launches(
-                 lambda: [NZ.step_noise_unrolled(keys, i, shape)
-                          for i in range(11)])}
-    print(f"noise draws: pallas {noise['pallas']} launches (one stacked "
-          f"draw), fused {noise['fused']} (11 blocks in the loop body)")
+    draws = {"pallas": lambda: stacked_step_noise(keys, 11, shape),
+             "fused": lambda: [NZ.step_noise_unrolled(keys, i, shape)
+                               for i in range(11)]}
+    noise, counted = {}, {}
+    for path, draw in draws.items():
+        noise[path] = op_analysis.count_launches(draw)
+        reset([])
+        draw()
+        counted[path] = nz_ops.LIBRARY.launches
+    print(f"noise draws: pallas {counted['pallas']} launches (one stacked "
+          f"draw; the profiler saw {noise['pallas']}), fused "
+          f"{counted['fused']} (11 blocks in the loop body; "
+          f"{noise['fused']})")
+    check(counted == {"pallas": 1, "fused": 11},
+          "the noise draws: one launch a draw")
     for kind in ("dense", "all-sparse"):
         f, p = counts[f"fused {kind}"], counts[f"pallas {kind}"]
-        print(f"{kind}: fused {f} against pallas {p} launches in all "
-              f"({'fewer' if f < p else 'not fewer: the in-loop hash'}); "
-              f"besides the noise draws {f - noise['fused']} against "
-              f"{p - noise['pallas']}")
-        check(f - noise["fused"] < p - noise["pallas"],
+        print(f"{kind}: fused {f} against pallas {p} launches in all; "
+              f"besides the noise draws {f - counted['fused']} against "
+              f"{p - counted['pallas']}")
+        check(f < p, f"fused < pallas in launches, {kind}")
+        check(f - counted["fused"] < p - counted["pallas"],
               f"fused < pallas in launches besides the noise, {kind}")
     check(counts["pallas dense"] < counts["batched"],
           "the analytic path < autodiff in launches")
+
+
+# Phase 47: the noise kernel's bound, per element, from the operations
+# its source runs (kernels/noise/csrc/threefry_normal.cu) for this run's
+# data.  A threefry block: 2 key adds, 20 rounds of an add, a rotate (one
+# funnel shift) and a xor, 5 injections of 3 adds, the parity key's 2
+# xors: 79 int32 operations; the partitionable layout one block an
+# element plus the counter split and b1 ^ b2 (3), the legacy layout one
+# block for two elements plus the second counter's test (2); the
+# mantissa map 2 more.  Double operations, counted as the fp64 peak
+# counts them (a multiply and an add, 2): the uniform's emulated FMA 2,
+# erf_inv's polynomial 16, log1p's rational branch (|u| < 0.6436, its
+# argument -u^2 above -0.41421) 28 or its log branch 22, and past w = 5
+# (|u| >= 0.99663) the square root's double rsqrt (~6) and 2 FMAs 4.
+# float32 operations: ~15 an element, at most 5% of the int32 time.
+THREEFRY_INT_OPS = 79
+# H100 SXM (NVIDIA data sheet: fp64 outside the tensor cores; the Hopper
+# white paper: 64 int32 lanes an SM, 132 SMs, at the 1,980 MHz boost
+# clock that the fp32 peak of 67 TFLOP/s assumes).
+FP64_FLOPS_PER_S = 34e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+NOISE_CASES = (1, 8, 384)
+NOISE_TS = (0, 5, 10)
+SGLD_LEAF = (50304, 2048)      # OLMo-1B's embedding: 103 M > 2^26
+
+
+def noise_bound(u: torch.Tensor, layout: str, nbytes: float):
+    """(bound_ms, bound_by, parts) of one noise call whose uniforms
+    (each before erf_inv, on (-1, 1)) are ``u``, ``layout`` "legacy" or
+    "partitionable", writing and reading ``nbytes``."""
+    a = u.abs()
+    n = u.numel()
+    n_rational = int((a < 0.6436).sum())
+    n_tail = int((a >= 0.99663).sum())
+    per = (THREEFRY_INT_OPS + 2) / 2 if layout == "legacy" \
+        else THREEFRY_INT_OPS + 3
+    int_ops = n * (per + 2)
+    fp64 = n * 18 + 28 * n_rational + 22 * (n - n_rational) + 10 * n_tail
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "int32": int_ops / INT32_OPS_PER_S,
+             "fp64": fp64 / FP64_FLOPS_PER_S}
+    by = max(times, key=times.get)
+    parts = (f"{int_ops:.4e} int32 ops {times['int32'] * 1e3:.4f} ms, "
+             f"{fp64:.4e} fp64 FLOPs {times['fp64'] * 1e3:.4f} ms, "
+             f"{nbytes / 1e6:.1f} MB {times['bytes'] * 1e3:.4f} ms; "
+             f"log1p rational {n_rational / n:.4f}, erf_inv tail "
+             f"{n_tail / n:.5f}")
+    return (times[by] * 1e3, "bytes" if by == "bytes" else "operations",
+            parts)
+
+
+def noise_kernel(smi: str) -> dict:
+    """Phase 47: the noise kernel bitwise its plain version on the card
+    and on the CPU, the number of differing elements printed (0): the
+    legacy-layout block and the stacked draw for R = 1, 8 and 384 at N =
+    2,881 and t (a step of the stacked draw on the CPU) 0, 5, 10; the
+    SGLD update on an OLMo-1B-sized leaf in one launch against the plain
+    version's 2^26 slices, and around the slice border through the
+    offset entry point against the launch over the whole leaf and the
+    CPU.  Then each entry point timed at its path's shape beside its
+    bound and its plain version.  Returns the kernels-line row's
+    numbers (the main path's stacked draw, R = 64)."""
+    phase(f"47 the noise kernel vs its plain version: R = {NOISE_CASES}, "
+          f"N = {N_ATOMS}, t = {NOISE_TS}, an OLMo-1B leaf {SGLD_LEAF}")
+    from repro_torch import random as jr
+    from repro_torch.kernels.noise import ops as nz_ops
+    from repro_torch.kernels.noise import ref as nz_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = (N_ATOMS, 3)
+    diffs, err = {}, 0.0
+
+    def differ(tag, got, want):
+        nonlocal err
+        d = int((got != want.to(got.device)).sum())
+        err = max(err, float((got - want.to(got.device)).abs().max()))
+        diffs[tag] = d
+        return d
+    for r in NOISE_CASES:
+        keys = jr.split(jr.key(SEED + r, "cuda"), r)
+        for t in NOISE_TS:
+            got = nz_ops.step_noise_unrolled_batched(keys, t, shape)
+            a = differ(f"unrolled R={r} t={t} card", got,
+                       nz_ref.step_noise_unrolled(keys, t, shape))
+            b = differ(f"unrolled R={r} t={t} cpu", got.cpu(),
+                       nz_ref.step_noise_unrolled(keys.cpu(), t, shape))
+            print(f"unrolled R={r} t={t}: differing elements {a} (card), "
+                  f"{b} (CPU) of {got.numel()}")
+        got = nz_ops.stacked_step_noise_batched(keys, 11, shape)
+        a = differ(f"stacked R={r} card", got,
+                   nz_ref.stacked_step_noise(keys, 11, shape))
+        b = sum(differ(f"stacked R={r} t={t} cpu", got[t].cpu(),
+                       jr.normal(jr.fold_in(keys.cpu(), t), shape))
+                for t in NOISE_TS)
+        print(f"stacked R={r}, 11 steps: differing elements {a} (card, all "
+              f"steps), {b} (CPU, steps {NOISE_TS})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    leaf = torch.randn(SGLD_LEAF, generator=gen, device="cuda")
+    key = jr.key(SEED + 1, "cuda")
+    std = torch.tensor(0.0123, device="cuda")
+    whole = nz_ops.add_noise_batched(leaf, key, std)
+    a = differ("sgld leaf card", whole, nz_ref.add_noise(leaf, key, std))
+    lo, hi = (1 << 26) - 2048, (1 << 26) + 2048
+    flat = leaf.view(-1)
+    part = nz_ops.add_noise_batched(flat[lo:hi].contiguous(), key, std, lo)
+    b = differ("sgld window whole", part, whole.view(-1)[lo:hi])
+    c = differ("sgld window cpu", part.cpu(),
+               nz_ref.add_noise(flat[lo:hi].cpu(), key.cpu(), std.cpu(),
+                                lo))
+    print(f"sgld leaf {SGLD_LEAF}: differing elements {a} (card, plain in "
+          f"2^26 slices); offset {lo}..{hi}: {b} (against the whole "
+          f"leaf's launch), {c} (CPU)")
+    print(f"phase 47: {sum(diffs.values())} differing elements in "
+          f"{len(diffs)} comparisons, max |diff| {err}")
+    check(sum(diffs.values()) == 0, "the noise kernel bitwise its plain "
+          "version, card and CPU")
+
+    keys64 = jr.split(jr.key(SEED, "cuda"), R_MAIN)
+    keys384 = jr.split(jr.key(SEED, "cuda"), R_TSU)
+    sqrt2 = float(np.float32(np.sqrt(2.0)))
+    cases = {
+        "stacked": (lambda: nz_ops.stacked_step_noise_batched(
+                        keys64, 11, shape),
+                    lambda: nz_ref.stacked_step_noise(keys64, 11, shape),
+                    "partitionable", 4),
+        "unrolled": (lambda: nz_ops.step_noise_unrolled_batched(
+                         keys384, 1, shape),
+                     lambda: nz_ref.step_noise_unrolled(keys384, 1, shape),
+                     "legacy", 4),
+        "sgld": (lambda: nz_ops.add_noise_batched(leaf, key, std),
+                 lambda: nz_ref.add_noise(leaf, key, std),
+                 "partitionable", 8)}
+    out = {}
+    for name, (kern, plain, layout, per) in cases.items():
+        z = kern()
+        u = torch.erf(((z.double() - leaf.double()) / (std.double() * sqrt2))
+                      if name == "sgld" else z.double() / sqrt2)
+        bound, by, parts = noise_bound(u, layout, per * z.numel())
+        del z, u
+        k_ms = graph_ms(kern, calls=5 if name == "sgld" else 20)
+        p_ms = median_ms(plain, n=3 if name == "sgld" else 5, warmup=1)
+        print(f"{name}: kernel {k_ms:.4f} ms device (graph replay), plain "
+              f"{p_ms:.4f} ms; bound {bound:.4f} ms ({by}: {parts}) "
+              f"[{smi}]")
+        out[name] = (k_ms, p_ms, bound, by)
+    del leaf, whole
+    k_ms, p_ms, bound, by = out["stacked"]
+    return {"err": err, "ms": k_ms, "plain_ms": p_ms, "bound": (bound, by)}
 
 
 def ready() -> bool:
@@ -5240,8 +5441,10 @@ def across_gpus() -> int:
     smi = [environment() if rank == 0 else None]
     dist.broadcast_object_list(smi, src=0)
     smi = smi[0].replace("\n", "; ")
+    from repro_torch.kernels.noise import ops as nz_ops
     libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
-            x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY]
+            x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY,
+            nz_ops.LIBRARY]
     if rank == 0:
         build(libs)
     dist.barrier()
@@ -5289,6 +5492,7 @@ def main() -> int:
     from repro_torch.kernels.fused_propagate import ops as fused_ops
     from repro_torch.kernels.lj_forces import ops as nb_ops
     from repro_torch.kernels.nlist_build import ops as nl_ops
+    from repro_torch.kernels.noise import ops as nz_ops
     from repro_torch.md import MDEngine
     from repro_torch.md.system import chain_molecule
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5300,7 +5504,7 @@ def main() -> int:
     libs = [chain_ops.LIBRARY, nb_ops.LIBRARY, fused_ops.LIBRARY,
             x_ops.LIBRARY, nb_ops.SPARSE_LIBRARY, nl_ops.LIBRARY,
             nb_ops.LJ_FLUID_LIBRARY, fa_ops.LIBRARY, nl_ops.CELL_LIBRARY]
-    build(libs)
+    build(libs + [nz_ops.LIBRARY])
 
     phase(f"3 kernels vs plain versions at N={N_ATOMS}, R=4 and R={R_MAIN}")
     engine = MDEngine(chain_molecule(N_ATOMS), device="cuda")
@@ -5449,10 +5653,14 @@ def main() -> int:
     dry_run_vs_card(dry_host, smi)
     op_budgets(smi)
     print(f"phases 45-46: {time.perf_counter() - t45:.1f} s")
+    t47 = time.perf_counter()
+    nz = noise_kernel(smi)
+    print(f"phase 47: {time.perf_counter() - t47:.1f} s")
 
     names = ("chain_forces", "chain_forces_bias", "nonbonded", "fused_baoab",
              "exchange_matrix", "nonbonded_sparse", "nlist_build",
-             "lj_energy", "lj_forces", "flash_attention", "cell_build")
+             "lj_energy", "lj_forces", "flash_attention", "cell_build",
+             "threefry_normal")
     src_of = {
         "chain_forces": "src/repro_torch/kernels/chain_forces/csrc/"
                         "chain_forces.cu",
@@ -5472,7 +5680,9 @@ def main() -> int:
         "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
                            "flash_attention.cu",
         "cell_build": "src/repro_torch/kernels/nlist_build/csrc/"
-                      "cell_build.cu"}
+                      "cell_build.cu",
+        "threefry_normal": "src/repro_torch/kernels/noise/csrc/"
+                           "threefry_normal.cu"}
     replaces = {
         "chain_forces": "src/repro/kernels/chain_forces/kernel.py:190",
         "chain_forces_bias": "src/repro/kernels/chain_forces/kernel.py:190",
@@ -5488,7 +5698,10 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
         # not a TPU kernel: build_cells, the jnp cell-list build (under the
         # same lax.cond)
-        "cell_build": "src/repro/md/neighbors.py:204"}
+        "cell_build": "src/repro/md/neighbors.py:204",
+        # not a TPU kernel: XLA's elementwise fusion of the unrolled
+        # threefry hash and the bits -> normal map (step_noise_unrolled)
+        "threefry_normal": "src/repro/md/noise.py:109"}
     counts = {"chain_forces": launches["chain_forces"],
               "nonbonded": launches["nonbonded"],
               "chain_forces_bias": bias_launches,
@@ -5506,10 +5719,13 @@ def main() -> int:
               "flash_attention": serve_launches["flash_attention"]
               + sgld_launches["flash_attention"] + moe_launches
               + v2_launches + rg_launches + wh_launches + iv_launches,
-              "cell_build": cell_launches["cell_build"]}
+              "cell_build": cell_launches["cell_build"],
+              "threefry_normal": sum(NOISE_RUNS.values())}
     errs = dict(errs2, chain_forces=abs_b, nonbonded=abs_nb, **errs3,
                 **errs4, flash_attention=max(err5, err34, err19c),
-                cell_build=err_cell)
+                cell_build=err_cell, threefry_normal=nz["err"])
+    times["threefry_normal"] = (nz["ms"], nz["plain_ms"])
+    bound["threefry_normal"] = nz["bound"]
     library = {"flash_attention": lib_ms}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src_of[name],

@@ -104,6 +104,23 @@ def _tensors(tree) -> List[torch.Tensor]:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+def _op_tensors(obj, acc: Optional[list] = None) -> List[torch.Tensor]:
+    """The tensors of an aten op's arguments or outputs (tensors, and
+    tuples, lists and dicts of them): ``_tensors`` without pytree's
+    generality, which the probe would pay on every op."""
+    if acc is None:
+        acc = []
+    if isinstance(obj, torch.Tensor):
+        acc.append(obj)
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            _op_tensors(x, acc)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            _op_tensors(x, acc)
+    return acc
+
+
 def _fake_mode(t):
     return getattr(t, "fake_mode", None)
 
@@ -151,22 +168,24 @@ class OpProbe(TorchDispatchMode):
         if self.deadline is not None and time.perf_counter() > self.deadline:
             raise TimeoutError("the probe's deadline passed")
         from torch.distributed.tensor import DTensor
-        if any(isinstance(t, DTensor) for t in _tensors((args, kwargs))):
+        ins = _op_tensors((args, kwargs))
+        if any(isinstance(t, DTensor) for t in ins):
             # DTensor's dispatch runs the op on the shards, inside the probe
             return NotImplemented
         out = func(*args, **kwargs)
-        if self._ours(args, kwargs, out):
-            self._record(func, args, kwargs, out)
+        outs = _op_tensors(out)
+        if self._ours(ins + outs):
+            self._record(func, args, kwargs, out, outs)
         return out
 
-    def _ours(self, args, kwargs, out) -> bool:
+    def _ours(self, tensors) -> bool:
         """An op of the traced step: no meta tensor and no fake tensor of
         another mode (DTensor's shape inference); in a fake trace, one of
         its tensors a fake of the trace; with ``device`` set, one of them
         on that device type (DTensor's host-side bookkeeping is left
         out)."""
         mine = not self.fake_modes and self.device is None
-        for t in _tensors((args, kwargs, out)):
+        for t in tensors:
             m = _fake_mode(t)
             if m is not None:
                 if id(m) not in self.fake_modes:
@@ -178,13 +197,12 @@ class OpProbe(TorchDispatchMode):
                 mine = True
         return mine
 
-    def _record(self, func, args, kwargs, out) -> None:
+    def _record(self, func, args, kwargs, out, outs) -> None:
         name = func._schema.name
         if func.is_view or name in _BOOKKEEPING:
             return
         short = name.split("::")[-1]
         self.census[short] = self.census.get(short, 0) + 1
-        outs = _tensors(out)
         self.write_bytes += sum(_nbytes(t) for t in outs)
         if func in _DOTS:
             mats = [a for a in args if isinstance(a, torch.Tensor)]
@@ -304,17 +322,28 @@ def op_budget_check(fn, *args, budget: int, **kwargs
 
 def count_launches(fn, *args, **kwargs) -> int:
     """The CUDA kernels one call of ``fn`` launches, from
-    ``torch.profiler`` on the card: every CUDA event of one profiled call
-    after one warm call."""
+    ``torch.profiler`` on the card: the largest count of three sessions,
+    each recording one call after a warm call in the profiler's warm-up
+    step, where the tracer starts.  Late in a long process a session
+    recorded from its start has lost its first 56-70 kernels; this count
+    has come within one event of a fresh process's (one more on a
+    propagate, none of a draw of one kernel), so a count of a few
+    kernels is better read from the wrappers' own counters."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn(*args, **kwargs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn(*args, **kwargs)
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    from torch.profiler import ProfilerActivity, profile, schedule
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            prof.step()
+            fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == DeviceType.CUDA))
+    return max(counts)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ The replica-major, force-sharing loop of the JAX package's
 each, per-lane trail/lead masks so lanes with fewer steps stay frozen.
 ``max_steps`` is a Python int from the caller (reading it off the device
 would synchronise with the host).  Noise is the same threefry stream the
-JAX package draws: ``repro_torch.random`` for the pre-drawn stack of the
-per-pass loop, ``md/noise.py`` for the fused loop.
+JAX package draws: ``stacked_step_noise``, every step of the per-pass
+loop at once, and ``md/noise.py`` for the fused loop, each one launch of
+the noise kernel on the card (``kernels/noise``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
+from repro_torch.kernels.noise.ops import stacked_step_noise
 from repro_torch.md import noise as NZ
 
 AKMA = 418.4
@@ -170,14 +172,6 @@ def propagate_replica_major_fused(state, force_aux_fn: Callable, aux,
                                          noise_scale, masses, n_steps,
                                          max_steps, dt)
     return {"pos": pos, "vel": vel}, aux
-
-
-def stacked_step_noise(rngs, max_steps: int, shape) -> torch.Tensor:
-    """Pre-draw every step's noise: noise[t, r] = normal(fold_in(rngs[r],
-    t), shape), as one wide draw -> (max_steps, R, *shape)."""
-    ts = torch.arange(max_steps, dtype=torch.int64, device=rngs.device)
-    keys = jr.fold_in(rngs[None, :, :], ts[:, None])            # (S, R, 2)
-    return jr.normal(keys, shape)
 
 
 def kinetic_temperature(vel, masses):

@@ -22,7 +22,8 @@ covers any of these cells, so plain PyTorch is the port's form of them;
 the sLSTM's time loop issues a few small kernels per step.  The casts
 follow JAX's one by one: projections in the compute dtype, the gates and
 cell states in float32, the cell output cast back before the group norm
-(which works in float32).  ``F.logsigmoid`` stands for
+(which works in float32).  ``F.logsigmoid`` (through
+``shardctx.log_sigmoid``, the plain op on plain tensors) stands for
 ``jax.nn.log_sigmoid`` (-softplus(-x)): it computes min(x, 0) -
 log1p(exp(-|x|)), within one float32 ulp of JAX's on |x| up to 120.
 """
@@ -32,7 +33,6 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import shardctx
 from repro_torch.models.params import ParamDef
@@ -206,7 +206,8 @@ def _groupnorm(p: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
         b, s, n_heads, w // n_heads).float()
     var, mu = torch.var_mean(hh, -1, correction=0, keepdim=True)
     out = (hh - mu) * torch.rsqrt(var + 1e-5)
-    return (out.reshape(b, s, w) * p["gn"].float()).to(h.dtype)
+    out = shardctx.merged(out.reshape(b, s, w), 2, n_heads)
+    return (out * p["gn"].float()).to(h.dtype)
 
 
 def mlstm_parallel(p: Params, x: torch.Tensor, n_heads: int,
@@ -219,7 +220,8 @@ def mlstm_parallel(p: Params, x: torch.Tensor, n_heads: int,
     b, s, w = x.shape
     dk, _ = mlstm_dims(w, n_heads)
     q, k, v, i_t, f_t = _mlstm_qkvif(p, x)
-    fc = torch.cumsum(F.logsigmoid(f_t), 1).transpose(1, 2)  # (B, H, S)
+    fc = torch.cumsum(shardctx.log_sigmoid(f_t), 1).transpose(1, 2)
+    # fc: (B, H, S)
     it = i_t.transpose(1, 2)
     kf = k.float().permute(0, 2, 3, 1)                        # (B, H, dk, S)
     vf = v.float().transpose(1, 2)                            # (B, H, S, dv)
@@ -250,7 +252,7 @@ def mlstm_final_state(p: Params, x: torch.Tensor, n_heads: int) -> Params:
     reaches: m_T = max(F_T, max_j (F_T - F_j + i_j)), C_T = sum_j
     exp(F_T - F_j + i_j - m_T) k_j v_j^T, n_T the same sum of k_j."""
     _, k, v, i_t, f_t = _mlstm_qkvif(p, x)
-    fc = torch.cumsum(F.logsigmoid(f_t), 1)
+    fc = torch.cumsum(shardctx.log_sigmoid(f_t), 1)
     ft = fc[:, -1]                                            # (B, H)
     d = ft[:, None] - fc + i_t                                # (B, S, H)
     m = torch.maximum(ft, torch.amax(d, 1))
@@ -268,7 +270,7 @@ def mlstm_step(p: Params, state: Params, x: torch.Tensor, n_heads: int
     dk, _ = mlstm_dims(w, n_heads)
     q, k, v, i_t, f_t = _mlstm_qkvif(p, x)
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
-    i_t, logf = i_t[:, 0], F.logsigmoid(f_t[:, 0])         # (B, H)
+    i_t, logf = i_t[:, 0], shardctx.log_sigmoid(f_t[:, 0])    # (B, H)
     m_prev, c_prev, n_prev = state["m"], state["C"], state["n"]
     m_new = torch.maximum(logf + m_prev, i_t)
     f_sc = torch.exp(logf + m_prev - m_new)[..., None]
@@ -328,7 +330,7 @@ def _slstm_cell(r: torch.Tensor, state: Params, z: torch.Tensor) -> Params:
     it, ft, zt, ot = torch.split(z + torch.bmm(h, r), h.shape[-1], -1)
     zt = torch.tanh(zt)
     ot = torch.sigmoid(ot)
-    lf = F.logsigmoid(ft) + m
+    lf = shardctx.log_sigmoid(ft) + m
     m_new = torch.maximum(lf, it)
     i_sc = torch.exp(it - m_new)
     f_sc = torch.exp(lf - m_new)
@@ -337,24 +339,32 @@ def _slstm_cell(r: torch.Tensor, state: Params, z: torch.Tensor) -> Params:
     return {"c": c_new, "n": n_new, "h": ot * c_new / n_new, "m": m_new}
 
 
+def _slstm_loop(z: torch.Tensor, r: torch.Tensor):
+    """The time loop from the zero state: ``z`` (S, H, B, 4 hd) and ``r``
+    from ``_slstm_r`` -> (h (H, S, B, hd), the final float32 state (c, n,
+    h, m) each (H, B, hd))."""
+    zero = z.new_zeros(z.shape[1:3] + (r.shape[1],))
+    state = {k: zero for k in ("c", "n", "h", "m")}
+    hs = []
+    for t in range(z.shape[0]):
+        state = _slstm_cell(r, state, z[t])
+        hs.append(state["h"])
+    return torch.stack(hs, 1), state
+
+
 def slstm_scan(p: Params, x: torch.Tensor, n_heads: int,
                return_state: bool = False):
     """x: (B, S, W) -> (B, S, W), a loop over time from the zero state
     (with the final float32 state, (B, W) each, when
-    ``return_state``)."""
+    ``return_state``); on DTensors on each rank's shards
+    (``shardctx.recur_locally``)."""
     b, s, w = x.shape
     hd = w // n_heads
     pre = x @ p["w_in"].to(x.dtype)                          # (B, S, 4 W)
     z = (pre.float() + p["b"].float()).reshape(b, s, 4, n_heads, hd) \
         .permute(1, 3, 0, 2, 4).reshape(s, n_heads, b, 4 * hd)
-    r = _slstm_r(p)
-    zero = torch.zeros((n_heads, b, hd), device=x.device)
-    state = {k: zero for k in ("c", "n", "h", "m")}
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(r, state, z[t])
-        hs.append(state["h"])
-    h = torch.stack(hs, 1).permute(2, 1, 0, 3).reshape(b, s, w)
+    h, state = shardctx.recur_locally(_slstm_loop, z, _slstm_r(p))
+    h = h.permute(2, 1, 0, 3).reshape(b, s, w)
     h = _groupnorm(p, h.to(x.dtype), n_heads)
     if return_state:
         return h, {k: _unheads(v) for k, v in state.items()}

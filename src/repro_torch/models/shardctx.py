@@ -19,9 +19,11 @@ state is plain zeros.
 The rest route an op of the model code on DTensors (the dry run's,
 ``launch/dryrun.py``) as XLA partitions it, where eager DTensor would
 place a product by its communication alone (``weight_at_use``,
-``constrain_vocab_table``, ``label_logit``), flatten split dims
-(``attend_locally``, ``splittable``) or, in some releases, find no
-strategy (``index_copy_``, ``var_mean``).  On plain tensors each is the
+``constrain_vocab_table``, ``label_logit``), flatten or split split dims
+(``attend_locally``, ``splittable``, ``merged``), find no strategy
+(``log_sigmoid``'s backward; in some releases ``index_copy_``,
+``var_mean``) or propagate placements op by op through a time loop
+(``recur_locally``).  On plain tensors each is the
 plain op.
 """
 from __future__ import annotations
@@ -30,6 +32,7 @@ import contextlib
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 _BATCH_AXES: Optional[Tuple[str, ...]] = None
 _MODEL_AXIS: Optional[str] = None
@@ -268,6 +271,21 @@ def var_mean(x: torch.Tensor):
     return torch.mean(dev * dev, -1, keepdim=True), mu
 
 
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid(x)``; on a DTensor the op runs on each rank's shard
+    (any partial sum reduced first), and so does its backward: it is
+    elementwise, and DTensor has no strategy for its backward
+    (``log_sigmoid_backward``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    x = _reduced(x)
+    out = F.logsigmoid(_ContiguousGrad.apply(x.to_local())).contiguous()
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=contiguous_stride(x.shape))
+
+
 def attend_locally(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    **kw) -> torch.Tensor:
     """``fn(q, k, v, **kw)``, an attention over (B, S, H, D) queries and
@@ -287,10 +305,7 @@ def attend_locally(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(p.is_replicate() or (type(p) is Shard and p.dim in (0, 2))
                for p in placements):
         return fn(q, k, v, **kw)
-    n = 1
-    for i, p in enumerate(placements):
-        if p.is_shard() and p.dim == 2:
-            n *= mesh.size(i)
+    n = _split_count(q, 2)
     h, g = q.shape[2], k.shape[2]
     if g % n:
         whole = [Replicate()] * mesh.ndim
@@ -309,25 +324,94 @@ def attend_locally(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               stride=contiguous_stride(shape))
 
 
+def recur_locally(loop, z: torch.Tensor, r: torch.Tensor):
+    """``loop(z, r)``: a recurrence over ``z`` (S, H, B, ...) with
+    per-head weights ``r`` (H, ...), returning ``h`` (H, S, B, ...) and a
+    final state ``{name: (H, B, ...)}``.  On a DTensor ``z`` the loop
+    runs on each rank's shards, as XLA partitions its scan: the
+    recurrence is independent across heads and batch, so ``z`` keeps its
+    splits of those dims where they divide them (``r``'s heads split as
+    ``z``'s), every other split or partial sum of ``z`` is gathered, and
+    the outputs are placed as the kept splits say.  Each step then runs
+    on plain shards, where eager DTensor would propagate the placements
+    of every op of every step.  ``to_local`` and ``from_local`` are
+    differentiable, so training and remat run through it, and the
+    probe of ``launch/op_analysis`` counts each step's products on the
+    shards.  Anything else: ``loop(z, r)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(z, DTensor):
+        return loop(z, r)
+    mesh = z.device_mesh
+    kept = [d for d in (1, 2) if z.shape[d] % _split_count(z, d) == 0]
+    zp = [p if type(p) is Shard and p.dim in kept else Replicate()
+          for p in z.placements]
+    zl = _ContiguousGrad.apply(z.redistribute(mesh, zp).to_local())
+    if isinstance(r, DTensor):
+        rp = [Shard(0) if p.is_shard() and p.dim == 1 else Replicate()
+              for p in zp]
+        r = _ContiguousGrad.apply(r.redistribute(mesh, rp).to_local())
+    h, state = loop(zl, r)
+    s, n_heads, b = z.shape[:3]
+
+    def placed(local, dims, shape):
+        # z's kept dims 1 (heads) and 2 (batch) at ``dims`` of the output
+        shape = torch.Size(shape)
+        return DTensor.from_local(
+            local.contiguous(), mesh,
+            [Shard(dims[p.dim]) if p.is_shard() else Replicate()
+             for p in zp],
+            run_check=False, shape=shape, stride=contiguous_stride(shape))
+    h = placed(h, {1: 0, 2: 2}, (n_heads, s, b) + tuple(h.shape[3:]))
+    state = {k: placed(v, {1: 0, 2: 1}, (n_heads, b) + tuple(v.shape[2:]))
+             for k, v in state.items()}
+    return h, state
+
+
+def _split_count(x, dim: int) -> int:
+    """The number of ranks a DTensor's dim ``dim`` is split over."""
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard() and getattr(p, "dim", None) == dim:
+            n *= x.device_mesh.size(i)
+    return n
+
+
+def _whole_for(x, dim: int, outer: int):
+    """A DTensor's placements with dim ``dim`` made whole where it is
+    split over ranks that do not divide ``outer``, or None where they
+    do."""
+    from torch.distributed.tensor import Replicate
+    n = _split_count(x, dim)
+    if n <= 1 or outer % n == 0:
+        return None
+    return tuple(Replicate() if p.is_shard()
+                 and getattr(p, "dim", None) == dim else p
+                 for p in x.placements)
+
+
 def splittable(x: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
     """``x`` ready for its dim ``dim`` to be split with ``outer`` as the
     leading factor: a DTensor whose dim is split over ranks that do not
     divide ``outer`` gets that dim whole (DTensor cannot keep such a
     split through the reshape); anything else unchanged."""
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    mesh = x.device_mesh
-    n, placements = 1, list(x.placements)
-    for i, p in enumerate(placements):
-        if p.is_shard() and getattr(p, "dim", None) == dim:
-            n *= mesh.size(i)
-    if n <= 1 or outer % n == 0:
+    placements = _whole_for(x, dim, outer)
+    return x if placements is None else _Whole.apply(x, placements)
+
+
+def merged(x: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
+    """``x`` just after a reshape merged its dim ``dim`` from ``outer``
+    and an inner factor: ``splittable`` for the backward.  On a DTensor
+    the identity whose gradient gets that dim whole where it is split
+    over ranks that do not divide ``outer``, since the reshape's backward
+    splits the dim again (a product with a weight split 256 or 512 ways
+    hands the gradient such a split); anything else unchanged."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
         return x
-    placements = [Replicate() if p.is_shard()
-                  and getattr(p, "dim", None) == dim else p
-                  for p in placements]
-    return _Whole.apply(x, tuple(placements))
+    return _WholeGrad.apply(x, dim, outer)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -356,6 +440,23 @@ class _Whole(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity; its gradient's dim made whole as ``splittable``
+    makes a forward's."""
+
+    @staticmethod
+    def forward(ctx, x, dim, outer):
+        ctx.dim, ctx.outer = dim, outer
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        placements = _whole_for(grad, ctx.dim, ctx.outer)
+        if placements is not None:
+            grad = grad.redistribute(grad.device_mesh, placements)
+        return grad, None, None
 
 
 def _axis_len(axis: Optional[str]) -> int:

@@ -11,20 +11,17 @@ propagate runs under the driver's ``jit``): ``split(rng, n_leaves)``,
 one key per leaf in JAX's flatten order, and ``p + std * normal(k)``
 as compiled XLA computes it, with the normal's ``sqrt(2)`` folded into
 the scale and the multiply-add fused, ``fma(std sqrt(2), erf_inv(u),
-p)``.  A leaf is drawn ``SLICE`` elements at a time (each element's bits
-depend on its flat index alone), so the int64 / float64 emulation of a
-2.7e8-element leaf never holds more than a slice.
+p)`` (``add_noise``): on the card one launch of the noise kernel a leaf
+(``kernels/noise``), on the CPU its plain version, in slices of the
+flat index.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.models import params as PRM
+from repro_torch.kernels.noise.ops import add_noise
 from repro_torch.tree import tree_paths, tree_unflatten
-
-_SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
 def sgld_std(lr: torch.Tensor, temperature: torch.Tensor) -> torch.Tensor:
@@ -32,21 +29,6 @@ def sgld_std(lr: torch.Tensor, temperature: torch.Tensor) -> torch.Tensor:
     returns 0 at 0, where x rsqrt(x) is NaN)."""
     var = torch.clamp_min(2.0 * lr * temperature, 0.0)
     return torch.where(var == 0, var, jr.xla_sqrt(var))
-
-
-def add_noise(p: torch.Tensor, key: torch.Tensor,
-              std: torch.Tensor) -> torch.Tensor:
-    """``p + std * normal(key, p.shape)`` for a float32 leaf, as a new
-    tensor: the compiled form of the module docstring."""
-    s2 = std * _SQRT2
-    out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-    src, dst = p.reshape(-1), out.view(-1)
-    n = dst.numel()
-    for a in range(0, n, PRM.SLICE):
-        b = min(n, a + PRM.SLICE)
-        e = jr.bits_to_erf_inv(jr.random_bits(key, (b - a,), a))
-        dst[a:b] = jr.fma(e, s2, src[a:b])
-    return out
 
 
 def sgld_noise(rng: torch.Tensor, params, lr: torch.Tensor,

@@ -48,6 +48,8 @@ and one kv head, against its plain version per element; the
 deepseek-v2-lite, recurrentgemma and xlstm smoke models at float32 on
 the card and the CPU through 20 decode steps (the ring buffer wrapping),
 one flash launch per attention layer of the prefill (none for xlstm).
+The noise kernel (``kernels/noise``): its three entry points bitwise
+their plain versions on the card and the CPU, one launch a call.
 """
 import numpy as np
 import pytest
@@ -1083,3 +1085,58 @@ def test_repex_run_cli_on_the_card(tmp_path):
     assert rep["meta"]["backend"] == "cuda" and rep["cycles"]["counted"] == 4
     assert rep["exchange"]["accepted"] == sum(
         a for a, _ in drv.acceptance.values())
+
+
+@pytest.mark.parametrize("n_rep", [1, 8, 384])
+def test_noise_kernel_is_its_plain_version_bitwise(n_rep):
+    """The noise kernel's three entry points against ``kernels/noise/
+    ref.py`` bitwise on the card (and on the CPU up to 8 replicas), one
+    counted launch a call: the fused path's legacy-layout block at N =
+    2,881 (8,643 elements, odd) for t = 0, 5, 10, the stacked draw of 11
+    steps, and the SGLD update on a leaf read across the 2^26 slice
+    border."""
+    from repro_torch.kernels.noise import ops as nz_ops
+    from repro_torch.kernels.noise import ref as nz_ref
+    keys = jr.split(jr.key(n_rep, "cuda"), n_rep)
+    shape = (2881, 3)
+
+    def same(got, plain, *args):
+        assert torch.equal(got, plain(keys, *args))
+        if n_rep <= 8:
+            assert torch.equal(got.cpu(), plain(keys.cpu(), *args))
+    for t in (0, 5, 10):
+        nz_ops.LIBRARY.reset()
+        got = nz_ops.step_noise_unrolled(keys, t, shape)
+        assert nz_ops.LIBRARY.variants == {"unrolled": 1}
+        same(got, nz_ref.step_noise_unrolled, t, shape)
+    nz_ops.LIBRARY.reset()
+    got = nz_ops.stacked_step_noise(keys, 11, shape)
+    assert nz_ops.LIBRARY.variants == {"stacked": 1}
+    same(got, nz_ref.stacked_step_noise, 11, shape)
+    rng = np.random.default_rng(n_rep)
+    p = torch.from_numpy(rng.standard_normal(3000).astype(np.float32))
+    std = torch.tensor(np.float32(0.01))
+    off = (1 << 26) - 1000
+    got = nz_ops.add_noise_batched(p.cuda(), keys[0], std.cuda(), off)
+    assert torch.equal(got, nz_ref.add_noise(p.cuda(), keys[0], std.cuda(),
+                                             off))
+    assert torch.equal(got.cpu(), nz_ref.add_noise(p, keys[0].cpu(), std,
+                                                   off))
+
+
+def test_noise_kernel_sgld_leaf_past_one_slice_and_refusals():
+    """A leaf of 2^26 + 4,097 elements in one launch equals the plain
+    version's two slices; a bfloat16 leaf and CPU keys are refused."""
+    from repro_torch.kernels.noise import ops as nz_ops
+    from repro_torch.kernels.noise import ref as nz_ref
+    key = jr.key(3, "cuda")
+    p = torch.randn((1 << 26) + 4097, device="cuda")
+    std = torch.tensor(0.02, device="cuda")
+    nz_ops.LIBRARY.reset()
+    got = nz_ops.add_noise(p, key, std)
+    assert nz_ops.LIBRARY.variants == {"sgld": 1}
+    assert torch.equal(got, nz_ref.add_noise(p, key, std))
+    with pytest.raises(ValueError):
+        nz_ops.add_noise_batched(p[:8].bfloat16(), key, std)
+    with pytest.raises(ValueError):
+        nz_ops.stacked_step_noise_batched(key.cpu()[None], 2, (3,))

@@ -38,7 +38,7 @@ print(" ".join(names))
 # protocol, the MoE layer, DeepSeek-MoE's config), of MLA and the hybrid
 # family (the MLA layer, the RG-LRU cells, their configs) and of the ssm
 # family (the xLSTM cells in models/recurrent.py, xLSTM-1.3B's config),
-# and the dry run with its op analysis
+# the dry run with its op analysis, and the noise kernel's package
 SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.core.patterns", "repro_torch.core.modes",
                  "repro_torch.core.failures", "repro_torch.core.repex",
@@ -61,7 +61,9 @@ SLICE_MODULES = ("repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.configs.recurrentgemma_9b",
                  "repro_torch.configs.xlstm_1_3b",
                  "repro_torch.launch.op_analysis",
-                 "repro_torch.launch.dryrun")
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.kernels.noise", "repro_torch.kernels.noise.ops",
+                 "repro_torch.kernels.noise.ref")
 
 
 def _examples():
