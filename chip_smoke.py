@@ -328,12 +328,14 @@ printed on its own lines:
                   CUDA launches of one propagate (R = 8, 10 steps) of the
                   "pallas" path dense and all-sparse, the "fused" path
                   dense, bonded-sparse and all-sparse and "batched"
-                  (autodiff), each within LAUNCH_BUDGET; the noise draws
-                  one launch each by the wrapper's count (the fused
-                  path's 11 blocks, the "pallas" path's stacked draw);
-                  fused < pallas (dense
-                  and all-sparse) in all and besides the noise draws, and
-                  pallas < batched
+                  (autodiff), the kernel nodes of a CUDA graph captured
+                  around one call, each as pinned (MEASURED_LAUNCHES; the
+                  memcpy, memset and other nodes apart) and within
+                  LAUNCH_BUDGET; the noise draws read the same way as 1
+                  (the "pallas" path's stacked draw) and 11 (the fused
+                  path's blocks), the wrappers' counts beside; fused <
+                  pallas (dense and all-sparse) in all and besides the
+                  noise draws, and pallas < batched
  47. noise        the noise kernel (``kernels/noise``, the port's form of
                   XLA's fusion of the threefry hash and erf_inv) bitwise
                   its plain version on the card and on the CPU, the
@@ -341,8 +343,11 @@ printed on its own lines:
                   legacy-layout block and the stacked draw for R = 1, 8
                   and 384, N = 2881, t = 0, 5, 10; the SGLD update on an
                   OLMo-1B-sized leaf in one launch and across the 2^26
-                  slice border through its offset; each timed beside its
-                  bound and its plain version.  Phases 5, 8, 9, 13 and 34
+                  slice border through its offset; the bits -> normal map
+                  alone on all 2^23 mantissas against the plain map; the
+                  library's SASS census per kernel (``cuobjdump``); each
+                  entry point timed beside its bound and its plain
+                  version.  Phases 5, 8, 9, 13 and 34
                   check its launches on their paths (one stacked draw a
                   per-pass propagate, 11 blocks a fused one, one SGLD
                   update a leaf and replica-step)
@@ -5177,13 +5182,18 @@ def _local_tree(t):
 
 
 # Phase 46: CUDA launches of one propagate (R = 8, 10 steps), the
-# counterpart of tests/test_op_budget.py's compiled-op budgets; each
-# pinned about 25% above its count on an NVIDIA H100 80GB HBM3 at 700 W
-# (MEASURED_LAUNCHES, with the noise kernel: one launch a draw; counted
-# by op_analysis.count_launches late in the script).
-MEASURED_LAUNCHES = {"pallas dense": 310, "pallas all-sparse": 453,
-                     "fused dense": 127, "fused bonded-sparse": 127,
-                     "fused all-sparse": 423, "batched": 3698}
+# counterpart of tests/test_op_budget.py's compiled-op budgets: the kernel
+# nodes of a CUDA graph captured around one call after a warm one
+# (op_analysis.graph_nodes), a count of the call alone, whatever ran before
+# it in the process.  Pinned exactly, as counted on an NVIDIA H100 80GB
+# HBM3 at 700 W (MEASURED_LAUNCHES; the graph's memset, memcpy and other
+# nodes in MEASURED_OTHER_NODES), with the budgets 25% above beside them.
+MEASURED_LAUNCHES = {"pallas dense": 309, "pallas all-sparse": 452,
+                     "fused dense": 126, "fused bonded-sparse": 126,
+                     "fused all-sparse": 422, "batched": 3642}
+MEASURED_OTHER_NODES = {name: {"memcpy": 55 if name == "batched" else 0,
+                               "memset": 0, "other": 0}
+                        for name in MEASURED_LAUNCHES}
 LAUNCH_BUDGET = {k: int(1.25 * v) for k, v in MEASURED_LAUNCHES.items()}
 BUDGET_ENGINES = {
     "pallas dense": {},
@@ -5200,12 +5210,12 @@ def op_budgets(smi: str) -> None:
     where XLA fuses the fused path's in-loop noise hash into the body's
     elementwise fusions.  The noise kernel is the port's form of that
     fusion: each of the fused path's 11 legacy-layout blocks is one
-    launch, the "pallas" path's stacked draw one (the wrapper's count;
-    the profiler's is printed beside it), so the guard holds on the
-    total launches; it is held besides each path's noise draw too (what
-    kernel 3 fuses)."""
+    launch, the "pallas" path's stacked draw one (read from the graph's
+    kernel nodes, the wrapper's counter printed beside), so the guard
+    holds on the total launches; it is held besides each path's noise
+    draw too (what kernel 3 fuses)."""
     phase("46 the op budgets on the card: CUDA launches of one propagate "
-          "(R = 8, 10 MD steps)")
+          "(R = 8, 10 MD steps), CUDA-graph kernel nodes")
     from repro_torch import random as jr
     from repro_torch.config import RepExConfig
     from repro_torch.core.controls import build_grid, ctrl_for_assignment
@@ -5219,16 +5229,23 @@ def op_budgets(smi: str) -> None:
     ctrl = ctrl_for_assignment(grid, torch.arange(8, device="cuda"))
     keys = per_replica_keys(jr.key(7, "cuda"), 8)
     n_steps = torch.full((8,), 10, dtype=torch.int64, device="cuda")
-    counts = {}
+    counts, failed = {}, []
     for name, kw in BUDGET_ENGINES.items():
         eng = MDEngine(device="cuda", **kw)
         state = eng.init_state(jr.key(SEED, "cuda"), 8)
-        counts[name] = op_analysis.count_launches(
+        nodes = op_analysis.graph_nodes(
             eng.propagate, state, ctrl, n_steps, keys, max_steps=10)
-        budget = LAUNCH_BUDGET[name]
-        print(f"{name}: {counts[name]} CUDA launches a propagate, budget "
-              f"{budget} [{smi}]")
-        check(counts[name] <= budget, f"{name}: launches within the budget")
+        counts[name] = nodes.pop("kernel")
+        print(f"{name}: {counts[name]} CUDA launches a propagate (pinned "
+              f"{MEASURED_LAUNCHES[name]}, budget {LAUNCH_BUDGET[name]}); "
+              f"other graph nodes {nodes} (pinned "
+              f"{MEASURED_OTHER_NODES[name]}) [{smi}]")
+        if (counts[name] != MEASURED_LAUNCHES[name]
+                or nodes != MEASURED_OTHER_NODES[name]):
+            failed.append(name)
+        check(counts[name] <= LAUNCH_BUDGET[name],
+              f"{name}: launches within the budget")
+    check(not failed, f"the launches as pinned: {failed}")
     shape = tuple(state["pos"].shape[1:])
     draws = {"pallas": lambda: stacked_step_noise(keys, 11, shape),
              "fused": lambda: [NZ.step_noise_unrolled(keys, i, shape)
@@ -5239,19 +5256,19 @@ def op_budgets(smi: str) -> None:
         reset([])
         draw()
         counted[path] = nz_ops.LIBRARY.launches
-    print(f"noise draws: pallas {counted['pallas']} launches (one stacked "
-          f"draw; the profiler saw {noise['pallas']}), fused "
-          f"{counted['fused']} (11 blocks in the loop body; "
-          f"{noise['fused']})")
-    check(counted == {"pallas": 1, "fused": 11},
+    print(f"noise draws: pallas {noise['pallas']} launches (one stacked "
+          f"draw; the wrapper counted {counted['pallas']}), fused "
+          f"{noise['fused']} (11 blocks in the loop body; "
+          f"{counted['fused']})")
+    check(noise == {"pallas": 1, "fused": 11} == counted,
           "the noise draws: one launch a draw")
     for kind in ("dense", "all-sparse"):
         f, p = counts[f"fused {kind}"], counts[f"pallas {kind}"]
         print(f"{kind}: fused {f} against pallas {p} launches in all; "
-              f"besides the noise draws {f - counted['fused']} against "
-              f"{p - counted['pallas']}")
+              f"besides the noise draws {f - noise['fused']} against "
+              f"{p - noise['pallas']}")
         check(f < p, f"fused < pallas in launches, {kind}")
-        check(f - counted["fused"] < p - counted["pallas"],
+        check(f - noise["fused"] < p - noise["pallas"],
               f"fused < pallas in launches besides the noise, {kind}")
     check(counts["pallas dense"] < counts["batched"],
           "the analytic path < autodiff in launches")
@@ -5264,27 +5281,42 @@ def op_budgets(smi: str) -> None:
 # xors: 79 int32 operations; the partitionable layout one block an
 # element plus the counter split and b1 ^ b2 (3), the legacy layout one
 # block for two elements plus the second counter's test (2); the
-# mantissa map 2 more.  Double operations, counted as the fp64 peak
-# counts them (a multiply and an add, 2): the uniform's emulated FMA 2,
-# erf_inv's polynomial 16, log1p's rational branch (|u| < 0.6436, its
-# argument -u^2 above -0.41421) 28 or its log branch 22, and past w = 5
-# (|u| >= 0.99663) the square root's double rsqrt (~6) and 2 FMAs 4.
-# float32 operations: ~15 an element, at most 5% of the int32 time.
+# mantissa map 2 more.  float32 operations (an FMA one), each element:
+# the uniform 3 (a subtract, an FMA, a max), erf_inv 13 (-x^2, the test
+# w < 5, w - 2.5, 8 FMAs, the test |x| = 1, p x), the normal's sqrt 2 1;
+# log1p's rational branch (|u| < 0.6436, its argument -u^2 above
+# -0.41421) 25 (the test, x^2, 14 FMAs, the division as a reciprocal and
+# 3 FMAs, 5 for the sum) or its log branch 23 (x + 1, the exponent's
+# select and float, the mantissa's 2, m^2, m^3, 9 FMAs, 7 for the
+# sums); past w = 5 (|u| >= 0.99663) the square root's 5.  Double
+# operations, as the fp64 peak counts them (a multiply and an add, 2):
+# past w = 5 the double rsqrt (~6) and its 2 conversions; the SGLD
+# update's last FMA, emulated in double, 2 and 3 conversions (the float
+# <-> double conversions at 16 a clock an SM, beside the FP32 pipes' 128).
 THREEFRY_INT_OPS = 79
 # H100 SXM (NVIDIA data sheet: fp64 outside the tensor cores; the Hopper
-# white paper: 64 int32 lanes an SM, 132 SMs, at the 1,980 MHz boost
-# clock that the fp32 peak of 67 TFLOP/s assumes).
+# white paper: 64 int32 and 128 fp32 lanes an SM, 16 conversions to and
+# from fp64 a clock, 132 SMs, at the 1,980 MHz boost clock that the fp32
+# peak of 67 TFLOP/s assumes).
 FP64_FLOPS_PER_S = 34e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
+F2F_PER_S = 132 * 16 * 1.98e9
 NOISE_CASES = (1, 8, 384)
 NOISE_TS = (0, 5, 10)
 SGLD_LEAF = (50304, 2048)      # OLMo-1B's embedding: 103 M > 2^26
+# the noise kernel's times before its float32 FMAs (the float64-emulated
+# design; NVIDIA H100 80GB HBM3, 700 W) and that design's float <-> double
+# conversions a kernel in its SASS (experiments/noise_kernel_ab.py)
+NOISE_BEFORE_MS = {"stacked": 0.1588, "unrolled": 0.0892, "sgld": 2.7248}
+NOISE_BEFORE_F2F = {"stacked": 104, "unrolled": 208, "sgld": 108}
 
 
 def noise_bound(u: torch.Tensor, layout: str, nbytes: float):
     """(bound_ms, bound_by, parts) of one noise call whose uniforms
-    (each before erf_inv, on (-1, 1)) are ``u``, ``layout`` "legacy" or
-    "partitionable", writing and reading ``nbytes``."""
+    (each before erf_inv, on (-1, 1)) are ``u``, ``layout`` "legacy",
+    "partitionable" (a normal) or "sgld" (the partitionable layout into
+    the SGLD update), writing and reading ``nbytes``."""
     a = u.abs()
     n = u.numel()
     n_rational = int((a < 0.6436).sum())
@@ -5292,18 +5324,46 @@ def noise_bound(u: torch.Tensor, layout: str, nbytes: float):
     per = (THREEFRY_INT_OPS + 2) / 2 if layout == "legacy" \
         else THREEFRY_INT_OPS + 3
     int_ops = n * (per + 2)
-    fp64 = n * 18 + 28 * n_rational + 22 * (n - n_rational) + 10 * n_tail
+    sgld = layout == "sgld"
+    fp32 = (n * (16 + (0 if sgld else 1)) + 25 * n_rational
+            + 23 * (n - n_rational) + 5 * n_tail)
+    fp64 = 6 * n_tail + (2 * n if sgld else 0)
+    f2f = 2 * n_tail + (3 * n if sgld else 0)
     times = {"bytes": nbytes / HBM_BYTES_PER_S,
              "int32": int_ops / INT32_OPS_PER_S,
-             "fp64": fp64 / FP64_FLOPS_PER_S}
+             "fp32": fp32 / FP32_OPS_PER_S,
+             "fp64": fp64 / FP64_FLOPS_PER_S,
+             "conversions": f2f / F2F_PER_S}
     by = max(times, key=times.get)
     parts = (f"{int_ops:.4e} int32 ops {times['int32'] * 1e3:.4f} ms, "
+             f"{fp32:.4e} fp32 ops {times['fp32'] * 1e3:.4f} ms, "
              f"{fp64:.4e} fp64 FLOPs {times['fp64'] * 1e3:.4f} ms, "
+             f"{f2f:.4e} conversions {times['conversions'] * 1e3:.4f} ms, "
              f"{nbytes / 1e6:.1f} MB {times['bytes'] * 1e3:.4f} ms; "
              f"log1p rational {n_rational / n:.4f}, erf_inv tail "
              f"{n_tail / n:.5f}")
     return (times[by] * 1e3, "bytes" if by == "bytes" else "operations",
             parts)
+
+
+def noise_sass() -> dict:
+    """The noise library's SASS census (``cuobjdump -sass``) by kernel:
+    the float <-> double conversions ``F2F``, the fp64 and fp32
+    arithmetic and the funnel shifts ``SHF`` (the hash's rotates)."""
+    from repro_torch.kernels import sass_census
+    from repro_torch.kernels.noise import ops as nz_ops
+    ops = ("F2F", "DMUL", "DADD", "DFMA", "FFMA", "FMUL", "FADD", "SHF",
+           "IADD3", "LOP3", "MUFU")
+    out = {}
+    for kernel, census in sass_census(nz_ops.LIBRARY.path).items():
+        name = next((k for k in ("unrolled", "stacked", "sgld", "map")
+                     if k in kernel), kernel)
+        out[name] = {op: census.get(op, 0) for op in ops}
+        out[name]["all"] = sum(census.values())
+        print(f"SASS {name} ({kernel}): {out[name]}")
+    check(set(out) == {"unrolled", "stacked", "sgld", "map"},
+          "the noise library's four kernels in its SASS")
+    return out
 
 
 def noise_kernel(smi: str) -> dict:
@@ -5314,9 +5374,11 @@ def noise_kernel(smi: str) -> dict:
     SGLD update on an OLMo-1B-sized leaf in one launch against the plain
     version's 2^26 slices, and around the slice border through the
     offset entry point against the launch over the whole leaf and the
-    CPU.  Then each entry point timed at its path's shape beside its
-    bound and its plain version.  Returns the kernels-line row's
-    numbers (the main path's stacked draw, R = 64)."""
+    CPU; the bits -> normal map alone on all 2^23 mantissas it reads
+    against the plain map on the card.  Then the library's SASS census
+    and each entry point timed at its path's shape beside its bound, its
+    plain version and the float64-emulated design's time.  Returns the
+    kernels-line row's numbers (the main path's stacked draw, R = 64)."""
     phase(f"47 the noise kernel vs its plain version: R = {NOISE_CASES}, "
           f"N = {N_ATOMS}, t = {NOISE_TS}, an OLMo-1B leaf {SGLD_LEAF}")
     from repro_torch import random as jr
@@ -5367,6 +5429,14 @@ def noise_kernel(smi: str) -> dict:
     print(f"sgld leaf {SGLD_LEAF}: differing elements {a} (card, plain in "
           f"2^26 slices); offset {lo}..{hi}: {b} (against the whole "
           f"leaf's launch), {c} (CPU)")
+    # the bits -> normal map alone on every input it reads: the top 23
+    # bits of a word (bits = m << 9), against the plain map on the card
+    bits = torch.arange(1 << 23, dtype=torch.int64, device="cuda") << 9
+    a = differ("map 2^23 card", nz_ops.bits_to_erf_inv_batched(bits),
+               jr.bits_to_erf_inv(bits))
+    del bits
+    print(f"map on all 2^23 mantissas: differing elements {a} (card, "
+          f"against the plain random.bits_to_erf_inv)")
     print(f"phase 47: {sum(diffs.values())} differing elements in "
           f"{len(diffs)} comparisons, max |diff| {err}")
     check(sum(diffs.values()) == 0, "the noise kernel bitwise its plain "
@@ -5386,7 +5456,11 @@ def noise_kernel(smi: str) -> dict:
                      "legacy", 4),
         "sgld": (lambda: nz_ops.add_noise_batched(leaf, key, std),
                  lambda: nz_ref.add_noise(leaf, key, std),
-                 "partitionable", 8)}
+                 "sgld", 8)}
+    sass = noise_sass()
+    for name, f2f in NOISE_BEFORE_F2F.items():
+        print(f"{name}: float <-> double conversions in the kernel's SASS "
+              f"{f2f} (float64-emulated FMAs) -> {sass[name]['F2F']}")
     out = {}
     for name, (kern, plain, layout, per) in cases.items():
         z = kern()
@@ -5396,7 +5470,8 @@ def noise_kernel(smi: str) -> dict:
         del z, u
         k_ms = graph_ms(kern, calls=5 if name == "sgld" else 20)
         p_ms = median_ms(plain, n=3 if name == "sgld" else 5, warmup=1)
-        print(f"{name}: kernel {k_ms:.4f} ms device (graph replay), plain "
+        print(f"{name}: kernel {k_ms:.4f} ms device (graph replay; "
+              f"float64-emulated FMAs {NOISE_BEFORE_MS[name]}), plain "
               f"{p_ms:.4f} ms; bound {bound:.4f} ms ({by}: {parts}) "
               f"[{smi}]")
         out[name] = (k_ms, p_ms, bound, by)

@@ -25,6 +25,10 @@
                     the model layout with grouped kv heads; replaces
                     ``flash_attention_kernel``.  Every prefill attention
                     of the LM on the card.
+  noise           — the threefry hash and the bits -> normal map in one
+                    pass (the stacked and legacy-layout draws, the SGLD
+                    update); no TPU counterpart, the port's form of
+                    XLA's elementwise fusion of the jnp hash.
 
 Each subpackage: ``csrc/*.cu`` (CUDA C++ for ``sm_90a`` with a plain C
 entry point), ``ops.py`` (the ctypes wrappers with their launch counters,
@@ -100,6 +104,31 @@ def nvcc_path() -> str:
         if cand and Path(cand).is_file():
             return str(cand)
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def sass_census(library: Path) -> dict:
+    """``{kernel: {opcode: count}}`` of a built library's SASS, read with
+    ``cuobjdump -sass`` (beside ``nvcc``): each kernel's static
+    instructions by opcode without its modifiers (``F2F.F64.F32`` counts
+    as ``F2F``), the kernel named by its mangled symbol."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            cur = out.setdefault(line.split(":", 1)[1].strip(), {})
+        elif cur is not None and line.startswith("/*") and "*/" in line:
+            ins = line.split("*/", 1)[1].strip().rstrip(";").strip()
+            if not ins or ins.startswith("/*"):
+                continue
+            words = ins.split()
+            if words[0].startswith("@"):          # a predicate guard
+                words = words[1:]
+            op = words[0].split(".")[0]
+            cur[op] = cur.get(op, 0) + 1
+    return out
 
 
 class KernelLibrary:

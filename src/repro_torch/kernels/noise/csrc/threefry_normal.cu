@@ -1,7 +1,6 @@
 // Gaussian noise from counter-based threefry-2x32 bits, written for Hopper
 // (sm_90a): the hash, the mantissa map to a uniform and XLA's float32
-// erf_inv in one pass, one thread per threefry block, nothing in between
-// kept in device memory.
+// erf_inv in one pass, nothing in between kept in device memory.
 //
 // Not a TPU kernel: the JAX package draws this noise with jnp, and XLA
 // fuses the hash and the bits -> normal map into one elementwise fusion
@@ -22,27 +21,40 @@
 //     offset + j, fused into the SGLD update p + std * normal as compiled
 //     XLA computes it: fma(erf_inv(u), std * sqrt 2, p), std read from
 //     device memory (no host sync).
+// and noise_map_launch, the bits -> erf_inv map alone on given words,
+// which chip_smoke.py runs on all 2^23 mantissas.
 //
 // Arithmetic, step for step the plain version (random.py): the library is
 // built with -fmad=false, so no float multiply and add is contracted into
 // an FMA (the plain _log, _log1p and _sqrt depend on which steps are
-// FMAs); the plain version's FMAs are emulated as it emulates them, the
-// exact double product plus c rounded to double, then to float (fma_f64
-// below, not fmaf); division is IEEE (no fast math); _sqrt's reciprocal
-// root is CUDA's double rsqrt, the function PyTorch's rsqrt runs on the
-// card.  Constants are the plain version's float32 values as hex literals
+// FMAs); the plain version's FMAs are float32 FMAs on the FP32 pipes
+// (__fmaf_rn, rounded once, as XLA's CPU FMA rounds).  The plain version
+// emulates them in float64 and rounds twice, to double and then to float;
+// the two roundings agree on every FMA of the map over all 2^23 inputs
+// the map reads (tests/test_torch_noise_map.py counts the ties), so the
+// map is bitwise the plain one there.  Two steps stay in float64: _sqrt's
+// reciprocal root, CUDA's double rsqrt (the function PyTorch's rsqrt runs
+// on the card; only on the w >= 5 tail, ~0.34% of lanes), and the SGLD
+// update's last FMA, whose p no exhaustive check covers (fma_f64 below,
+// the plain emulation).  Division is IEEE (no fast math).  Constants are
+// the plain version's float32 values as hex literals
 // (tests/test_torch_noise_kernel.py reads them back).
 //
 // What bounds it on an H100: integer operations.  A threefry block is ~80
-// int32 operations (20 rounds of add, rotate, xor and 5 key injections);
-// the bits -> normal map ~25 float and ~23 double operations.  At R = 64,
-// N = 2,881 and 11 steps the stacked draw writes 24 MB (0.007 ms at 3.35
-// TB/s) and hashes 6.1 M blocks, ~0.03 ms of the int32 pipes (PERF.md
-// section 6 gives the measured times and bounds).
+// int32 operations (20 rounds of add, rotate, xor and 5 key injections)
+// at 64 a clock an SM; the bits -> normal map ~60 float32 operations at
+// 128 a clock.  At R = 64, N = 2,881 and 11 steps the stacked draw writes
+// 24 MB (0.007 ms at 3.35 TB/s) and hashes 6.1 M blocks, ~0.03 ms of the
+// int32 pipes (PERF.md section 6 gives the measured times, the SASS
+// counts and the bounds).
 //
-// Design: the plain path's arithmetic kept per thread, a block of 256
-// threads; where a block's threads share a replica and a step (the legacy
-// and stacked layouts), thread 0 folds the key once into shared memory.
+// Design: a block of 256 threads.  Where a block's threads share a
+// replica and a step (the legacy and stacked layouts), thread 0 folds the
+// key once into shared memory and each thread makes one output (one
+// counter pair of the legacy layout); 2 or 4 outputs a thread there were
+// no faster on an H100 (PERF.md section 6).  The SGLD update takes 4
+// consecutive elements a thread, one 16-byte load of p and one store
+// where both pointers allow (7% faster than one a thread).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -51,6 +63,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+// elements a thread of the SGLD update
+constexpr int kPer = 4;
 
 // random.py constants, float32 values
 constexpr float kNormalLo = -0x1.fffffep-1f;   // nextafter(-1, 0)
@@ -85,7 +99,7 @@ __constant__ float kErfInvGe5[9] = {
     0x1.6a9efcp+1f};
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
+  return __funnelshift_l(x, x, r);
 }
 
 // threefry-2x32, 20 rounds: random.py threefry2x32
@@ -110,15 +124,15 @@ __device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
   y1 = x1;
 }
 
-// random._fma: a * b + c with the product exact in double, rounded to
-// double, then to float
+// random._fma as the plain version emulates it: the exact double product
+// plus c rounded to double, then to float (the SGLD update's last step)
 __device__ __forceinline__ float fma_f64(float a, float b, float c) {
   return static_cast<float>(static_cast<double>(a) * static_cast<double>(b)
                             + static_cast<double>(c));
 }
 
 // random._log, positive normal x
-__device__ float xla_log(float x) {
+__device__ __forceinline__ float xla_log(float x) {
   int ei;
   float m = frexpf(x, &ei);
   float e = static_cast<float>(ei);
@@ -127,50 +141,51 @@ __device__ float xla_log(float x) {
   m = (m - 1.0f) + (small ? m : 0.0f);
   const float m2 = m * m;
   const float m3 = m2 * m;
-  const float y0 = fma_f64(fma_f64(m, kLogP[0], kLogP[1]), m, kLogP[2]);
-  const float y1 = fma_f64(fma_f64(m, kLogP[3], kLogP[4]), m, kLogP[5]);
-  const float y2 = fma_f64(fma_f64(m, kLogP[6], kLogP[7]), m, kLogP[8]);
-  const float y = fma_f64(fma_f64(fma_f64(y0, m3, y1), m3, y2), m3,
-                          kLogQ1 * e);
+  const float y0 = __fmaf_rn(__fmaf_rn(m, kLogP[0], kLogP[1]), m, kLogP[2]);
+  const float y1 = __fmaf_rn(__fmaf_rn(m, kLogP[3], kLogP[4]), m, kLogP[5]);
+  const float y2 = __fmaf_rn(__fmaf_rn(m, kLogP[6], kLogP[7]), m, kLogP[8]);
+  const float y = __fmaf_rn(__fmaf_rn(__fmaf_rn(y0, m3, y1), m3, y2), m3,
+                            kLogQ1 * e);
   return ((m - 0.5f * m2) + y) + kLogQ2 * e;
 }
 
 // random._log1p, x in (-1, 0]: only the branch torch.where keeps
-__device__ float xla_log1p(float x) {
+__device__ __forceinline__ float xla_log1p(float x) {
   if (!(fabsf(x) < kLog1pSplit)) return xla_log(x + 1.0f);
   const float x2 = x * x;
   float num = 0.0f, den = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 7; ++k) num = fma_f64(num, x, kLog1pNum[k]);
+  for (int k = 0; k < 7; ++k) num = __fmaf_rn(num, x, kLog1pNum[k]);
 #pragma unroll
-  for (int k = 0; k < 7; ++k) den = fma_f64(den, x, kLog1pDen[k]);
+  for (int k = 0; k < 7; ++k) den = __fmaf_rn(den, x, kLog1pDen[k]);
   const float rational = num / den;
   return x + (-0.5f * x2 + (x * x2) * rational);
 }
 
-// random._sqrt: x rsqrt(x) and one Newton step
+// random._sqrt: x rsqrt(x) (CUDA's double rsqrt) and one Newton step
 __device__ float xla_sqrt(float x) {
   const float r = static_cast<float>(rsqrt(static_cast<double>(x)));
   const float y = x * r;
-  return fma_f64(fma_f64(-y, y, x), 0.5f * r, y);
+  return __fmaf_rn(__fmaf_rn(-y, y, x), 0.5f * r, y);
 }
 
-// random.erf_inv on (-1, 1)
-__device__ float erf_inv(float x) {
+// random.erf_inv on (-1, 1); each coefficient a select of two uniform
+// constant-bank reads
+__device__ __forceinline__ float erf_inv(float x) {
   const float w0 = -xla_log1p(-x * x);
   const bool lt = w0 < 5.0f;
   const float w = lt ? w0 - 2.5f : xla_sqrt(w0) - 3.0f;
-  const float* c = lt ? kErfInvLt5 : kErfInvGe5;
-  float p = c[0];
+  float p = lt ? kErfInvLt5[0] : kErfInvGe5[0];
 #pragma unroll
-  for (int k = 1; k < 9; ++k) p = fma_f64(p, w, c[k]);
+  for (int k = 1; k < 9; ++k)
+    p = __fmaf_rn(p, w, lt ? kErfInvLt5[k] : kErfInvGe5[k]);
   return fabsf(x) == 1.0f ? x * INFINITY : p * x;
 }
 
 // random.bits_to_erf_inv: the mantissa trick onto [lo, 1), then erf_inv
 __device__ __forceinline__ float bits_to_erf_inv(uint32_t bits) {
   const float floats = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-  return erf_inv(fmaxf(fma_f64(floats, kSpan, kNormalLo), kNormalLo));
+  return erf_inv(fmaxf(__fmaf_rn(floats, kSpan, kNormalLo), kNormalLo));
 }
 
 __device__ __forceinline__ float bits_to_normal(uint32_t bits) {
@@ -224,24 +239,49 @@ __global__ void noise_stacked_kernel(const int64_t* __restrict__ keys,
   out[row * size + j] = bits_to_normal(flat_bits(folded[0], folded[1], j));
 }
 
-// grid ceil(n / kThreads): out[j] = fma(erf_inv(u_{offset + j}), std sqrt 2,
-// p[j])
+// grid ceil(n / (kThreads kPer)): out[j] = fma(erf_inv(u_{offset + j}),
+// std sqrt 2, p[j]) for the thread's kPer consecutive j, in one 16-byte
+// load and store when ``vec`` (both pointers 16-byte aligned)
 __global__ void sgld_noise_kernel(const float* __restrict__ p,
                                   const int64_t* __restrict__ key,
                                   const float* __restrict__ std,
-                                  int64_t offset, int64_t n,
+                                  int64_t offset, int64_t n, bool vec,
                                   float* __restrict__ out) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (j >= n) return;
+  const int64_t j0 =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kPer;
+  if (j0 >= n) return;
   const float s2 = *std * kSqrt2;
-  const uint32_t bits = flat_bits(static_cast<uint32_t>(key[0]),
-                                  static_cast<uint32_t>(key[1]),
-                                  static_cast<uint64_t>(offset + j));
-  out[j] = fma_f64(bits_to_erf_inv(bits), s2, p[j]);
+  const uint32_t k0 = static_cast<uint32_t>(key[0]);
+  const uint32_t k1 = static_cast<uint32_t>(key[1]);
+  const uint64_t base = static_cast<uint64_t>(offset + j0);
+  static_assert(kPer == 4, "one float4 a thread");
+  if (vec && j0 + kPer <= n) {
+    const float4 pv = *reinterpret_cast<const float4*>(p + j0);
+    float4 o;
+    o.x = fma_f64(bits_to_erf_inv(flat_bits(k0, k1, base)), s2, pv.x);
+    o.y = fma_f64(bits_to_erf_inv(flat_bits(k0, k1, base + 1)), s2, pv.y);
+    o.z = fma_f64(bits_to_erf_inv(flat_bits(k0, k1, base + 2)), s2, pv.z);
+    o.w = fma_f64(bits_to_erf_inv(flat_bits(k0, k1, base + 3)), s2, pv.w);
+    *reinterpret_cast<float4*>(out + j0) = o;
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q)
+    if (j0 + q < n)
+      out[j0 + q] = fma_f64(bits_to_erf_inv(flat_bits(k0, k1, base + q)),
+                            s2, p[j0 + q]);
 }
 
-unsigned blocks(int64_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+// grid ceil(n / kThreads): out[j] = erf_inv of word bits[j]'s uniform
+__global__ void noise_map_kernel(const uint32_t* __restrict__ bits, int64_t n,
+                                 float* __restrict__ out) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j < n) out[j] = bits_to_erf_inv(bits[j]);
+}
+
+unsigned blocks(int64_t n, int per = 1) {
+  const int64_t w = static_cast<int64_t>(kThreads) * per;
+  return static_cast<unsigned>((n + w - 1) / w);
 }
 
 }  // namespace
@@ -273,8 +313,21 @@ extern "C" int sgld_noise_launch(const float* p, const int64_t* key,
                                  const float* std, int64_t offset, int64_t n,
                                  float* out, void* stream) {
   if (n == 0) return 0;
-  sgld_noise_kernel<<<blocks(n), kThreads, 0,
+  const bool vec = (reinterpret_cast<uintptr_t>(p) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  sgld_noise_kernel<<<blocks(n, kPer), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(p, key, std,
-                                                           offset, n, out);
+                                                           offset, n, vec,
+                                                           out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bits (n,) 32-bit words, out (n,) float32: erf_inv(u(bits)), the map
+// without the hash
+extern "C" int noise_map_launch(const uint32_t* bits, int64_t n, float* out,
+                                void* stream) {
+  if (n == 0) return 0;
+  noise_map_kernel<<<blocks(n), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(bits, n, out);
   return static_cast<int>(cudaGetLastError());
 }

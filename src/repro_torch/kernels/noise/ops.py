@@ -4,7 +4,9 @@ and the dispatch.
 ``step_noise_unrolled_batched``, ``stacked_step_noise_batched`` and
 ``add_noise_batched`` launch ``csrc/threefry_normal.cu`` on CUDA tensors,
 one launch a call, counted under the variants "unrolled", "stacked" and
-"sgld"; anything else raises.  ``step_noise_unrolled``,
+"sgld"; anything else raises.  ``bits_to_erf_inv_batched`` runs the
+bits -> normal map alone on given words (variant "map"), which no path
+calls: ``chip_smoke.py`` checks it on every mantissa.  ``step_noise_unrolled``,
 ``stacked_step_noise`` and ``add_noise`` send CUDA keys (a CUDA leaf) to
 the kernel and CPU ones to the plain versions of ``ref.py``, which the
 kernel equals bit for bit.
@@ -22,9 +24,11 @@ from repro_torch.kernels import (KernelLibrary, check_cuda,
                                  stream_ptr)
 from repro_torch.kernels.noise import ref
 
+# no multiply and add contracted into an FMA but the source's own
+FLAGS = ("-fmad=false",)
 LIBRARY = KernelLibrary(
     "threefry_normal", Path(__file__).parent / "csrc" / "threefry_normal.cu",
-    flags=("-fmad=false",))
+    flags=FLAGS)
 
 _GRID_YZ = 65535        # the most blocks along a grid's y and z
 _M32 = 0xFFFFFFFF
@@ -101,6 +105,24 @@ def add_noise_batched(p: torch.Tensor, key: torch.Tensor, std: torch.Tensor,
               p.numel(), out.data_ptr(), stream_ptr())
     raise_on_error(code, "sgld_noise")
     LIBRARY.count("sgld")
+    return out
+
+
+def bits_to_erf_inv_batched(bits: torch.Tensor) -> torch.Tensor:
+    """The kernel's bits -> erf_inv map alone: CUDA int64 words (uint32
+    values) -> float32 ``random.bits_to_erf_inv(bits)``, one launch,
+    counted under "map" (the exhaustive check's entry point)."""
+    check_cuda((bits,), ("bits",))
+    if bits.dtype != torch.int64:
+        raise ValueError(f"bits must be int64 words, got {bits.dtype}")
+    words = torch.where(bits > 0x7FFFFFFF, bits - (1 << 32), bits
+                        ).to(torch.int32).contiguous()
+    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
+    fn = LIBRARY.function("noise_map_launch", [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p])
+    code = fn(words.data_ptr(), words.numel(), out.data_ptr(), stream_ptr())
+    raise_on_error(code, "noise_map")
+    LIBRARY.count("map")
     return out
 
 

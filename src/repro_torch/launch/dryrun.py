@@ -268,13 +268,15 @@ def materialize(tree, device_mesh, make_local):
 
 
 def measure(setup: CellSetup, inputs: tuple, mesh_shape: Dict[str, int],
-            fake_modes=(), device=None, limit_s: Optional[float] = None
-            ) -> Dict[str, Any]:
+            fake_modes=(), device=None, limit_s: Optional[float] = None,
+            sites: bool = False) -> Dict[str, Any]:
     """Run the cell's step once on ``inputs`` (its inputs, DTensors on a
     mesh of ``mesh_shape``, or plain tensors) and read it: the memory,
     flops, write bytes and collectives of one device
-    (``op_analysis.probe``'s ``fake_modes`` and ``device``); a trace
-    longer than ``limit_s`` raises ``TimeoutError``."""
+    (``op_analysis.probe``'s ``fake_modes``, ``device`` and ``sites``:
+    with ``sites``, each collective's model source line too, under
+    ``"collective_sites"``); a trace longer than ``limit_s`` raises
+    ``TimeoutError``."""
     from torch.distributed.tensor.experimental import implicit_replication
     arg_bytes = argument_bytes(setup)
     shardctx.set_activation_sharding(setup.batch_axes, setup.model_axis,
@@ -287,7 +289,8 @@ def measure(setup: CellSetup, inputs: tuple, mesh_shape: Dict[str, int],
                 out, probe = op_analysis.probe(setup.step, *inputs,
                                                fake_modes=fake_modes,
                                                device=device,
-                                               deadline=deadline)
+                                               deadline=deadline,
+                                               sites=sites)
             except TimeoutError:
                 raise TimeoutError(
                     f"the trace ran past {limit_s:.0f} s") from None
@@ -295,7 +298,9 @@ def measure(setup: CellSetup, inputs: tuple, mesh_shape: Dict[str, int],
     finally:
         shardctx.clear()
     tot = op_analysis.totals(probe)
+    extra = {"collective_sites": probe.sites} if sites else {}
     return {
+        **extra,
         "t_trace_s": round(t_trace, 2),
         "memory": {"argument_size_in_bytes": arg_bytes,
                    "output_size_in_bytes": local_bytes(out),
@@ -310,10 +315,11 @@ def measure(setup: CellSetup, inputs: tuple, mesh_shape: Dict[str, int],
 
 
 def lower_cell(arch: str, cell: ShapeCell, multi_pod: bool,
-               cfg=None, mesh_shape: Optional[Dict[str, int]] = None
-               ) -> Dict[str, Any]:
+               cfg=None, mesh_shape: Optional[Dict[str, int]] = None,
+               sites: bool = False) -> Dict[str, Any]:
     """Trace one cell on the production mesh (or ``mesh_shape``) of a
-    fake world; ``cfg`` replaces the registry's config."""
+    fake world; ``cfg`` replaces the registry's config; ``sites`` as
+    ``measure``'s."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     if mesh_shape is None:
         mesh_shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
@@ -333,19 +339,22 @@ def lower_cell(arch: str, cell: ShapeCell, multi_pod: bool,
         dm = dtensor_mesh(mesh_shape)
         inputs = tuple(materialize(t, dm, make_local) for t in setup.inputs)
         res = measure(setup, inputs, mesh_shape, fake_modes={id(fake)},
-                      limit_s=TRACE_LIMIT_S)
+                      limit_s=TRACE_LIMIT_S, sites=sites)
     return {"arch": arch, "cell": cell.name, "mesh": mesh_name(mesh_shape),
             "devices": n, "ok": True, **res}
 
 
 def run_cell(arch: str, cell_name: str, multi_pod: bool,
-             force: bool = False) -> Dict[str, Any]:
+             force: bool = False, sites: bool = False) -> Dict[str, Any]:
     os.makedirs(OUT_DIR, exist_ok=True)
     tag = f"{arch}__{cell_name}__{'mp' if multi_pod else 'sp'}"
     path = os.path.join(OUT_DIR, tag + ".json")
     if os.path.exists(path) and not force:
         with open(path) as f:
-            return json.load(f)
+            cached = json.load(f)
+        if not sites or "collective_sites" in cached or not cached.get(
+                "ok"):
+            return cached
     cell = next(c for c in SHAPE_CELLS if c.name == cell_name)
     cfg = registry.get_config(arch)
     skip = registry.applicable(cfg, cell)
@@ -355,7 +364,7 @@ def run_cell(arch: str, cell_name: str, multi_pod: bool,
                                   "mesh": mesh, "ok": None, "skipped": skip}
     else:
         try:
-            result = lower_cell(arch, cell, multi_pod)
+            result = lower_cell(arch, cell, multi_pod, sites=sites)
         except Exception as e:  # noqa: BLE001 — record the failure
             result = {"arch": arch, "cell": cell_name, "mesh": mesh,
                       "ok": False, "error": f"{type(e).__name__}: {e}",
@@ -388,6 +397,9 @@ def main(argv=None) -> int:
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--sites", action="store_true",
+                    help="attribute each collective to the model source "
+                         "line that issued it; print the largest")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -402,12 +414,18 @@ def main(argv=None) -> int:
 
     n_ok = n_skip = n_fail = 0
     for arch, cell, mp in jobs:
-        r = run_cell(arch, cell, mp, force=args.force)
+        r = run_cell(arch, cell, mp, force=args.force, sites=args.sites)
         line = status_line(r)
         n_ok += line.startswith("[OK")
         n_skip += line.startswith("[SKIP")
         n_fail += line.startswith("[FAIL")
         print(line, flush=True)
+        for site, kinds in sorted(
+                r.get("collective_sites", {}).items(),
+                key=lambda kv: -sum(b for _, b in kv[1].values()))[:12]:
+            print("    " + site + ": " + ", ".join(
+                f"{k} {n} ({b / 2**20:.1f} MiB)"
+                for k, (n, b) in kinds.items()))
     print(f"done: {n_ok} ok, {n_skip} skipped, {n_fail} failed")
     return 1 if n_fail else 0
 

@@ -34,16 +34,24 @@ The functions and their JAX counterparts:
         arguments' storages are not counted);
     eager mode unrolls every Python loop, so every count is already
     weighted by its trip count (JAX weights while bodies by
-    ``known_trip_count``);
+    ``known_trip_count``); a loop that traces one body for its trips in
+    a fake trace (the sLSTM's, ``models/recurrent.py``) counts it
+    through :meth:`OpProbe.weighted` and holds its trips' outputs
+    through :meth:`OpProbe.holding`, so its counts and peak are the
+    unrolled loop's; one that records gradients runs unrolled on meta
+    twins of its inputs (:func:`on_meta`), counted as on the fake
+    tensors but without FakeTensor's dispatch;
   * :func:`count_ops` ~ ``count_ops``: the aten-op census without views
     and bookkeeping; :func:`op_count` ~ ``compiled_op_count``: (total,
     census); :func:`op_budget_check` ~ ``op_budget_check``.  The one
     difference: JAX's census is static, one entry per compiled op, but
     eager mode dispatches a Python loop's body once per trip, and the
     census counts each dispatch;
-  * :func:`count_launches`: the CUDA kernels one call launches, from
-    ``torch.profiler`` on the card, the counterpart of the op budgets
-    that the JAX package pins on its compiled HLO;
+  * :func:`count_launches`: the CUDA kernels one call launches, the
+    kernel nodes of a CUDA graph captured around it on the card
+    (:func:`graph_nodes` counts its memset and memcpy nodes apart), the
+    counterpart of the op budgets that the JAX package pins on its
+    compiled HLO;
   * :func:`collective_shapes` / :func:`collective_budget` ~ their
     namesakes: ``[{"op", "dims", "bytes"}]`` and ``{op: {"count",
     "bytes"}}`` of one call, read from the ``sharding.WireCensus`` open
@@ -52,6 +60,10 @@ The functions and their JAX counterparts:
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import os
+import sys
 import time
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
@@ -148,7 +160,7 @@ class OpProbe(TorchDispatchMode):
     (a device type, "cuda"): count only the ops with a tensor there."""
 
     def __init__(self, fake_modes=(), device: Optional[str] = None,
-                 deadline: Optional[float] = None):
+                 deadline: Optional[float] = None, sites: bool = False):
         super().__init__()
         self.fake_modes = set(fake_modes)
         self.device = device
@@ -161,10 +173,46 @@ class OpProbe(TorchDispatchMode):
         self.peak = 0
         self._held: Dict[int, int] = {}
         self.census_of_wire: Optional[shd.WireCensus] = None
+        # the trip count the ops recorded now stand for (``weighted``)
+        self.weight = 1
+        # with ``sites``: {model source line: {collective: [count,
+        # bytes]}}, each collective at the innermost frame of
+        # ``repro_torch/models`` that issued it
+        self.sites: Optional[Dict[str, Dict[str, list]]] = \
+            {} if sites else None
+        # plain meta tensors counted as the trace's (``on_meta``), by id,
+        # and a switch that lets ops pass uncounted (the twins' making)
+        self._twins: Dict[int, Any] = {}
+        self._paused = False
+
+    @contextlib.contextmanager
+    def weighted(self, trips: int):
+        """Inside the block each recorded op counts ``trips`` times in
+        the FLOPs, write bytes, census and collectives (one loop body
+        standing for its trips, as JAX's ``hlo_analysis`` weights a while
+        body by its known trip count); memory is counted once."""
+        old, self.weight = self.weight, self.weight * int(trips)
+        try:
+            yield
+        finally:
+            self.weight = old
+
+    @contextlib.contextmanager
+    def holding(self, nbytes: int):
+        """Inside the block ``nbytes`` more are live, as storages of the
+        trips a ``weighted`` body stands for would be."""
+        self.live += int(nbytes)
+        self.peak = max(self.peak, self.live)
+        try:
+            yield
+        finally:
+            self.live -= int(nbytes)
 
     # -- dispatch --
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._paused:
+            return func(*args, **kwargs)
         if self.deadline is not None and time.perf_counter() > self.deadline:
             raise TimeoutError("the probe's deadline passed")
         from torch.distributed.tensor import DTensor
@@ -174,17 +222,61 @@ class OpProbe(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **kwargs)
         outs = _op_tensors(out)
+        if self._twins and any(self._is_twin(t) for t in ins):
+            for t in outs:
+                if t.device.type == "meta":
+                    self._register(t)
         if self._ours(ins + outs):
             self._record(func, args, kwargs, out, outs)
         return out
 
+    def _is_twin(self, t) -> bool:
+        ref = self._twins.get(id(t))
+        return ref is not None and ref() is t
+
+    def _register(self, t: torch.Tensor) -> None:
+        """``t``, a meta tensor, counted as the trace's while it lives."""
+        key = id(t)
+
+        def drop(ref, key=key, twins=self._twins):
+            if twins.get(key) is ref:
+                del twins[key]
+        self._twins[key] = weakref.ref(t, drop)
+
+    def twin(self, t: torch.Tensor, like: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+        """``t``'s twin, made uncounted: a plain meta tensor the probe
+        counts as the trace's (``like`` None) or a fake tensor of
+        ``like``'s mode.  The twin holds ``t``, so the storage the probe
+        counts lives as long as either."""
+        with self.paused():
+            if like is None:
+                out = torch.empty_strided(t.shape, t.stride(),
+                                          dtype=t.dtype, device="meta")
+                self._register(out)
+            else:
+                out = like.new_empty_strided(t.shape, t.stride(),
+                                             dtype=t.dtype)
+        out._twin = t
+        return out
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Inside the block ops pass uncounted."""
+        old, self._paused = self._paused, True
+        try:
+            yield
+        finally:
+            self._paused = old
+
     def _ours(self, tensors) -> bool:
-        """An op of the traced step: no meta tensor and no fake tensor of
-        another mode (DTensor's shape inference); in a fake trace, one of
-        its tensors a fake of the trace; with ``device`` set, one of them
-        on that device type (DTensor's host-side bookkeeping is left
-        out)."""
+        """An op of the traced step: no meta tensor but the trace's meta
+        twins (``on_meta``) and no fake tensor of another mode (DTensor's
+        shape inference); in a fake trace, one of its tensors a fake or a
+        twin of the trace; with ``device`` set, one of them on that
+        device type (DTensor's host-side bookkeeping is left out)."""
         mine = not self.fake_modes and self.device is None
+        twins = bool(self._twins) and any(self._is_twin(t) for t in tensors)
         for t in tensors:
             m = _fake_mode(t)
             if m is not None:
@@ -192,7 +284,11 @@ class OpProbe(TorchDispatchMode):
                     return False
                 mine = True
             elif t.device.type == "meta":
-                return False
+                # a meta twin's op (a scalar it meets may be an untracked
+                # meta tensor), or DTensor's shape inference
+                if not twins:
+                    return False
+                mine = True
             elif self.device is not None and t.device.type == self.device:
                 mine = True
         return mine
@@ -202,20 +298,27 @@ class OpProbe(TorchDispatchMode):
         if func.is_view or name in _BOOKKEEPING:
             return
         short = name.split("::")[-1]
-        self.census[short] = self.census.get(short, 0) + 1
-        self.write_bytes += sum(_nbytes(t) for t in outs)
+        w = self.weight
+        self.census[short] = self.census.get(short, 0) + w
+        self.write_bytes += w * sum(_nbytes(t) for t in outs)
         if func in _DOTS:
             mats = [a for a in args if isinstance(a, torch.Tensor)]
-            self.flops += 2 * outs[0].numel() * _DOTS[func](*mats)
+            self.flops += w * 2 * outs[0].numel() * _DOTS[func](*mats)
         elif func.overloadpacket in _other_flops():
-            self.other_flops += int(_other_flops()[func.overloadpacket](
+            self.other_flops += w * int(_other_flops()[func.overloadpacket](
                 *args, **kwargs, out_val=out))
         if name.startswith("_c10d_functional::") and short in _COLLECTIVES:
             census = self.census_of_wire
-            if census is not None:
-                for t in outs:
-                    census.calls.append((_COLLECTIVES[short], tuple(t.shape),
-                                         _nbytes(t)))
+            kind = _COLLECTIVES[short]
+            for t in outs:
+                if census is not None:
+                    census.calls.extend(
+                        [(kind, tuple(t.shape), _nbytes(t))] * w)
+                if self.sites is not None:
+                    entry = self.sites.setdefault(_model_site(), {})
+                    acc = entry.setdefault(kind, [0, 0])
+                    acc[0] += w
+                    acc[1] += w * _nbytes(t)
         # an in-place or out= op writes into storage it was given; only a
         # fresh output is an allocation
         if not any(r.alias_info is not None for r in func._schema.returns):
@@ -241,6 +344,83 @@ class OpProbe(TorchDispatchMode):
         self.live -= self._held.pop(key, 0)
 
 
+def _model_site() -> str:
+    """``file:line function`` of the innermost frame of the model code
+    (``repro_torch/models``) on the Python stack, else "elsewhere"."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        path = frame.f_code.co_filename.replace(os.sep, "/")
+        if "/repro_torch/models/" in path:
+            return (f"models/{path.rsplit('/models/', 1)[1]}:"
+                    f"{frame.f_lineno} {frame.f_code.co_name}")
+        frame = frame.f_back
+    return "elsewhere"
+
+
+class _ToMeta(torch.autograd.Function):
+    """A fake tensor of the trace -> its meta twin (``OpProbe.twin``);
+    the gradient back to a fake twin like ``like``."""
+
+    @staticmethod
+    def forward(ctx, probe, x, like):
+        ctx.set_materialize_grads(False)
+        ctx.probe, ctx.like = probe, like
+        return probe.twin(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None if g is None else ctx.probe.twin(g, ctx.like),
+                None)
+
+
+class _ToFake(torch.autograd.Function):
+    """A meta twin -> a fake tensor like ``like``; the gradient back to a
+    meta twin."""
+
+    @staticmethod
+    def forward(ctx, probe, m, like):
+        ctx.set_materialize_grads(False)
+        ctx.probe = probe
+        return probe.twin(m, like)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, (None if g is None else ctx.probe.twin(g)), None
+
+
+def on_meta(probe: "OpProbe", fn, *args):
+    """``fn(*args)`` in a fake trace, run on plain meta twins of its
+    tensor arguments and handed back as fake tensors (a tree of tensors
+    out): every op of ``fn``, forward and backward, reaches ``probe``
+    as it would on the fake tensors (the same aten ops, counted and
+    held the same), without FakeTensor's dispatch, which costs ~0.3 ms
+    an op.  No op of the crossing is counted, and each twin keeps its
+    original alive, so storages live as the fake trace's would."""
+    from torch.utils._pytree import tree_map
+    with probe.paused():
+        like = next(a for a in args
+                    if isinstance(a, torch.Tensor)).new_empty(())
+    metas = [_ToMeta.apply(probe, a, like) if isinstance(a, torch.Tensor)
+             else a for a in args]
+    out = fn(*metas)
+    return tree_map(lambda t: _ToFake.apply(probe, t, like)
+                    if isinstance(t, torch.Tensor) else t, out)
+
+
+def fake_trace_probe(t) -> Optional["OpProbe"]:
+    """The innermost :class:`OpProbe` on the dispatch-mode stack when
+    ``t`` is one of its fake trace's tensors (the dry run's), else None:
+    a loop that finds one may trace one body ``weighted`` by its trips."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    mode = _fake_mode(t)
+    if mode is None:
+        return None
+    for m in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(m, OpProbe) and id(mode) in m.fake_modes:
+            return m
+    return None
+
+
 _OTHER_FLOPS: Optional[dict] = None
 
 
@@ -257,14 +437,14 @@ def _other_flops() -> dict:
 
 
 def probe(fn, *args, fake_modes=None, device=None, deadline=None,
-          **kwargs) -> Tuple[Any, OpProbe]:
+          sites=False, **kwargs) -> Tuple[Any, OpProbe]:
     """``(fn(*args, **kwargs), the probe that watched it)``, inside a
     wire census (``probe.census_of_wire``); ``fake_modes`` defaults to
-    those of the arguments, ``device`` and ``deadline`` as
+    those of the arguments, ``device``, ``deadline`` and ``sites`` as
     :class:`OpProbe`'s."""
     modes = (trace_fake_modes(args, kwargs) if fake_modes is None
              else set(fake_modes))
-    p = OpProbe(modes, device, deadline)
+    p = OpProbe(modes, device, deadline, sites)
     with shd.wire_census() as census:
         p.census_of_wire = census
         with p:
@@ -320,30 +500,90 @@ def op_budget_check(fn, *args, budget: int, **kwargs
     return total <= budget, total, census
 
 
+# CUgraphNodeType (cuda.h): the kinds counted apart, and a child graph,
+# whose nodes are counted in its place
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_CHILD_GRAPH = 4
+
+
+class _Driver:
+    """The three CUDA driver calls that read a graph's nodes, through
+    ``ctypes`` on the driver library torch has loaded (a ``cudaGraph_t``
+    is a ``CUgraph``)."""
+
+    def __init__(self):
+        self._lib = ctypes.CDLL("libcuda.so.1")
+
+    def _call(self, name, *args) -> None:
+        code = getattr(self._lib, name)(*args)
+        if code != 0:
+            raise RuntimeError(f"{name} failed: CUresult {code}")
+
+    def nodes(self, graph: int) -> list:
+        n = ctypes.c_size_t(0)
+        self._call("cuGraphGetNodes", ctypes.c_void_p(graph), None,
+                   ctypes.byref(n))
+        arr = (ctypes.c_void_p * n.value)()
+        self._call("cuGraphGetNodes", ctypes.c_void_p(graph), arr,
+                   ctypes.byref(n))
+        return list(arr[:n.value])
+
+    def kind(self, node: int) -> int:
+        t = ctypes.c_int(-1)
+        self._call("cuGraphNodeGetType", ctypes.c_void_p(node),
+                   ctypes.byref(t))
+        return t.value
+
+    def child(self, node: int) -> int:
+        g = ctypes.c_void_p()
+        self._call("cuGraphChildGraphNodeGetGraph", ctypes.c_void_p(node),
+                   ctypes.byref(g))
+        return g.value
+
+
+def count_nodes(driver, graph: int, counts: Optional[Dict[str, int]] = None
+                ) -> Dict[str, int]:
+    """``{"kernel", "memcpy", "memset", "other"}`` node counts of
+    ``graph``, a child graph's nodes counted where it stands."""
+    if counts is None:
+        counts = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
+    for node in driver.nodes(graph):
+        kind = driver.kind(node)
+        if kind == _CHILD_GRAPH:
+            count_nodes(driver, driver.child(node), counts)
+        else:
+            name = _NODE_KINDS.get(kind, "other")
+            counts[name] += 1
+    return counts
+
+
+def graph_nodes(fn, *args, **kwargs) -> Dict[str, int]:
+    """The nodes of a CUDA graph captured around one call of ``fn`` after
+    a warm call (which builds the kernels and fills the caches):
+    :func:`count_nodes`'s counts.  The count is the call's own, whatever
+    ran before it in the process.  A call that cannot be captured (a host
+    sync, a copy from pageable memory) raises; nothing falls back."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_nodes captures a CUDA graph: no CUDA")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args, **kwargs)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with torch.cuda.graph(graph):
+            fn(*args, **kwargs)
+        return count_nodes(_Driver(), graph.raw_cuda_graph())
+    finally:
+        graph.reset()
+
+
 def count_launches(fn, *args, **kwargs) -> int:
-    """The CUDA kernels one call of ``fn`` launches, from
-    ``torch.profiler`` on the card: the largest count of three sessions,
-    each recording one call after a warm call in the profiler's warm-up
-    step, where the tracer starts.  Late in a long process a session
-    recorded from its start has lost its first 56-70 kernels; this count
-    has come within one event of a fresh process's (one more on a
-    propagate, none of a draw of one kernel), so a count of a few
-    kernels is better read from the wrappers' own counters."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    counts = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            prof.step()
-            fn(*args, **kwargs)
-            torch.cuda.synchronize()
-        counts.append(sum(1 for e in prof.events()
-                          if e.device_type == DeviceType.CUDA))
-    return max(counts)
+    """The CUDA kernels one call of ``fn`` launches: the kernel nodes of
+    :func:`graph_nodes`' graph."""
+    return graph_nodes(fn, *args, **kwargs)["kernel"]
 
 
 # ---------------------------------------------------------------------------

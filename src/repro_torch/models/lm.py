@@ -337,13 +337,17 @@ def _mlstm_block(p: Params, cfg: ModelConfig, x, *, state=None):
     new_state = None
     if state is None or state == "collect":
         xc = L._silu(R.causal_conv(p["conv"], xi))
+        # the projections once, for the outputs and the collected state
+        # (XLA's CSE merges JAX's two)
+        qkvif = R._mlstm_qkvif(p["cell"], xc)
         cell_out = R.mlstm_parallel(p["cell"], xc, cfg.n_heads,
-                                    chunk=rc.chunk_size)
+                                    chunk=rc.chunk_size, qkvif=qkvif)
         if state == "collect":
             kw = rc.conv_width - 1
             new_state = {"conv": xi[:, -kw:].float(),
                          "cell": R.mlstm_final_state(p["cell"], xc,
-                                                     cfg.n_heads)}
+                                                     cfg.n_heads,
+                                                     qkvif=qkvif)}
     else:
         xc, conv_buf = R.causal_conv_step(p["conv"], state["conv"], xi[:, 0])
         cell_out, cell_state = R.mlstm_step(

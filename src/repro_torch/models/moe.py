@@ -20,9 +20,14 @@ off before anything reads it, so its duplicate writes never decide a
 value.  ``shardctx.constrain_expert_weight`` sits at the JAX package's
 site, on the three expert weights in compute_dtype: the identity unless
 a launcher sets an activation sharding and the weights are DTensors.
+On DTensors the dispatch and the combine run on each rank's batch rows
+(``shardctx.rows_locally``) and the expert products on its rows and
+experts (``shardctx.experts_locally``), as XLA partitions the JAX
+package's row function, vmapped over the rows.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
@@ -84,6 +89,48 @@ def route(logits: torch.Tensor, k: int, e: int, cap: int):
     return probs, top_w.reshape(b, -1), flat_ids, slot, keep
 
 
+def _dispatch(xq: torch.Tensor, ids: torch.Tensor, slot: torch.Tensor, *,
+              e: int, cap: int) -> torch.Tensor:
+    """An index buffer (B, E, cap + 1) of source tokens, the pad token s
+    (a zero row) where a slot stays empty, then a token gather ->
+    (B, E, cap, D)."""
+    b, s, d = xq.shape
+    k = ids.shape[1] // s
+    rows = torch.arange(b, device=xq.device)[:, None]
+    tok_ids = torch.arange(s * k, device=xq.device) // k
+    idx_buf = ids.new_full((b, e, cap + 1), s, dtype=torch.int64)
+    idx_buf[rows, ids, slot] = tok_ids.expand(b, -1)
+    x_pad = torch.cat([xq, xq.new_zeros(b, 1, d)], 1)
+    return x_pad[rows[..., None], idx_buf[:, :, :cap]]
+
+
+def _combine(out: torch.Tensor, ids: torch.Tensor, slot: torch.Tensor,
+             keep: torch.Tensor, w: torch.Tensor, *, k: int
+             ) -> torch.Tensor:
+    """Each choice's slot output (``out`` (B, E, cap, D)) times its
+    weight (zero if dropped), summed over the ``k`` choices in float32
+    (jnp.sum's upcast) -> (B, S, D) in ``out``'s dtype."""
+    b, e, cap, d = out.shape
+    out_buf = torch.cat([out, out.new_zeros(b, e, 1, d)], 2)  # cap + 1
+    rows = torch.arange(b, device=out.device)[:, None]
+    gathered = out_buf[rows, ids, torch.where(keep, slot, cap)]
+    gathered = gathered * (w * keep.to(torch.float32)).to(out.dtype)[..., None]
+    return torch.sum(gathered.reshape(b, -1, k, d).float(), 2).to(out.dtype)
+
+
+def _expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor,
+                w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """(B, E, cap, D) slots through each expert's SwiGLU -> (B, E, cap,
+    D): one ``torch.bmm`` a weight over the experts, every row's slots
+    together."""
+    b, e, cap, d = buf.shape
+    h = buf.transpose(0, 1).reshape(e, b * cap, d)
+    hg = _silu(torch.bmm(h, w_gate))
+    hu = torch.bmm(h, w_up)
+    out = torch.bmm(hg * hu, w_down)                        # (E, B*cap, D)
+    return out.reshape(e, b, cap, -1).transpose(0, 1)
+
+
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (y, aux losses ``moe_aux``, ``moe_z``,
@@ -97,31 +144,16 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
     logits = (xq.reshape(b * s, d) @ p["router"].to(cd)).reshape(b, s, e)
     probs, w, ids, slot, keep = route(logits, k, e, cap)
 
-    # dispatch: an index buffer (B, E, cap + 1) of source tokens, the pad
-    # token s (a zero row) where a slot stays empty, then a token gather
-    rows = torch.arange(b, device=x.device)[:, None]
-    tok_ids = torch.arange(s * k, device=x.device) // k
-    idx_buf = ids.new_full((b, e, cap + 1), s, dtype=torch.int64)
-    idx_buf[rows, ids, slot] = tok_ids.expand(b, -1)
-    x_pad = torch.cat([xq, xq.new_zeros(b, 1, d)], 1)
-    buf = x_pad[rows[..., None], idx_buf[:, :, :cap]]       # (B, E, cap, D)
-
-    # the expert FFN, batched over experts (all rows' slots together)
-    h = buf.transpose(0, 1).reshape(e, b * cap, d)
+    # dispatch, the expert FFN and the combine, each on each rank's batch
+    # rows (and the FFN on its experts) where the tensors are DTensors
+    buf = shardctx.rows_locally(functools.partial(_dispatch, e=e, cap=cap),
+                                xq, ids, slot)
     # the FSDP weight shards gathered at the use site
     w_gate, w_up, w_down = (shardctx.constrain_expert_weight(
         p[name].to(cd), e) for name in ("w_gate", "w_up", "w_down"))
-    hg = _silu(torch.bmm(h, w_gate))
-    hu = torch.bmm(h, w_up)
-    out = torch.bmm(hg * hu, w_down)                        # (E, B*cap, D)
-    out_buf = torch.cat([out.reshape(e, b, cap, d).transpose(0, 1),
-                         out.new_zeros(b, e, 1, d)], 2)     # (B, E, cap+1, D)
-
-    # combine: each choice's slot output times its weight (zero if
-    # dropped), summed over the k choices in float32 (jnp.sum's upcast)
-    gathered = out_buf[rows, ids, torch.where(keep, slot, cap)]
-    gathered = gathered * (w * keep.to(torch.float32)).to(cd)[..., None]
-    y = torch.sum(gathered.reshape(b, s, k, d).float(), 2).to(cd)
+    out = shardctx.experts_locally(_expert_ffn, buf, w_gate, w_up, w_down)
+    y = shardctx.rows_locally(functools.partial(_combine, k=k), out, ids,
+                              slot, keep, w)
 
     # aux statistics per row, then averaged over rows
     frac_tokens = torch.mean(

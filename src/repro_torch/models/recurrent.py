@@ -211,15 +211,16 @@ def _groupnorm(p: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def mlstm_parallel(p: Params, x: torch.Tensor, n_heads: int,
-                   chunk: int = 512) -> torch.Tensor:
+                   chunk: int = 512, qkvif=None) -> torch.Tensor:
     """Decay-masked parallel form, query chunk by query chunk: D_ij = F_i
     - F_j + itilde_j for j <= i (else -inf), each row stabilised by m_i =
     max(max_j D_ij, 0), the scores q k^T / sqrt(dk) exp(D - m) normalised
     by max(|their sum|, exp(-m)).  A length that ``chunk`` does not
-    divide is one chunk."""
+    divide is one chunk.  ``qkvif``: ``_mlstm_qkvif(p, x)`` when the
+    caller has it (prefill shares it with ``mlstm_final_state``)."""
     b, s, w = x.shape
     dk, _ = mlstm_dims(w, n_heads)
-    q, k, v, i_t, f_t = _mlstm_qkvif(p, x)
+    q, k, v, i_t, f_t = qkvif if qkvif is not None else _mlstm_qkvif(p, x)
     fc = torch.cumsum(shardctx.log_sigmoid(f_t), 1).transpose(1, 2)
     # fc: (B, H, S)
     it = i_t.transpose(1, 2)
@@ -247,11 +248,13 @@ def mlstm_parallel(p: Params, x: torch.Tensor, n_heads: int,
     return _groupnorm(p, h, n_heads)
 
 
-def mlstm_final_state(p: Params, x: torch.Tensor, n_heads: int) -> Params:
+def mlstm_final_state(p: Params, x: torch.Tensor, n_heads: int,
+                      qkvif=None) -> Params:
     """The closed-form (C, n, m) after x, which the step recursion
     reaches: m_T = max(F_T, max_j (F_T - F_j + i_j)), C_T = sum_j
-    exp(F_T - F_j + i_j - m_T) k_j v_j^T, n_T the same sum of k_j."""
-    _, k, v, i_t, f_t = _mlstm_qkvif(p, x)
+    exp(F_T - F_j + i_j - m_T) k_j v_j^T, n_T the same sum of k_j.
+    ``qkvif`` as ``mlstm_parallel``'s."""
+    _, k, v, i_t, f_t = qkvif if qkvif is not None else _mlstm_qkvif(p, x)
     fc = torch.cumsum(shardctx.log_sigmoid(f_t), 1)
     ft = fc[:, -1]                                            # (B, H)
     d = ft[:, None] - fc + i_t                                # (B, S, H)
@@ -342,14 +345,51 @@ def _slstm_cell(r: torch.Tensor, state: Params, z: torch.Tensor) -> Params:
 def _slstm_loop(z: torch.Tensor, r: torch.Tensor):
     """The time loop from the zero state: ``z`` (S, H, B, 4 hd) and ``r``
     from ``_slstm_r`` -> (h (H, S, B, hd), the final float32 state (c, n,
-    h, m) each (H, B, hd))."""
+    h, m) each (H, B, hd)).  In the dry run's fake trace: of a step that
+    records no gradient (prefill, decode), ``_slstm_loop_weighted``; of
+    one that records it (train), the loop unrolled on meta twins of its
+    inputs (``op_analysis.on_meta``), every step counted as on the fake
+    tensors, where a weighted body would miss eager autograd's per-step
+    accumulations of the gradients of z and r."""
+    from repro_torch.launch import op_analysis
+    probe = op_analysis.fake_trace_probe(z)
+    if probe is not None and z.shape[0] > 2:
+        if torch.is_grad_enabled() and (z.requires_grad or r.requires_grad):
+            return op_analysis.on_meta(probe, _slstm_loop_unrolled, z, r)
+        return _slstm_loop_weighted(z, r, probe)
+    return _slstm_loop_unrolled(z, r)
+
+
+def _slstm_zero_state(z, r) -> Params:
     zero = z.new_zeros(z.shape[1:3] + (r.shape[1],))
-    state = {k: zero for k in ("c", "n", "h", "m")}
+    return {k: zero for k in ("c", "n", "h", "m")}
+
+
+def _slstm_loop_unrolled(z, r):
+    state = _slstm_zero_state(z, r)
     hs = []
     for t in range(z.shape[0]):
         state = _slstm_cell(r, state, z[t])
         hs.append(state["h"])
     return torch.stack(hs, 1), state
+
+
+def _slstm_loop_weighted(z, r, probe):
+    """The loop as the dry run's probe counts it, the counterpart of JAX's
+    ``hlo_analysis`` weighting a scan's while body by its trip count:
+    step 0 traced, step 1 traced for steps 1 .. S - 1 (every step runs
+    the same ops on the same shapes), with the h of steps 1 .. S - 2
+    held as bytes meanwhile, then the S h's stacked whole.  FLOPs,
+    write bytes, the op census, collectives and the peak are the
+    unrolled loop's; the values are not (the trace has none)."""
+    s = z.shape[0]
+    state = _slstm_cell(r, _slstm_zero_state(z, r), z[0])
+    h0 = state["h"]
+    nbytes = h0.numel() * h0.element_size()
+    with probe.holding((s - 2) * nbytes):
+        with probe.weighted(s - 1):
+            state = _slstm_cell(r, state, z[1])
+        return torch.stack([h0] + [state["h"]] * (s - 1), 1), state
 
 
 def slstm_scan(p: Params, x: torch.Tensor, n_heads: int,

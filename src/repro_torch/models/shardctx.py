@@ -22,9 +22,10 @@ place a product by its communication alone (``weight_at_use``,
 ``constrain_vocab_table``, ``label_logit``), flatten or split split dims
 (``attend_locally``, ``splittable``, ``merged``), find no strategy
 (``log_sigmoid``'s backward; in some releases ``index_copy_``,
-``var_mean``) or propagate placements op by op through a time loop
-(``recur_locally``).  On plain tensors each is the
-plain op.
+``var_mean``), propagate placements op by op through a time loop
+(``recur_locally``), or gather the batch whole for the MoE's token
+gathers (``rows_locally``) and expert products (``experts_locally``).
+On plain tensors each is the plain op.
 """
 from __future__ import annotations
 
@@ -322,6 +323,82 @@ def attend_locally(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return DTensor.from_local(out, mesh, placements, run_check=False,
                               shape=torch.Size(shape),
                               stride=contiguous_stride(shape))
+
+
+def rows_locally(fn, *args):
+    """``fn(*args)``, a function independent across the batch rows (dim 0
+    of every tensor argument and output).  Where the first argument is a
+    DTensor it runs on each rank's rows, as XLA partitions the JAX
+    package's ``vmap`` over the rows: every DTensor argument keeps the
+    first's batch split (where the split divides B) and is whole along
+    every other mesh dim, and each output is placed as that.  Eager
+    DTensor would place an index op on the rows (the MoE's token
+    gather) by its own strategy, and gathers the batch whole.  Anything
+    else: ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    first = args[0]
+    if not isinstance(first, DTensor):
+        return fn(*args)
+    mesh = first.device_mesh
+    split = (_split_count(first, 0)
+             if first.shape[0] % _split_count(first, 0) == 0 else 1)
+    placements = [p if split > 1 and p.is_shard()
+                  and getattr(p, "dim", None) == 0 else Replicate()
+                  for p in first.placements]
+    local = [_ContiguousGrad.apply(a.redistribute(mesh, placements)
+                                   .to_local())
+             if isinstance(a, DTensor) else a for a in args]
+    out = fn(*local)
+
+    def placed(t):
+        t = t.contiguous()
+        shape = torch.Size((t.shape[0] * split,) + tuple(t.shape[1:]))
+        return DTensor.from_local(t, mesh, placements, run_check=False,
+                                  shape=shape,
+                                  stride=contiguous_stride(shape))
+    return tuple(map(placed, out)) if isinstance(out, tuple) else placed(out)
+
+
+def experts_locally(fn, buf: torch.Tensor, *weights: torch.Tensor
+                    ) -> torch.Tensor:
+    """``fn(buf, *weights)``: ``buf`` (B, E, cap, D) an expert dispatch
+    buffer, each weight (E, ...), the output (B, E, cap, D').  On a
+    DTensor ``buf`` it runs on each rank's batch rows and experts, as
+    XLA partitions the JAX package's expert einsums, vmapped over the
+    batch rows: ``buf`` keeps its batch split where the split divides B,
+    takes the weights' expert split (their dim 0's mesh dims) and is
+    whole along every other mesh dim, and the output is placed as
+    ``buf`` then is.  Eager DTensor merges the batch into the slots for
+    the products' ``bmm`` and gathers it whole on every data rank.
+    Anything else: ``fn(buf, *weights)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(buf, DTensor):
+        return fn(buf, *weights)
+    mesh = buf.device_mesh
+    w0 = weights[0]
+    placements = []
+    for i, p in enumerate(buf.placements):
+        wp = w0.placements[i] if isinstance(w0, DTensor) else Replicate()
+        if type(wp) is Shard and wp.dim == 0:
+            placements.append(Shard(1))
+        elif type(p) is Shard and p.dim == 0 \
+                and buf.shape[0] % _split_count(buf, 0) == 0:
+            placements.append(p)
+        else:
+            placements.append(Replicate())
+    local = _ContiguousGrad.apply(buf.redistribute(mesh, placements)
+                                  .to_local())
+    ws = []
+    for w in weights:
+        if isinstance(w, DTensor):
+            wp = [Shard(0) if type(p) is Shard and p.dim == 1
+                  else Replicate() for p in placements]
+            w = _ContiguousGrad.apply(w.redistribute(mesh, wp).to_local())
+        ws.append(w)
+    out = fn(local, *ws).contiguous()
+    shape = torch.Size(tuple(buf.shape[:3]) + (out.shape[3],))
+    return DTensor.from_local(out, mesh, placements, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
 
 
 def recur_locally(loop, z: torch.Tensor, r: torch.Tensor):

@@ -49,7 +49,11 @@ deepseek-v2-lite, recurrentgemma and xlstm smoke models at float32 on
 the card and the CPU through 20 decode steps (the ring buffer wrapping),
 one flash launch per attention layer of the prefill (none for xlstm).
 The noise kernel (``kernels/noise``): its three entry points bitwise
-their plain versions on the card and the CPU, one launch a call.
+their plain versions on the card and the CPU, one launch a call, the
+SGLD update also on leaves whose length 4 does not divide or that start
+off a 16-byte boundary; its bits -> normal map on all 2^23 mantissas
+bitwise the plain map; the graph count of ``op_analysis.count_launches``
+reads a stacked draw as 1 launch and the fused path's 11 blocks as 11.
 """
 import numpy as np
 import pytest
@@ -1140,3 +1144,55 @@ def test_noise_kernel_sgld_leaf_past_one_slice_and_refusals():
         nz_ops.add_noise_batched(p[:8].bfloat16(), key, std)
     with pytest.raises(ValueError):
         nz_ops.stacked_step_noise_batched(key.cpu()[None], 2, (3,))
+
+
+@pytest.mark.parametrize("n,start", [(3003, 0), (3000, 1), (4097, 3)])
+def test_noise_kernel_sgld_update_off_its_vector_layout(n, start):
+    """The SGLD update takes 4 elements a thread in 16-byte loads and
+    stores where the leaf's length and pointers allow: a tail of 1-3
+    elements and a leaf starting 4, 12 bytes past a 16-byte boundary go
+    element by element, bitwise the plain version."""
+    from repro_torch.kernels.noise import ops as nz_ops
+    from repro_torch.kernels.noise import ref as nz_ref
+    key = jr.key(n + start, "cuda")
+    whole = torch.randn(n + start, device="cuda")
+    p = whole[start:]
+    assert p.is_contiguous() and (p.data_ptr() % 16 == 0) == (start == 0)
+    std = torch.tensor(0.03, device="cuda")
+    got = nz_ops.add_noise_batched(p, key, std, offset=(1 << 26) - 7)
+    assert torch.equal(got, nz_ref.add_noise(p, key, std, (1 << 26) - 7))
+
+
+def test_noise_kernel_map_on_every_mantissa_is_the_plain_map():
+    """The kernel's bits -> erf_inv map (float32 FMAs on the FP32 pipes)
+    on every input the map reads, bits = m << 9 for all 2^23 mantissas
+    m, bitwise the plain ``random.bits_to_erf_inv`` (float64-emulated
+    FMAs), in one counted launch."""
+    from repro_torch.kernels.noise import ops as nz_ops
+    bits = torch.arange(1 << 23, dtype=torch.int64, device="cuda") << 9
+    nz_ops.LIBRARY.reset()
+    got = nz_ops.bits_to_erf_inv_batched(bits)
+    assert nz_ops.LIBRARY.variants == {"map": 1}
+    want = jr.bits_to_erf_inv(bits)
+    assert int((got.view(torch.int32) != want.view(torch.int32)).sum()) == 0
+
+
+def test_graph_count_reads_the_noise_draws():
+    """``op_analysis.count_launches`` counts the kernel nodes of a CUDA
+    graph captured around one call: the "pallas" path's stacked draw of
+    11 steps is 1, the fused path's 11 legacy-layout blocks 11, with no
+    memset or memcpy node; a call that syncs with the host cannot be
+    captured and raises."""
+    from repro_torch.launch import op_analysis
+    from repro_torch.md import noise as NZ
+    from repro_torch.md.integrators import stacked_step_noise
+    keys = jr.split(jr.key(7, "cuda"), 8)
+    shape = (2881, 3)
+    stacked = op_analysis.graph_nodes(
+        lambda: stacked_step_noise(keys, 11, shape))
+    fused = op_analysis.graph_nodes(
+        lambda: [NZ.step_noise_unrolled(keys, i, shape) for i in range(11)])
+    assert stacked == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}
+    assert fused == {"kernel": 11, "memcpy": 0, "memset": 0, "other": 0}
+    with pytest.raises(RuntimeError):
+        op_analysis.count_launches(lambda: float(keys.sum()))

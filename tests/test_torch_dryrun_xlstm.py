@@ -10,7 +10,12 @@
     ways into 2 heads; on xLSTM-1.3B's 2x16x16, 512 ways into 4);
   * ``recur_locally``: the sLSTM's time loop on each rank's plain shards
     (the step's 17 ops a step through DTensor's placement propagation
-    took a 32,768-step prefill past the dry run's time limit).
+    took a 32,768-step prefill past the dry run's time limit); in a
+    fake trace that records no gradient the loop is one step weighted
+    by its trips (``recurrent._slstm_loop_weighted``), whose counts and
+    peak equal the unrolled loop's; in a train trace the loop runs
+    unrolled on meta twins of its inputs (``op_analysis.on_meta``),
+    counted as on the fake tensors, without FakeTensor's dispatch.
 
 xlstm-smoke's train, prefill and decode cells trace OK on a fake (2, 4)
 mesh and on a fake (2, 2, 4) multi-pod mesh, each in a child process (a
@@ -66,13 +71,50 @@ def trace(cell):
         return {"ok": False, "error": f"{type(e).__name__}: {e}"}
 
 
+weighted = []
+plain_weighted = R._slstm_loop_weighted
+
+
+def recording_weighted(z, r, probe):
+    weighted.append(z.shape[0])
+    return plain_weighted(z, r, probe)
+
+
+from repro_torch.launch import op_analysis
+on_meta = []
+plain_on_meta = op_analysis.on_meta
+
+
+def recording_on_meta(probe, fn, *args):
+    on_meta.append(args[0].shape[0])
+    return plain_on_meta(probe, fn, *args)
+
+
 R._slstm_loop = recording_loop
+R._slstm_loop_weighted = recording_weighted
+op_analysis.on_meta = recording_on_meta
 out = {}
 train = ShapeCell("train_s", "train", SEQ, 8)
-for cell in (train, ShapeCell("prefill_s", "prefill", SEQ, 4),
-             ShapeCell("decode_s", "decode", SEQ, 4)):
+prefill = ShapeCell("prefill_s", "prefill", SEQ, 4)
+for cell in (train, prefill, ShapeCell("decode_s", "decode", SEQ, 4)):
     out[cell.kind] = trace(cell)
 out["loops"] = list(loops)
+out["weighted"] = list(weighted)
+out["on_meta"] = list(on_meta)
+# the prefill and train cells again with every sLSTM loop unrolled step
+# by step on the fake tensors
+found = op_analysis.fake_trace_probe
+op_analysis.fake_trace_probe = lambda t: None
+out["prefill_unrolled"] = trace(prefill)
+out["train_unrolled"] = trace(train)
+op_analysis.fake_trace_probe = found
+# the prefill's collectives by the model line that issued them, at 2 and
+# 4 chunks of the mLSTM's parallel form
+for n in (2, 4):
+    cell = ShapeCell("p", "prefill", n * cfg.recurrent.chunk_size, 4)
+    r = dryrun.lower_cell("xlstm_1_3b", cell, "pod" in MESH, cfg=cfg,
+                          mesh_shape=MESH, sites=True)
+    out[f"sites{n}"] = r["collective_sites"]
 if "pod" in MESH:
     shardctx.merged = lambda x, dim, outer: x
     out["without_merged"] = trace(train).get("error", "OK")
@@ -139,6 +181,50 @@ def test_slstm_loop_runs_on_plain_shards(traced, mesh):
     loops = traced[mesh]["loops"]
     assert len(loops) == 2 * 2 + 2
     assert all(z == r == "FakeTensor" and s == SEQ for z, r, s in loops)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_weighted_slstm_loop_counts_as_the_unrolled_loop(traced, mesh,
+                                                         kind):
+    """The prefill's sLSTM loops, one a block, are traced as one step
+    weighted by its trips (``_slstm_loop_weighted``, JAX's while body
+    weighted by its trip count); the train cell's, which record
+    gradients, run unrolled on meta twins of their inputs
+    (``op_analysis.on_meta``: the forward and its remat, 2 blocks x 2);
+    either way the FLOPs, write bytes, peak and collectives equal those
+    of the loops unrolled step by step on the fake tensors."""
+    r = traced[mesh]
+    assert r["weighted"] == [SEQ, SEQ]
+    assert r["on_meta"] == [SEQ] * 4
+    got, want = r[kind], r[f"{kind}_unrolled"]
+    assert want["ok"] is True
+    for key in ("flops_per_device", "write_bytes_per_device", "memory",
+                "collectives"):
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_prefill_collectives_are_the_mlstm_chunks(traced, mesh):
+    """The attribution of xLSTM's prefill collectives (a counted
+    difference, PERF.md section 6): lines of ``mlstm_parallel``'s chunk
+    loop issue all-gathers or reduce-scatters in every chunk (DTensor
+    resolves the projections' partial sums, whose contraction the
+    "model" axis splits, and gathers each chunk's scores, chunk by
+    chunk): their counts double from 2 to 4 chunks.  At xLSTM-1.3B's
+    prefill_32k (64 chunks) such lines carry most of the all-gather and
+    reduce-scatter bytes; here the blocks' own collectives outweigh
+    them."""
+    two, four = traced[mesh]["sites2"], traced[mesh]["sites4"]
+    per_chunk = {site: kinds for site, kinds in four.items()
+                 if site.endswith(" mlstm_parallel") and site in two
+                 and all(kind in two[site] and 2 * two[site][kind][0] == n
+                         for kind, (n, _) in kinds.items())}
+    kinds = {k for v in per_chunk.values() for k in v}
+    assert "reduce-scatter" in kinds, four
+    # at least one a chunk and mLSTM block (the smoke config has two)
+    assert sum(n for v in per_chunk.values() for n, _ in v.values()) \
+        >= 4 * 2
 
 
 def test_routes_are_the_plain_ops_on_plain_tensors():

@@ -17,14 +17,14 @@
         q/k head dim for its attention and slices the output, so its
         probs @ v is 2 B H S^2 (Dqk - Dv) a layer wider; train runs it
         four times (the forward, its remat, the two backward products);
-      - xLSTM: the port's prefill computes each mLSTM block's q, k, v,
-        i, f projections twice (``mlstm_parallel`` and
-        ``mlstm_final_state``), which XLA's CSE merges; JAX contracts
-        the normaliser q . n (``"bhk,bhk->bh"``, 2 B H dk a block and
-        step), the closed form's n (``"bsh,bshk->bhk"``) and its
-        weighting of k as ``dot``s, where the port multiplies and sums.
-        After the projections are taken out, xLSTM is held within
-        XLSTM_REL of JAX's count (the rest: those small contractions).
+      - xLSTM: JAX contracts the normaliser q . n (``"bhk,bhk->bh"``,
+        2 B H dk a block and step), the closed form's n
+        (``"bsh,bshk->bhk"``) and its weighting of k as ``dot``s, where
+        the port multiplies and sums, so xLSTM is held within XLSTM_REL
+        of JAX's count (the rest: those small contractions).  Prefill
+        computes each mLSTM block's q, k, v, i, f projections once for
+        ``mlstm_parallel`` and ``mlstm_final_state``, as XLA's CSE
+        merges JAX's two, so nothing is taken out for them.
   * per-device FLOPs: on ``fake_world(256)``'s 16x16 mesh, a (4, 4096,
     2048) local block sharded on batch times a (2048, 512) local block
     sharded on columns counts 2 * 4 * 4096 * 2048 * 512 = 3.44e10, the
@@ -62,7 +62,6 @@ from repro.models import registry as j_registry
 from repro_torch import config
 from repro_torch.launch import op_analysis
 from repro_torch.launch import steps
-from repro_torch.models import recurrent as R
 from repro_torch.models import registry
 from repro_torch.tree import tree_map
 
@@ -156,19 +155,6 @@ def _port_flops(cfg, kind, seq):
     return op_analysis.analyze(step, *args)["flops"]
 
 
-def _mlstm_projection_flops(cfg, seq) -> float:
-    """The flops of one prefill's second computation of the mLSTM
-    blocks' projections (``mlstm_final_state``'s)."""
-    rc = cfg.recurrent
-    inner = int(rc.mlstm_proj_factor * cfg.d_model)
-    p = _draw(R.mlstm_defs(inner, cfg.n_heads), torch.Generator(),
-              torch.bfloat16)
-    x = torch.zeros((B, seq, inner), dtype=torch.bfloat16)
-    per = op_analysis.analyze(R._mlstm_qkvif, p, x)["flops"]
-    units = cfg.n_layers // rc.slstm_every
-    return per * units * (rc.slstm_every - 1)
-
-
 def _family_difference(cfg, kind, seq) -> float:
     """JAX's count minus the port's from the differences the module
     docstring lists (xLSTM's contractions aside)."""
@@ -181,8 +167,6 @@ def _family_difference(cfg, kind, seq) -> float:
         dqk = m.qk_nope_dim + m.qk_rope_dim
         per_layer = 2 * B * cfg.n_heads * seq * seq * (dqk - m.v_head_dim)
         diff += per_layer * cfg.n_layers * (4 if kind == "train" else 1)
-    if cfg.family == "ssm" and kind == "prefill":
-        diff -= _mlstm_projection_flops(cfg, seq)
     return diff
 
 
@@ -228,6 +212,46 @@ def test_count_ops_skips_views_and_counts_every_trip():
     assert op_analysis.op_budget_check(loop, x, budget=100)[0]
     ok, total, _ = op_analysis.op_budget_check(loop, x, budget=99)
     assert not ok and total == 100
+
+
+class _StubDriver:
+    """A graph of node kinds by id, read as ``op_analysis._Driver`` reads
+    a captured CUDA graph: ``graphs`` maps a graph to its nodes, a node
+    to its ``CUgraphNodeType``, ``children`` a child-graph node to its
+    graph."""
+
+    def __init__(self, graphs, kinds, children):
+        self.graphs, self.kinds, self.children = graphs, kinds, children
+
+    def nodes(self, graph):
+        return self.graphs[graph]
+
+    def kind(self, node):
+        return self.kinds[node]
+
+    def child(self, node):
+        return self.children[node]
+
+
+def test_graph_node_count_sorts_kinds_and_enters_child_graphs():
+    """``count_launches`` counts the kernel nodes of a captured CUDA
+    graph, memset and memcpy nodes apart, a child graph's nodes where it
+    stands (CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset, 4 child
+    graph, 5 empty, 7 event record)."""
+    drv = _StubDriver({1: [10, 11, 12, 13, 14, 15], 2: [20, 21, 22]},
+                      {10: 0, 11: 0, 12: 2, 13: 1, 14: 4, 15: 5,
+                       20: 0, 21: 7, 22: 2},
+                      {14: 2})
+    assert op_analysis.count_nodes(drv, 1) == {
+        "kernel": 3, "memcpy": 1, "memset": 2, "other": 2}
+
+
+def test_count_launches_needs_a_capture(monkeypatch):
+    """No CUDA, no count: the graph count raises rather than fall back
+    to another reading (the profiler's sessions lost kernels)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        op_analysis.count_launches(lambda: torch.ones(3) + 1)
 
 
 def test_analyze_counts_dots_writes_and_peak():

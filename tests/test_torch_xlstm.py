@@ -319,6 +319,44 @@ def test_prefill_then_step_is_prefill_of_one_more():
         assert _err(g, w) <= 2 * F32_CELL, path
 
 
+@pytest.mark.parametrize("exact", [True, False])
+def test_prefill_projects_each_mlstm_block_once(monkeypatch, exact):
+    """Prefill computes each mLSTM block's q, k, v, i, f once and hands
+    them to ``mlstm_parallel`` and ``mlstm_final_state`` (XLA's CSE
+    merges JAX's two): one ``_mlstm_qkvif`` call a block, and the logits
+    and every state leaf bitwise those of the two functions computing
+    their own projections."""
+    _, tc = _cfgs(exact)
+    lm = registry.build(tc)
+    _, tp = both_params(jr.key(0), lm.param_defs())
+    from repro_torch.tree import tree_paths
+    tokens = jr.randint(jr.key(1), (2, 32), 0, tc.vocab_size)
+    calls = []
+    qkvif = TR._mlstm_qkvif
+
+    def counted(p, x):
+        calls.append(x.shape)
+        return qkvif(p, x)
+
+    monkeypatch.setattr(TR, "_mlstm_qkvif", counted)
+    logits, state = lm.prefill(tp, {"tokens": tokens})
+    n_mlstm = tc.n_layers - tc.n_layers // tc.recurrent.slstm_every
+    assert len(calls) == n_mlstm == 2
+    parallel, final = TR.mlstm_parallel, TR.mlstm_final_state
+
+    def own(fn):
+        return lambda *a, qkvif=None, **kw: fn(*a, **kw)
+
+    monkeypatch.setattr(TR, "mlstm_parallel", own(parallel))
+    monkeypatch.setattr(TR, "mlstm_final_state", own(final))
+    calls.clear()
+    want_logits, want = lm.prefill(tp, {"tokens": tokens})
+    assert len(calls) == 3 * n_mlstm    # the block's, unused, and theirs
+    assert torch.equal(logits, want_logits)
+    for (path, g), (_, w) in zip(tree_paths(state), tree_paths(want)):
+        assert torch.equal(g, w), path
+
+
 def test_loss_matches_jax():
     jc, tc = _cfgs(True)
     jlm, tlm = j_registry.build(jc), registry.build(tc)
